@@ -1,0 +1,12 @@
+"""Granite-3.0-2B: dense GQA. [hf:ibm-granite/granite-3.0-2b-base; hf]
+40L d_model=2048 32H (GQA kv=8) d_ff=8192 vocab=49155.
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-3-2b", family="dense",
+    n_layers=40, d_model=2048, n_heads=32, n_kv_heads=8,
+    d_ff=8192, vocab_size=49155,
+    head_dim=64, rope_theta=10000.0, norm="rmsnorm", gated_mlp=True,
+    tie_embeddings=True,
+)
