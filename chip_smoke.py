@@ -11,6 +11,9 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    prints the build's seconds and ptxas's register/spill report;
 3. holds K1 (flash forward) against its plain version on the card, O and lse,
    over head groupings, head dims, ragged lengths, masks and dtypes;
+   then K2, K3 and K4 (flash backward: delta, dQ, dK and dV) the same way,
+   and the autograd ``FlashAttention`` against autograd through K1's plain
+   version;
 4. holds K5 (decode attention) against its plain version the same way;
 5. serves granite-3-2b at its published width and depth (random bf16
    weights from seed 0) through ``InferenceSession.generate``: 4 prompts of
@@ -20,11 +23,23 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    compared, twice, with the same session on the plain versions on the card;
 6. checks that, in f32 at full width (2 layers), the kernel path's greedy
    tokens equal the plain path's;
-7. holds each kernel against its plain version at the slice's shapes (K1's
-   O and lse, K5's O; f32 and bf16), then times it there beside its plain
-   version, one PyTorch library call (``scaled_dot_product_attention``,
-   timed only here) and its bound;
-8. prints a ``{"kernels": [...]}`` line and, last,
+7. trains granite-3-2b at its published width and depth through
+   ``TrainSession.step`` (bf16 compute, fp32 masters, AdamW; seed 0): batch
+   8 of 1024 tokens in 2 micro-batches, remat "full", 4 steps.  Every step's
+   launches are counted: K1 twice per layer per micro-batch (forward and
+   remat), K2, K3 and K4 once.  Losses must be finite and no step skipped;
+   the last step is profiled; one batch is evaluated, and its per-token
+   losses with the kernels and with the plain versions are held to 2x
+   bf16's own error, as the logits are in 5;
+8. checks that, in f32 at full width (2 layers), 3 training steps with the
+   kernels and with the plain versions give the same losses (1e-5 relative)
+   and params (1e-4);
+9. holds each kernel against its plain version at its slice's shapes (K1's
+   O and lse, K2-K4 at the training attention, K5's O; f32 and bf16), then
+   times it there beside its plain version, one PyTorch library call
+   (``scaled_dot_product_attention``, its backward for K3 and K4; timed only
+   here) and its bound;
+10. prints a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  It also exits non-zero
@@ -38,6 +53,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -58,6 +74,7 @@ H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_BF16_FLOP_PER_S = 989e12       # dense tensor-core bf16, H100 SXM data sheet
 
 SLICE = dict(arch="granite_3_2b", batch=4, prompt_len=500, new_tokens=32)
+TRAIN = dict(arch="granite_3_2b", seq_len=1024, global_batch=8, gas=2, steps=4)
 
 
 class SmokeFailure(Exception):
@@ -75,21 +92,29 @@ def require(cond: bool, msg: str) -> None:
 
 def close(got, want, tol):
     """(max |got - want|, whether |got - want| <= tol + tol·|want| everywhere)."""
-    d = (got.float() - want.float()).abs()
+    d = (got.detach().float() - want.detach().float()).abs()
     ok = bool((d <= tol + tol * want.float().abs()).all())
     return float(d.max()), ok
 
 
+KERNEL_NAMES = (("flash_fwd", "fa"), ("flash_delta", "fa"), ("flash_dq", "fa"),
+                ("flash_dkv", "fa"), ("decode_attention", "da"))
+
+
 @contextlib.contextmanager
 def plain_versions(fa, da):
-    """Inside this block the dispatch (``kernels.ops``) sends CUDA tensors to
-    the kernels' plain versions too: the comparison path on the card."""
-    saved = fa.flash_fwd, da.decode_attention
-    fa.flash_fwd, da.decode_attention = fa.flash_fwd_plain, da.decode_attention_plain
+    """Inside this block the dispatch (``kernels.ops`` and ``FlashAttention``)
+    sends CUDA tensors to the kernels' plain versions too: the comparison path
+    on the card."""
+    mods = {"fa": fa, "da": da}
+    saved = [(mods[m], n, getattr(mods[m], n)) for n, m in KERNEL_NAMES]
+    for mod, name, _ in saved:
+        setattr(mod, name, getattr(mod, f"{name}_plain"))
     try:
         yield
     finally:
-        fa.flash_fwd, da.decode_attention = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def nvidia_smi() -> str:
@@ -113,6 +138,10 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _ms(x) -> str:
+    return "none" if x is None else f"{x:.4f} ms"
 
 
 def bound(nbytes: float, flops: float):
@@ -162,6 +191,14 @@ def phase_build(build):
                 log(f"[build] {name}: {line.strip()}")
 
 
+def _segments(torch, B, S):
+    """Two documents, then a -1 pad tail (batched admission)."""
+    seg = torch.full((B, S), -1, dtype=torch.int32, device="cuda")
+    seg[:, : 2 * S // 5] = 0
+    seg[:, 2 * S // 5: 4 * S // 5] = 1
+    return seg
+
+
 def phase_flash_sweep(torch, fa):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -178,11 +215,8 @@ def phase_flash_sweep(torch, fa):
                                    for s in (shp_q, shp_kv, shp_kv))
                         kw = dict(causal=mask != "none",
                                   window=64 if mask == "window64" else None)
-                        if mask == "segments":  # two documents, then a -1 pad tail
-                            seg = torch.full((B, S), -1, dtype=torch.int32, device="cuda")
-                            seg[:, : 2 * S // 5] = 0
-                            seg[:, 2 * S // 5: 4 * S // 5] = 1
-                            kw["segment_ids"] = seg
+                        if mask == "segments":
+                            kw["segment_ids"] = _segments(torch, B, S)
                         o, lse = fa.flash_fwd(q, k, v, **kw)
                         o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, **kw)
                         torch.cuda.synchronize()
@@ -202,6 +236,74 @@ def phase_flash_sweep(torch, fa):
     require(not failures, f"K1 disagrees with its plain version in {len(failures)} of "
             f"{n} cases:\n  " + "\n  ".join(failures[:20]))
     log(f"[K1 sweep] {n} cases agree")
+
+
+def phase_flash_bwd_sweep(torch, fa):
+    """K2, K3 and K4 against their plain versions on the same residuals
+    (O and lse from K1's plain version, so both sides see equal inputs), then
+    the whole ``FlashAttention`` against autograd through ``flash_fwd_plain``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    worst = {dt: [0.0] * 4 for dt in TOL}
+    failures, n = [], 0
+    for Hq, Hkv in ((4, 4), (8, 2)):                 # g = 1 and 4
+        for D in (16, 64, 96, 128):
+            for S in (200, 1024):                    # 200 is ragged to every tile
+                for mask in ("causal", "window", "none", "segments"):
+                    for dtype in (torch.bfloat16, torch.float32):
+                        B = 2
+                        q, do = (torch.randn((B, S, Hq, D), generator=gen,
+                                             device="cuda").to(dtype) for _ in range(2))
+                        k, v = (torch.randn((B, S, Hkv, D), generator=gen,
+                                            device="cuda").to(dtype) for _ in range(2))
+                        kw = dict(causal=mask != "none",
+                                  window=64 if mask == "window" else None,
+                                  segment_ids=_segments(torch, B, S) if mask == "segments"
+                                  else None)
+                        o, lse = fa.flash_fwd_plain(q, k, v, **kw)
+                        delta = fa.flash_delta(o, do)
+                        delta_ref = fa.flash_delta_plain(o, do)
+                        got = (delta, fa.flash_dq(q, k, v, do, lse, delta_ref, **kw),
+                               *fa.flash_dkv(q, k, v, do, lse, delta_ref, **kw))
+                        want = (delta_ref, fa.flash_dq_plain(q, k, v, do, lse, delta_ref, **kw),
+                                *fa.flash_dkv_plain(q, k, v, do, lse, delta_ref, **kw))
+                        torch.cuda.synchronize()
+                        name = str(dtype).split(".")[-1]
+                        errs = []
+                        for i, (a, b) in enumerate(zip(got, want)):
+                            err, ok = close(a, b, TOL[name])
+                            worst[name][i] = max(worst[name][i], err)
+                            errs.append((err, ok))
+                        n += 1
+                        if not all(ok for _, ok in errs):
+                            failures.append(
+                                f"Hq={Hq} Hkv={Hkv} D={D} S={S} {mask} {name}: errors "
+                                f"delta/dQ/dK/dV " + " ".join(f"{e:.3g}" for e, _ in errs))
+    for name, w in worst.items():
+        log(f"[K2-K4 sweep] {name}: max |kernel - plain| delta {w[0]:.3g}, dQ {w[1]:.3g}, "
+            f"dK {w[2]:.3g}, dV {w[3]:.3g} (tol {TOL[name]})")
+    require(not failures, f"K2-K4 disagree with their plain versions in {len(failures)} of "
+            f"{n} cases:\n  " + "\n  ".join(failures[:20]))
+    log(f"[K2-K4 sweep] {n} cases agree")
+
+    # the autograd Function (K1 forward, K2 -> K3 -> K4 backward) against
+    # autograd through K1's plain version, f32, at the training slice's shape
+    B, S, Hq, Hkv, D = 2, 1024, 32, 8, 64
+    for mask in ("causal", "segments"):
+        q = torch.randn((B, S, Hq, D), generator=gen, device="cuda").requires_grad_()
+        k, v = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda").requires_grad_()
+                for _ in range(2))
+        cot = torch.randn((B, S, Hq, D), generator=gen, device="cuda")
+        seg = _segments(torch, B, S) if mask == "segments" else None
+        out = fa.FlashAttention.apply(q, k, v, seg, True, None)
+        got = torch.autograd.grad(out, (q, k, v), cot)
+        out_ref, _ = fa.flash_fwd_plain(q, k, v, segment_ids=seg, causal=True)
+        want = torch.autograd.grad(out_ref, (q, k, v), cot)
+        for name, a, b in zip(("dQ", "dK", "dV"), got, want):
+            err, ok = close(a, b, TOL["float32"])
+            log(f"[Function] {mask}, f32, (B, S, Hq, Hkv, D) = {(B, S, Hq, Hkv, D)}: "
+                f"{name} max |Function - autograd of plain| {err:.3g} (tol {TOL['float32']})")
+            require(ok, f"FlashAttention's {name} disagrees with autograd ({mask})")
 
 
 def _ring(torch, B, S, fill=None, t_wrap=None):
@@ -386,6 +488,140 @@ def phase_f32_identity(torch, np, fa, da, get_config, InferenceSession):
     torch.cuda.empty_cache()
 
 
+def phase_train(torch, build, fa, da, TrainSession, stepfn, ParallelismConfig, DataConfig,
+                smi):
+    """Full-width, full-depth granite-3-2b trains for TRAIN["steps"] steps:
+    bf16 compute, fp32 masters and AdamW, random weights from seed 0.  Every
+    step's launches are counted; the last step is profiled; then one batch
+    is evaluated (``evaluate()``), and its per-token losses are taken with
+    the kernels, with their plain versions, and with the plain versions on
+    an f32 copy of the model (bf16's own error)."""
+    t0 = time.perf_counter()
+    sess = TrainSession.from_recipe(
+        TRAIN["arch"], seed=0,
+        plan=ParallelismConfig(gas=TRAIN["gas"], remat_policy="full"),
+        train_cfg=stepfn.TrainConfig(total_steps=TRAIN["steps"], warmup=2),
+        data_cfg=DataConfig(seq_len=TRAIN["seq_len"], global_batch=TRAIN["global_batch"]))
+    torch.cuda.synchronize()
+    cfg, L, G = sess.cfg, sess.cfg.n_layers, TRAIN["gas"]
+    log(f"[train] {cfg.name}: {L} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{sess.n_params / 1e9:.3f} B params ({cfg.dtype} compute, f32 masters); gas {G}, "
+        f"remat full, batch {TRAIN['global_batch']} x {TRAIN['seq_len']}; init "
+        f"{time.perf_counter() - t0:.1f} s")
+    want = {"flash_fwd": 2 * L * G, "flash_delta": L * G, "flash_dq": L * G,
+            "flash_dkv": L * G}
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, launches, metrics = [], [], None, {}
+    for i in range(TRAIN["steps"]):
+        last = i == TRAIN["steps"] - 1
+        sess.batches(i)                        # host data, outside the timed window
+        torch.cuda.synchronize()
+        build.launch_counts.clear()
+        t0 = time.perf_counter()
+        if last:
+            prof = profile_window(torch, lambda: metrics.update(sess.step()), top=12)
+        else:
+            metrics.update(sess.step())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = dict(build.launch_counts)
+        launches = counts if launches is None else launches
+        loss, skipped = float(metrics["loss"]), float(metrics["skipped"])
+        losses.append(loss)
+        log(f"[train] step {i}: loss {loss:.6f}, grad_norm {float(metrics['grad_norm']):.4f}, "
+            f"lr {float(metrics['lr']):.3g}, skipped {skipped:.0f}, {walls[-1] * 1e3:.1f} ms"
+            f"{' (profiled)' if last else ''}; launches {counts}")
+        require(all(counts.get(k, 0) == n for k, n in want.items()),
+                f"step {i}: launches {counts}, expected {want} per step")
+        require(math.isfinite(loss) and skipped == 0.0, f"step {i}: loss {loss}, skipped {skipped}")
+    peak = torch.cuda.max_memory_allocated()
+    timed = walls[1:-1] or walls[:1]           # the first step also warms up
+    step_s = sum(timed) / len(timed)
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    log(f"[train] losses {losses}; {step_s * 1e3:.1f} ms per step (mean of steps "
+        f"1-{len(walls) - 2}, host clock), {tokens / step_s:.1f} tokens/s; first step "
+        f"{walls[0] * 1e3:.1f} ms; max_memory_allocated {peak} B ({peak / 1e9:.2f} GB); {smi}")
+    require(peak < 80e9, f"peak memory {peak} B does not fit the card's 80 GB")
+    if prof["device_ms"] == 0:
+        log("[profile] train step: device time not measured (no device events)")
+    else:
+        log(f"[profile] train step: device busy {prof['device_ms']:.2f} ms of "
+            f"{step_s * 1e3:.2f} ms unprofiled wall ({prof['device_ms'] / (step_s * 1e3):.1%}); "
+            f"profiled wall {prof['wall_ms']:.2f} ms")
+        for ms, count, key in prof["top"]:
+            log(f"[profile] train step:   {ms:8.3f} ms  {count:5d}x  {key}")
+
+    # one batch, three ways: kernels, plain versions, plain versions on f32.
+    # Held per token, as phase 5 holds logits: the mean over 8192 tokens of
+    # either difference is a draw of the same small size, so a scalar floor
+    # can be near 0 by chance.
+    from repro_torch.models import layers, transformer
+    host_batch = sess.batches(TRAIN["steps"])
+    batch = sess._to_device(host_batch)
+    mask = batch["loss_mask"].float()
+
+    def token_nll(c, plain):
+        ctx = plain_versions(fa, da) if plain else contextlib.nullcontext()
+        with torch.no_grad(), ctx:
+            logits = transformer.lm_forward(c, sess.state["params"], batch, remat_policy="none")
+            return torch.logsumexp(logits, -1) - layers.gold_logit(logits, batch["labels"])
+
+    xent_eval = float(sess.evaluate(host_batch)["xent"])
+    nll_k, nll_p = token_nll(cfg, False), token_nll(cfg, True)
+    nll_f = token_nll(dataclasses.replace(cfg, dtype="float32"), True)
+    xent = {n: float((x * mask).sum() / mask.sum())
+            for n, x in (("kernel", nll_k), ("plain", nll_p), ("plain f32", nll_f))}
+    diff = float((nll_k - nll_p).abs().max())
+    floor = float((nll_p - nll_f).abs().max())
+    log(f"[train] evaluate() xent {xent_eval:.6f}; masked mean of per-token losses: "
+        + ", ".join(f"{n} {x:.6f}" for n, x in xent.items()))
+    log(f"[train] per-token loss, (B, S) = {tuple(nll_k.shape)}: max |kernel - plain| "
+        f"{diff:.4g}, bf16 noise floor max |plain - plain f32| {floor:.4g} (tol: kernel - "
+        f"plain <= {LOGIT_FLOOR_FACTOR} x floor); std of the differences "
+        f"{float((nll_k - nll_p).std()):.3g} and {float((nll_p - nll_f).std()):.3g}")
+    require(math.isfinite(xent_eval) and abs(xent_eval - xent["kernel"]) <= 1e-5 * xent_eval,
+            f"evaluate() gave {xent_eval}, its per-token losses {xent['kernel']}")
+    require(diff <= LOGIT_FLOOR_FACTOR * floor,
+            f"per-token losses differ from the plain path by {diff:.4g}, more than "
+            f"{LOGIT_FLOOR_FACTOR} x bf16's own error {floor:.4g}")
+    del sess, metrics, batch, nll_k, nll_p, nll_f
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_f32_identity(torch, fa, da, get_config, TrainSession, stepfn,
+                             ParallelismConfig, DataConfig):
+    """granite-3-2b at full width, 2 layers, f32: the kernels and the plain
+    versions each take 3 steps from the same state (the same seed)."""
+    from repro_torch.core.tree import tree_leaves
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=2, dtype="float32")
+
+    def run(plain):
+        sess = TrainSession.from_recipe(
+            cfg, seed=1, plan=ParallelismConfig(gas=2, remat_policy="full"),
+            train_cfg=stepfn.TrainConfig(total_steps=3, warmup=1),
+            data_cfg=DataConfig(seq_len=256, global_batch=4))
+        ctx = plain_versions(fa, da) if plain else contextlib.nullcontext()
+        with ctx:
+            losses = [float(sess.step()["loss"]) for _ in range(3)]
+        return losses, sess.state["params"]
+
+    losses_k, params_k = run(False)
+    losses_p, params_p = run(True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
+    errs = [close(a, b, 1e-4) for (_, a), (_, b) in zip(tree_leaves(params_k),
+                                                       tree_leaves(params_p))]
+    worst = max(e for e, _ in errs)
+    log(f"[f32 train] {cfg.name} at full width, 2 layers, f32, 3 steps: losses kernel "
+        f"{losses_k}, plain {losses_p} (max rel diff {rel:.3g}, tol 1e-5); params max "
+        f"|kernel - plain| {worst:.3g} (tol 1e-4)")
+    require(rel <= 1e-5, f"f32 losses differ by {rel:.3g} relative")
+    require(all(ok for _, ok in errs), f"f32 params differ by up to {worst:.3g}")
+    del params_k, params_p
+    torch.cuda.empty_cache()
+
+
 def phase_timing(torch, fa, da, smi):
     F = torch.nn.functional
     gen = torch.Generator(device="cuda")
@@ -450,11 +686,79 @@ def phase_timing(torch, fa, da, smi):
             qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=200),
         bound_ms=b_ms, bound_by=b_by,
         shape="q (4,1,32,64), k/v (4,532,8,64) bf16, t=531, full ring")
+    rows.update(_time_backward(torch, fa, gen, check))
     for name, r in rows.items():
         log(f"[time] {name} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
+            f"{r['plain_ms']:.4f} ms, library {_ms(r['library_ms'])}, bound "
             f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), max |kernel - plain| "
             f"{r['max_abs_err']:.3g}; {smi}")
+    return rows
+
+
+def _time_backward(torch, fa, gen, check):
+    """K2, K3 and K4 at the training slice's attention: q (4,1024,32,64),
+    k/v (4,1024,8,64), causal; held against their plain versions in f32 and
+    bf16, timed in bf16.  The library yardstick is the backward of
+    ``scaled_dot_product_attention`` as a whole (forward + backward minus
+    forward), which computes dQ, dK and dV together."""
+    F = torch.nn.functional
+    B, S, Hq, Hkv, D = 4, 1024, 32, 8, 64
+    q32, do32 = (torch.randn((B, S, Hq, D), generator=gen, device="cuda") for _ in range(2))
+    k32, v32 = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda") for _ in range(2))
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        q, do, k, v = (x.to(dtype) for x in (q32, do32, k32, v32))
+        o, lse = fa.flash_fwd(q, k, v, causal=True)
+        delta = fa.flash_delta_plain(o, do)
+        errs["flash_delta"] = check(f"K2 delta, slice shape, {name}", fa.flash_delta(o, do),
+                                    delta, TOL[name])
+        errs["flash_dq"] = check(f"K3 dQ, slice shape, {name}",
+                                 fa.flash_dq(q, k, v, do, lse, delta, causal=True),
+                                 fa.flash_dq_plain(q, k, v, do, lse, delta, causal=True),
+                                 TOL[name])
+        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal=True)
+        dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, do, lse, delta, causal=True)
+        errs["flash_dkv"] = max(check(f"K4 dK, slice shape, {name}", dk, dk_ref, TOL[name]),
+                                check(f"K4 dV, slice shape, {name}", dv, dv_ref, TOL[name]))
+    # bf16 now: q, do, k, v, o, lse, delta of the last pass
+    pairs = S * (S + 1) // 2                          # causal (q, k) pairs
+    prod = 2 * B * Hq * D * pairs                     # one (q, k, d) product
+    qb, kb = 2 * q.numel(), 2 * k.numel()             # bytes of a q-shaped / k-shaped bf16 tensor
+    stats = 2 * 4 * lse.numel()                       # lse and delta, f32
+    bounds = {
+        "flash_delta": bound(2 * qb + stats / 2, 0),
+        "flash_dq": bound(3 * qb + 2 * kb + stats, 3 * prod),
+        "flash_dkv": bound(2 * qb + 4 * kb + stats, 4 * prod),
+    }
+    calls = {
+        "flash_delta": (lambda: fa.flash_delta(o, do), lambda: fa.flash_delta_plain(o, do)),
+        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, causal=True),
+                     lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, causal=True)),
+        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal=True),
+                      lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, causal=True)),
+    }
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    sdpa_fwd = time_ms(torch, lambda: sdpa().detach())
+    sdpa_both = time_ms(torch, lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot))
+    sdpa_bwd = sdpa_both - sdpa_fwd
+    shape = "q (4,1024,32,64), k/v (4,1024,8,64) bf16, causal"
+    rows = {}
+    for name, (kern, plain) in calls.items():
+        b_ms, b_by = bounds[name]
+        rows[name] = dict(max_abs_err=errs[name], ms=time_ms(torch, kern),
+                          plain_ms=time_ms(torch, plain, iters=10),
+                          library_ms=None if name == "flash_delta" else sdpa_bwd,
+                          bound_ms=b_ms, bound_by=b_by, shape=shape)
+    whole = sum(rows[n]["ms"] for n in calls)
+    log(f"[time] flash backward as a whole (K2 + K3 + K4) at {shape}: {whole:.4f} ms; SDPA "
+        f"backward {sdpa_bwd:.4f} ms (forward + backward {sdpa_both:.4f} ms, forward "
+        f"{sdpa_fwd:.4f} ms)")
     return rows
 
 
@@ -480,8 +784,11 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.session import InferenceSession
-    from repro_torch.session.infer import tree_map
+    from repro_torch.core import stepfn
+    from repro_torch.core.recipe import ParallelismConfig
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import DataConfig
+    from repro_torch.session import InferenceSession, TrainSession
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -496,21 +803,33 @@ def main() -> int:
 
     phase_build(build)
     phase_flash_sweep(torch, fa)
+    phase_flash_bwd_sweep(torch, fa)
     phase_decode_sweep(torch, da)
-    launches = phase_slice(torch, np, build, fa, da, InferenceSession, tree_map)
+    serve_launches = phase_slice(torch, np, build, fa, da, InferenceSession, tree_map)
     phase_f32_identity(torch, np, fa, da, get_config, InferenceSession)
+    train_launches = phase_train(torch, build, fa, da, TrainSession, stepfn,
+                                 ParallelismConfig, DataConfig, smi)
+    phase_train_f32_identity(torch, fa, da, get_config, TrainSession, stepfn,
+                             ParallelismConfig, DataConfig)
     timing = phase_timing(torch, fa, da, smi)
 
+    fa_src, bwd_src = "src/repro_torch/csrc/flash_fwd.cu", "src/repro_torch/csrc/flash_bwd.cu"
+    ref_fa = "src/repro/kernels/flash_attention.py"
     kernels = [
-        dict(name="flash_fwd", route="cuda", source="src/repro_torch/csrc/flash_fwd.cu",
-             replaces="src/repro/kernels/flash_attention.py:88"),
+        dict(name="flash_fwd", route="cuda", source=fa_src, replaces=f"{ref_fa}:88"),
+        dict(name="flash_delta", route="cuda", source=bwd_src, replaces=f"{ref_fa}:205"),
+        dict(name="flash_dq", route="cuda", source=bwd_src, replaces=f"{ref_fa}:213"),
+        dict(name="flash_dkv", route="cuda", source=bwd_src, replaces=f"{ref_fa}:252"),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:26"),
     ]
+    # launches: the counted main-path runs, the served generate and one train step
+    log(f"[launches] generate {serve_launches}; train step {train_launches}")
     for kr in kernels:
         r = timing[kr["name"]]
-        kr.update(launches=launches.get(kr["name"], 0), max_abs_err=r["max_abs_err"],
+        n = serve_launches.get(kr["name"], 0) + train_launches.get(kr["name"], 0)
+        kr.update(launches=n, max_abs_err=r["max_abs_err"],
                   ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                   bound_by=r["bound_by"], library_ms=r["library_ms"])
     log(f"[env] card: {smi}")

@@ -14,7 +14,9 @@ then raises.
 
 Every kernel wrapper adds one to ``launch_counts[<name>]`` where it launches
 its kernel, and nowhere else, so a run can show which kernels it went
-through.
+through: ``flash_fwd`` (K1), ``flash_delta``, ``flash_dq`` and
+``flash_dkv`` (K2-K4, one library, ``flash_bwd``) and ``decode_attention``
+(K5).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("flash_fwd", "decode_attention")
+KERNELS = ("flash_fwd", "flash_bwd", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,5 +1,6 @@
 """Model API: one entry point per lifecycle stage, dispatched on the family,
-mirroring ``repro.models.api`` (the serving stages and ``forward``)."""
+mirroring ``repro.models.api`` (the loss, ``forward`` and the serving
+stages)."""
 
 from __future__ import annotations
 
@@ -17,6 +18,12 @@ register_family("dense", transformer.DecoderOnlyLM())
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Any:
     """fp32 parameters on ``gen``'s device."""
     return family_of(cfg).init_params(cfg, gen)
+
+
+def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
+            remat_policy: str = "full"):
+    """→ (scalar loss, {"xent", "aux"})."""
+    return family_of(cfg).loss(cfg, params, batch, remat_policy=remat_policy)
 
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,

@@ -128,3 +128,19 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor, dtype: torch.dtype) -> 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Tied unembedding: logits in fp32 from the upcast table."""
     return x.float() @ table.float().T
+
+
+def gold_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits[..., labels]: the reference takes a mask-sum (so a vocab-sharded
+    axis partitions cleanly); on one device a gather gives the same value."""
+    return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy. logits fp32 (..., V); labels int (...,)."""
+    nll = torch.logsumexp(logits, dim=-1) - gold_logit(logits, labels)
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

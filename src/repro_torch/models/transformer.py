@@ -2,9 +2,11 @@
 
 Parameters are a dict shaped like the reference's pytree, except that the
 stacked ``blocks`` leaves (L, ...) become a list of L per-layer dicts, and
-the reference's ``lax.scan`` over layers is a Python loop.  Caches are
-``{"blocks": [{"k", "v", "pos"}, ...]}`` and are updated in place.  The
-MoE, hybrid, xLSTM and VLM arms are not ported yet.
+the reference's ``lax.scan`` over layers is a Python loop.  Its
+``jax.checkpoint`` per layer becomes ``torch.utils.checkpoint`` per block
+(``remat_policy="full"``).  Caches are ``{"blocks": [{"k", "v", "pos"},
+...]}`` and are updated in place.  The MoE, hybrid, xLSTM and VLM arms are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models.attention import (attention_apply, attention_decode,
@@ -101,20 +104,46 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     return layers.unembed(params.get("lm_head", params["embed"]), x)
 
 
+REMAT_POLICIES = ("none", "full")
+
+
 def lm_forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
-               last_only: bool = False) -> torch.Tensor:
+               remat_policy: str = "full", last_only: bool = False) -> torch.Tensor:
     """→ fp32 logits (B, S, V), or (B, 1, V) when ``last_only`` (the hidden
-    states are sliced before the unembed)."""
+    states are sliced before the unembed).
+
+    ``remat_policy="full"`` keeps only each block's input for the backward
+    and recomputes the block there (``jax.checkpoint`` with
+    ``nothing_saveable`` in the reference); ``"none"`` keeps every
+    activation.  ``"dots"`` and ``"stage"`` are not ported yet."""
     layer_plan(cfg)
+    if remat_policy not in REMAT_POLICIES:
+        raise NotImplementedError(f"remat_policy {remat_policy!r} is not ported yet "
+                                  f"(ported: {', '.join(REMAT_POLICIES)})")
+    remat = remat_policy == "full" and torch.is_grad_enabled()
     tokens = batch["tokens"]
     x = layers.embed_lookup(params["embed"], tokens, cfg.compute_dtype)
     positions = _positions(tokens)
+    segment_ids = batch.get("segment_ids")
     for bp in params["blocks"]:
-        x = block_apply(cfg, bp, x, positions, window=cfg.swa_window,
-                        segment_ids=batch.get("segment_ids"))
+        kw = dict(window=cfg.swa_window, segment_ids=segment_ids)
+        if remat:
+            x = checkpoint(block_apply, cfg, bp, x, positions, use_reentrant=False, **kw)
+        else:
+            x = block_apply(cfg, bp, x, positions, **kw)
     if last_only:
         x = x[:, -1:]
     return _logits(cfg, params, x)
+
+
+def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
+            remat_policy: str = "full") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """→ (loss, {"xent", "aux"}); the dense arm has no auxiliary loss, so
+    ``aux`` is 0 and the loss is the masked mean cross-entropy."""
+    logits = lm_forward(cfg, params, batch, remat_policy=remat_policy)
+    xent = layers.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    aux = torch.zeros((), dtype=torch.float32, device=xent.device)
+    return xent, {"xent": xent, "aux": aux}
 
 
 def lm_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, device) -> Dict[str, List]:
@@ -158,7 +187,10 @@ class DecoderOnlyLM:
         return lm_init(gen, cfg)
 
     def forward(self, cfg, params, batch, *, last_only=False):
-        return lm_forward(cfg, params, batch, last_only=last_only)
+        return lm_forward(cfg, params, batch, remat_policy="none", last_only=last_only)
+
+    def loss(self, cfg, params, batch, *, remat_policy="full"):
+        return lm_loss(cfg, params, batch, remat_policy=remat_policy)
 
     def init_cache(self, cfg, params, batch_size, max_len):
         return lm_cache_init(cfg, batch_size, max_len,

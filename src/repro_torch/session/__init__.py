@@ -1,3 +1,4 @@
 from repro_torch.session.infer import InferenceSession
+from repro_torch.session.train import TrainSession
 
-__all__ = ["InferenceSession"]
+__all__ = ["InferenceSession", "TrainSession"]

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import stepfn
+from repro_torch.core.tree import tree_map
 from repro_torch.models import api as model_api
 from repro_torch.models.config import ModelConfig
 
@@ -32,15 +33,6 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
         raise RuntimeError("CUDA is not available: this session runs on the card "
                            "unless device='cpu' is asked for")
     return device
-
-
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor of a nest of dicts and lists."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
 
 
 class InferenceSession:

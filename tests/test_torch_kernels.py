@@ -4,6 +4,10 @@ The plain versions of K1 (flash forward: O and lse) and K5 (decode
 attention) are held against the Pallas kernels run in interpret mode, with
 the sweeps of ``tests/test_kernels.py`` (2e-5 in f32, 2e-2 in bf16); ragged
 lengths, which the Pallas kernels do not tile, against ``repro.kernels.ref``.
+The plain versions of K2-K4 (the flash backward) are held against the
+reference's ``_backward`` in interpret mode over the cases of
+``tests/test_flash_vjp.py`` (5e-4 in f32, 5e-2 in bf16), and on ragged
+lengths against ``jax.grad`` of the oracle.
 The CUDA kernels themselves run only on the card (``chip_smoke.py``); here
 their wrappers must refuse CPU tensors and the dispatch must take the plain
 versions without counting a launch.
@@ -19,6 +23,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as pallas_decode
+from repro.kernels.flash_attention import _backward as pallas_flash_backward
 from repro.kernels.flash_attention import _forward as pallas_flash_forward
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import decode_attention as da
@@ -164,6 +169,135 @@ def test_dispatch_takes_plain_versions_on_cpu_without_counting():
     dec = ops.decode_attention(q[:, :1], k, v, kpos, t=63)
     close(dec, da.decode_attention_plain(q[:, :1], k, v, kpos, t=63).numpy(), 0)
     ops.flash_attention(q, k, v, causal=False, window=16)
+    assert sum(build.launch_counts.values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# K2-K4: the backward
+# ---------------------------------------------------------------------------
+
+GRAD_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
+
+
+@functools.partial(jax.jit, static_argnames=("causal", "window"))
+def _pallas_bwd(q, k, v, seg, o, lse, do, *, causal, window):
+    return pallas_flash_backward(q, k, v, seg, o, lse, do, causal, window, 64, 64, True)
+
+
+def _plain_backward(q, k, v, seg, o, lse, do, **kw):
+    delta = fa.flash_delta_plain(o, do)
+    dq = fa.flash_dq_plain(q, k, v, do, lse, delta, segment_ids=seg, **kw)
+    return (dq, *fa.flash_dkv_plain(q, k, v, do, lse, delta, segment_ids=seg, **kw))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window,Hq,Hkv,D,segments", [
+    (True, None, 4, 4, 64, False),     # the cases of tests/test_flash_vjp.py
+    (True, 64, 8, 2, 64, False),
+    (True, 32, 4, 2, 96, False),
+    (False, None, 4, 1, 64, False),
+    (True, None, 4, 4, 120, False),
+    (True, None, 8, 2, 64, True),      # packed segments with a -1 pad tail
+    (False, None, 4, 2, 16, True),
+])
+def test_flash_backward_plain_matches_pallas_kernels(dtype, causal, window, Hq, Hkv, D,
+                                                     segments):
+    """Plain K2/K3/K4 on the residuals of the Pallas forward vs the Pallas
+    backward (``_delta_kernel``, ``_dq_kernel``, ``_dkv_kernel`` and the
+    reference's GQA group sum), on the same inputs."""
+    B, S = 2, 128
+    arrs = _qkv(B, S, S, Hq, Hkv, D, seed=11)
+    do_np = np.random.RandomState(12).standard_normal((B, S, Hq, D)).astype(np.float32)
+    (q, k, v, do), (jq, jk, jv, jdo) = _pair((*arrs, do_np), dtype)
+    seg = _segments(B, S) if segments else None
+    jseg = None if seg is None else jnp.asarray(seg)
+    kw = dict(causal=causal, window=window)
+    jo, jlse = _pallas_fwd(jq, jk, jv, jseg, **kw)
+    want = _pallas_bwd(jq, jk, jv, jseg, jo, jlse, jdo, **kw)
+    o = torch.from_numpy(np.array(jo.astype(jnp.float32))).to(q.dtype)
+    lse = torch.from_numpy(np.array(jlse))
+    got = _plain_backward(q, k, v, None if seg is None else torch.from_numpy(seg), o, lse,
+                          do, **kw)
+    for name, g, w in zip(("dQ", "dK", "dV"), got, want):
+        assert g.dtype == q.dtype and tuple(g.shape) == tuple(w.shape), name
+        close(g, w.astype(jnp.float32), GRAD_TOL[dtype])
+    delta = fa.flash_delta_plain(o, do)
+    assert delta.dtype == torch.float32 and tuple(delta.shape) == (B, Hq, S)
+    close(delta, jnp.sum(jo.astype(jnp.float32) * jdo.astype(jnp.float32), -1)
+          .transpose(0, 2, 1), 1e-5)
+
+
+@pytest.mark.parametrize("mask", ["causal", "window", "none", "segments"])
+def test_flash_backward_plain_ragged_lengths_match_oracle_autodiff(mask):
+    """S = 200, which the Pallas kernels do not tile: the plain backward
+    against ``jax.grad`` of ``repro.kernels.ref.mha_reference``."""
+    B, S, Hq, Hkv, D = 2, 200, 8, 2, 16
+    arrs = _qkv(B, S, S, Hq, Hkv, D, seed=13)
+    do_np = np.random.RandomState(14).standard_normal((B, S, Hq, D)).astype(np.float32)
+    (q, k, v, do), (jq, jk, jv, jdo) = _pair((*arrs, do_np), "float32")
+    kw = dict(causal=mask != "none", window=64 if mask == "window" else None)
+    seg = _segments(B, S) if mask == "segments" else None
+    tseg = None if seg is None else torch.from_numpy(seg)
+    o, lse = fa.flash_fwd_plain(q, k, v, segment_ids=tseg, **kw)
+    got = _plain_backward(q, k, v, tseg, o, lse, do, **kw)
+    want = jax.grad(lambda q, k, v: jnp.sum(jref.mha_reference(
+        q, k, v, segment_ids=None if seg is None else jnp.asarray(seg), **kw) * jdo),
+        argnums=(0, 1, 2))(jq, jk, jv)
+    for g, w in zip(got, want):
+        close(g, w, GRAD_TOL["float32"])
+
+
+@pytest.mark.parametrize("mask", ["causal", "window", "none", "segments"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_grads_on_cpu_equal_autograd_of_plain_forward(mask, dtype):
+    """``ops.flash_attention`` with gradients goes through ``FlashAttention``
+    (saved residuals, plain K2-K4 on the CPU) and equals autograd through
+    ``flash_fwd_plain``; no launch is counted."""
+    B, S, Hq, Hkv, D = 2, 100, 4, 2, 16
+    arrs = _qkv(B, S, S, Hq, Hkv, D, seed=15)
+    cot = torch.from_numpy(np.random.RandomState(16).standard_normal((B, S, Hq, D))
+                           .astype(np.float32)).to(getattr(torch, dtype))
+    kw = dict(causal=mask != "none", window=32 if mask == "window" else None,
+              segment_ids=torch.from_numpy(_segments(B, S)) if mask == "segments" else None)
+    build.launch_counts.clear()
+    grads = []
+    for fn in (ops.flash_attention, lambda *a, **k: fa.flash_fwd_plain(*a, **k)[0]):
+        q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype)).requires_grad_()
+                   for a in arrs)
+        out = fn(q, k, v, **kw)
+        grads.append(torch.autograd.grad(out, (q, k, v), cot))
+    assert isinstance(out, torch.Tensor) and sum(build.launch_counts.values()) == 0
+    for g, w in zip(*grads):
+        close(g, w.float().numpy(), 1e-6 if dtype == "float32" else 1e-2)
+
+
+def test_serving_attention_saves_nothing():
+    """Without gradients the dispatch runs the forward alone: no autograd
+    node, so no residuals are kept."""
+    (q, k, v), _ = _pair(_qkv(1, 64, 64, 4, 2, 16), "float32")
+    q.requires_grad_()
+    with torch.inference_mode():
+        out = ops.flash_attention(q, k, v)
+    assert out.grad_fn is None
+    assert ops.flash_attention(q, k, v).grad_fn is not None
+
+
+def test_backward_wrappers_refuse_cpu_tensors_and_count_nothing():
+    (q, k, v), _ = _pair(_qkv(1, 64, 64, 4, 2, 16), "float32")
+    o, lse = fa.flash_fwd_plain(q, k, v)
+    do = torch.ones_like(q)
+    delta = fa.flash_delta_plain(o, do)
+    build.launch_counts.clear()
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_delta(o, do)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_dq(q, k, v, do, lse, delta)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_dkv(q, k, v, do, lse, delta)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_dq_plain(q, k, v, do, lse[:, :, :3], delta)
+    with pytest.raises(ValueError, match="dO"):
+        fa.flash_dkv_plain(q, k, v, do[:, :3], lse, delta)
     assert sum(build.launch_counts.values()) == 0
 
 
