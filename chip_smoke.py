@@ -15,6 +15,13 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    and the autograd ``FlashAttention`` against autograd through K1's plain
    version;
 4. holds K5 (decode attention) against its plain version the same way;
+   then K6 (paged decode attention) against its plain version over page
+   sizes 16/64/128, head groupings, head dims, windows and dtypes (pages
+   shuffled, a hole in one table, a position per row; and at B = 8, page
+   16, with 1024-token histories), and against K5 on the same K/V laid out
+   contiguously; shows that NaN in pages K6 must not read (the trash page,
+   unmapped pages, pages before the window) changes nothing; and holds
+   K5's per-row form (a (B,) tensor of positions) against its plain version;
 5. serves granite-3-2b at its published width and depth (random bf16
    weights from seed 0) through ``InferenceSession.generate``: 4 prompts of
    500 tokens, 32 new tokens each.  Launch counts are zeroed just before and
@@ -23,7 +30,19 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    compared, twice, with the same session on the plain versions on the card;
 6. checks that, in f32 at full width (2 layers), the kernel path's greedy
    tokens equal the plain path's;
-7. trains granite-3-2b at its published width and depth through
+7. serves a chat stream with the same model through
+   ``InferenceSession.serve``, on contiguous slots and on the paged pool:
+   16 requests share a 256-token system prompt, suffixes of 16-112 tokens,
+   replies cycling through 128/16/16/32 tokens, 8 slots, pages of 16.
+   Launches are counted per arm: K5 once per layer per decode step (and K1
+   per admission prefill) on slots, K6 once per layer per decode step on
+   the pool.  It prints the serving statistics, peak memory, a profiled
+   decode step of each arm and the share of requests whose tokens agree
+   between the arms (bf16 near-ties may flip; reported, not required);
+8. checks that, in f32 at full width (2 layers), a smaller stream gives the
+   same tokens on the paged arm, on the contiguous arm and through uniform
+   ``generate``, with the kernels and with their plain versions;
+9. trains granite-3-2b at its published width and depth through
    ``TrainSession.step`` (bf16 compute, fp32 masters, AdamW; seed 0): batch
    8 of 1024 tokens in 2 micro-batches, remat "full", 4 steps.  Every step's
    launches are counted: K1 twice per layer per micro-batch (forward and
@@ -31,15 +50,15 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    the last step is profiled; one batch is evaluated, and its per-token
    losses with the kernels and with the plain versions are held to 2x
    bf16's own error, as the logits are in 5;
-8. checks that, in f32 at full width (2 layers), 3 training steps with the
+10. checks that, in f32 at full width (2 layers), 3 training steps with the
    kernels and with the plain versions give the same losses (1e-5 relative)
    and params (1e-4);
-9. holds each kernel against its plain version at its slice's shapes (K1's
-   O and lse, K2-K4 at the training attention, K5's O; f32 and bf16), then
-   times it there beside its plain version, one PyTorch library call
-   (``scaled_dot_product_attention``, its backward for K3 and K4; timed only
-   here) and its bound;
-10. prints a ``{"kernels": [...]}`` line and, last,
+11. holds each kernel against its plain version at its slice's shapes (K1's
+   O and lse, K2-K4 at the training attention, K5's O, K6 at the stream's
+   decode; f32 and bf16), then times it there beside its plain version, one
+   PyTorch library call (``scaled_dot_product_attention``, its backward for
+   K3 and K4; none for K2 and K6; timed only here) and its bound;
+12. prints a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  It also exits non-zero
@@ -74,6 +93,12 @@ H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_BF16_FLOP_PER_S = 989e12       # dense tensor-core bf16, H100 SXM data sheet
 
 SLICE = dict(arch="granite_3_2b", batch=4, prompt_len=500, new_tokens=32)
+# the chat stream served through both arms of the scheduler: 16 requests
+# share a 256-token system prompt, suffixes of 16-112 tokens, replies
+# cycling through STREAM_GENS, 8 slots, KV pages of 16 tokens
+STREAM = dict(arch="granite_3_2b", requests=16, system=256, suffix=(16, 112), slots=8,
+              page_size=16)
+STREAM_GENS = (128, 16, 16, 32)
 TRAIN = dict(arch="granite_3_2b", seq_len=1024, global_batch=8, gas=2, steps=4)
 
 
@@ -98,7 +123,8 @@ def close(got, want, tol):
 
 
 KERNEL_NAMES = (("flash_fwd", "fa"), ("flash_delta", "fa"), ("flash_dq", "fa"),
-                ("flash_dkv", "fa"), ("decode_attention", "da"))
+                ("flash_dkv", "fa"), ("decode_attention", "da"),
+                ("paged_decode_attention", "da"))
 
 
 @contextlib.contextmanager
@@ -358,6 +384,140 @@ def phase_decode_sweep(torch, da):
     log(f"[K5 sweep] {n} cases agree")
 
 
+def _paged_case(torch, gen, *, B, ps, n_max, Hkv, g, D, dtype, ts, holes=()):
+    """A pool of shuffled physical pages on the card: row b maps the pages
+    its position ts[b] needs (``holes``: (row, logical page) left unmapped),
+    the rest of its table is -1.  Also the same K/V laid out contiguously
+    for K5: (k, v, kpos) with kpos the logical position, -1 where unmapped."""
+    n_pages = 1 + B * n_max
+    q = torch.randn((B, 1, Hkv * g, D), generator=gen, device="cuda").to(dtype)
+    kp, vp = (torch.randn((n_pages, ps, Hkv, D), generator=gen, device="cuda").to(dtype)
+              for _ in range(2))
+    phys = 1 + torch.randperm(n_pages - 1, generator=gen, device="cuda")
+    pt = torch.full((B, n_max), -1, dtype=torch.int32, device="cuda")
+    for b, t in enumerate(ts):
+        n = t // ps + 1
+        pt[b, :n] = phys[b * n_max:b * n_max + n].to(torch.int32)
+    for b, i in holes:
+        pt[b, i] = -1
+    tst = torch.tensor(ts, dtype=torch.int32, device="cuda")
+    pages = pt.clamp_min(0).long()
+    kc = kp[pages].reshape(B, n_max * ps, Hkv, D).contiguous()
+    vc = vp[pages].reshape(B, n_max * ps, Hkv, D).contiguous()
+    logical = torch.arange(n_max * ps, dtype=torch.int32, device="cuda")[None]
+    kpos = torch.where((pt >= 0).repeat_interleave(ps, dim=1), logical,
+                       torch.full_like(logical, -1)).contiguous()
+    return q, kp, vp, pt, tst, kc, vc, kpos
+
+
+def phase_paged_sweep(torch, da):
+    """K6 against its plain version over page sizes, head groupings, head
+    dims, windows and dtypes (rows mid-page, on a page boundary, at the
+    table's end, one with an unmapped hole; physical pages shuffled), and at
+    B = 8, page 16, with 1024-token histories.  Then: K6 never reads the
+    trash page (NaN there changes nothing); K6 against K5 on the same K/V
+    laid out contiguously; K5's per-row form against its plain version."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    worst = {dt: 0.0 for dt in TOL}
+    failures, n = [], 0
+
+    def check(label, got, want, dtype):
+        nonlocal n
+        name = str(dtype).split(".")[-1]
+        err, ok = close(got, want, TOL[name])
+        worst[name] = max(worst[name], err)
+        n += 1
+        if not ok:
+            failures.append(f"{label} {name}: err {err:.3g}")
+
+    cases = []
+    for ps, n_max in ((16, 6), (64, 3), (128, 3)):
+        for g in (1, 4):
+            for D in (16, 64, 96, 128):
+                for window in (None, 8):
+                    cases.append(dict(B=4, ps=ps, n_max=n_max, Hkv=2, g=g, D=D, window=window,
+                                      ts=[5, 2 * ps, n_max * ps - 1, n_max * ps - 1],
+                                      holes=[(3, 1)]))
+    # the stream's decode shape with 1024-token histories (one row shorter)
+    for window in (None, 256):
+        cases.append(dict(B=8, ps=16, n_max=64, Hkv=8, g=4, D=64, window=window,
+                          ts=[1023] * 7 + [700], holes=[]))
+    same_as_k5, k5_f32 = True, 0.0
+    for c in cases:
+        window = c.pop("window")
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kp, vp, pt, ts, kc, vc, kpos = _paged_case(torch, gen, dtype=dtype, **c)
+            o = da.paged_decode_attention(q, kp, vp, pt, ts=ts, window=window)
+            o_ref = da.paged_decode_attention_plain(q, kp, vp, pt, ts=ts, window=window)
+            label = (f"K6 B={c['B']} ps={c['ps']} n_max={c['n_max']} g={c['g']} D={c['D']} "
+                     f"window={window}")
+            check(label, o, o_ref, dtype)
+            # K5 over the same K/V laid out contiguously, positions per row
+            o5 = da.decode_attention(q, kc, vc, kpos, t=ts, window=window)
+            check(label + " vs K5", o, o5, dtype)
+            same_as_k5 &= bool(torch.equal(o, o5))
+            if dtype == torch.float32:
+                k5_f32 = max(k5_f32, float((o - o5).abs().max()))
+            # never read: the trash page, pages no table maps (the holes'),
+            # and pages wholly before a row's window
+            unread = torch.ones(kp.shape[0], dtype=torch.bool, device="cuda")
+            ptc = pt.cpu()
+            for b in range(c["B"]):
+                t = int(c["ts"][b])
+                for i in range(c["n_max"]):
+                    page = int(ptc[b, i])
+                    if page >= 0 and not (window and (i + 1) * c["ps"] - 1 <= t - window):
+                        unread[page] = False
+            kp[unread], vp[unread] = float("nan"), float("nan")
+            o_nan = da.paged_decode_attention(q, kp, vp, pt, ts=ts, window=window)
+            torch.cuda.synchronize()
+            if not torch.equal(o_nan, o):
+                failures.append(f"{label}: NaN in pages it must not read changed the output")
+        c["window"] = window
+    for name, err in worst.items():
+        log(f"[K6 sweep] {name}: max |O - plain| and |K6 - K5| {err:.3g} (tol {TOL[name]})")
+    log(f"[K6 sweep] K6 equals K5 on the same K/V laid out contiguously bit for bit in "
+        f"every case: {same_as_k5} (f32 max |K6 - K5| {k5_f32:.3g}, tol 1e-5); NaN in the "
+        f"trash page, the unmapped pages and the pages before the window changed no output")
+    require(k5_f32 <= 1e-5, f"K6 differs from K5 by {k5_f32:.3g} in f32")
+    require(not failures, f"K6 disagrees in {len(failures)} of {n} comparisons:\n  "
+            + "\n  ".join(failures[:20]))
+    log(f"[K6 sweep] {n} comparisons agree")
+
+    # K5's per-row form: ring caches holding each row's own history
+    worst5, n5, fail5 = {dt: 0.0 for dt in TOL}, 0, []
+    B, S, Hkv = 8, 532, 8
+    for g in (1, 4):
+        for D in (16, 64, 96, 128):
+            for window in (None, 128):
+                for dtype in (torch.bfloat16, torch.float32):
+                    ts = torch.tensor([0, 7, 100, 531, 532, 900, 2000, 311], dtype=torch.int32,
+                                      device="cuda")
+                    slots = torch.arange(S, dtype=torch.int32, device="cuda")[None]
+                    base = (ts[:, None] // S) * S
+                    kpos = base + slots
+                    kpos = torch.where(kpos > ts[:, None], kpos - S, kpos)
+                    kpos = torch.where(kpos >= 0, kpos, torch.full_like(kpos, -1)).contiguous()
+                    q = torch.randn((B, 1, Hkv * g, D), generator=gen, device="cuda").to(dtype)
+                    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
+                            for _ in range(2))
+                    o = da.decode_attention(q, k, v, kpos, t=ts, window=window)
+                    o_ref = da.decode_attention_plain(q, k, v, kpos, t=ts, window=window)
+                    torch.cuda.synchronize()
+                    name = str(dtype).split(".")[-1]
+                    err, ok = close(o, o_ref, TOL[name])
+                    worst5[name] = max(worst5[name], err)
+                    n5 += 1
+                    if not ok:
+                        fail5.append(f"g={g} D={D} window={window} {name}: err {err:.3g}")
+    for name, err in worst5.items():
+        log(f"[K5 per-row] {name}: max |O - plain| {err:.3g} (tol {TOL[name]})")
+    require(not fail5, f"K5's per-row form disagrees with its plain version in {len(fail5)} "
+            f"of {n5} cases:\n  " + "\n  ".join(fail5))
+    log(f"[K5 per-row] {n5} cases agree")
+
+
 def phase_slice(torch, np, build, fa, da, InferenceSession, tree_map):
     B, P, N = SLICE["batch"], SLICE["prompt_len"], SLICE["new_tokens"]
     t0 = time.perf_counter()
@@ -484,6 +644,186 @@ def phase_f32_identity(torch, np, fa, da, get_config, InferenceSession):
     log(f"[f32] {cfg.name} at full width, 2 layers, f32: greedy tokens kernel == plain: "
         f"{same}")
     require(same, f"f32 greedy tokens differ:\n{toks_k[:, 200:]}\n{toks_p[:, 200:]}")
+    del sess
+    torch.cuda.empty_cache()
+
+
+def chat_stream(np, vocab, *, requests, system, suffix, seed=0, gens=STREAM_GENS):
+    """Prompts sharing one system prompt, with suffixes spread evenly over
+    ``suffix`` (inclusive), and replies cycling through ``gens``."""
+    rs = np.random.RandomState(seed)
+    sysp = rs.randint(1, vocab, size=system).astype(np.int32)
+    lo, hi = suffix
+    lens = [lo + (hi - lo) * i // max(requests - 1, 1) for i in range(requests)]
+    lens = [lens[(7 * i) % requests] for i in range(requests)]      # mixed order
+    prompts = [np.concatenate([sysp, rs.randint(1, vocab, size=n).astype(np.int32)])
+               for n in lens]
+    return prompts, [gens[i % len(gens)] for i in range(requests)]
+
+
+def _agreement(np, prompts, outs_a, outs_b):
+    """(requests whose tokens agree, requests whose first generated token
+    agrees, generated tokens that agree before the first difference, per
+    request) between two runs of one stream."""
+    same = sum(bool(np.array_equal(a, b)) for a, b in zip(outs_a, outs_b))
+    first = sum(int(a[len(p)]) == int(b[len(p)]) for p, a, b in zip(prompts, outs_a, outs_b))
+    run = [int(np.argmax(np.append(a[len(p):] != b[len(p):], True)))
+           for p, a, b in zip(prompts, outs_a, outs_b)]
+    return same, first, run
+
+
+def phase_stream(torch, np, build, InferenceSession, tree_map, smi):
+    """granite-3-2b at its published width and depth (random bf16 weights
+    from seed 0) serves the chat stream through ``InferenceSession.serve``,
+    on contiguous slots and on the paged pool.  Launches are zeroed before
+    and read after each arm: contiguous K1 once per layer per admission
+    prefill group and K5 once per layer per decode step; paged K6 once per
+    layer per decode step and no K1 or K5 (the paged suffix prefill is the
+    masked einsum).  The arms' tokens are compared, in bf16 and on an f32
+    copy of the model (reported, not required: near-ties may flip).  Then
+    one decode step of each arm is profiled."""
+    t0 = time.perf_counter()
+    sess = InferenceSession.from_recipe(STREAM["arch"], seed=0)
+    torch.cuda.synchronize()
+    cfg, L = sess.cfg, sess.cfg.n_layers
+    prompts, gens = chat_stream(np, cfg.vocab_size, requests=STREAM["requests"],
+                                system=STREAM["system"], suffix=STREAM["suffix"])
+    n_slots, ps = STREAM["slots"], STREAM["page_size"]
+    log(f"[stream] {cfg.name}: {L} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.hd}, {cfg.dtype}; {len(prompts)} requests, system "
+        f"prompt {STREAM['system']}, prompts {min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} tokens, replies {sorted(set(gens))}, {sum(gens)} tokens, "
+        f"{n_slots} slots, page {ps}; init {time.perf_counter() - t0:.1f} s")
+    arms, launches = {}, {}
+    for arm in ("contiguous", "paged"):
+        kw = dict(paged=True, page_size=ps) if arm == "paged" else {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.launch_counts.clear()
+        t0 = time.perf_counter()
+        outs, st = sess.serve(prompts, gens, n_slots=n_slots, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(build.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        arms[arm], launches[arm] = (outs, st, wall, peak), counts
+        log(f"[stream] {arm}: {st.requests} requests, {st.generated_tokens} tokens, "
+            f"{st.decode_steps} decode steps in {wall:.2f} s ({st.generated_tokens / wall:.1f} "
+            f"tok/s, host clock, admission prefills included); occupancy {st.occupancy:.4f}, "
+            f"stranded_fraction {st.stranded_fraction:.4f}, prompt tokens {st.prompt_tokens}, "
+            f"prefilled {st.prefill_tokens}" + (
+                f", prefix_hits {st.prefix_hits}, prefix_hit_rate {st.prefix_hit_rate:.4f}, "
+                f"pool_occupancy {st.pool_occupancy:.4f} of {st.pool_pages} pages"
+                if arm == "paged" else "")
+            + f"; launches {counts}; max_memory_allocated {peak} B; {smi}")
+        require(st.requests == len(prompts) and st.generated_tokens == sum(gens),
+                f"{arm}: served {st.requests} requests, {st.generated_tokens} tokens")
+        for p, m, o in zip(prompts, gens, outs):
+            require(len(o) == len(p) + m and bool((o[:len(p)] == p).all()),
+                    f"{arm}: a request came back with {len(o)} tokens or altered")
+            require(bool(((o >= 0) & (o < cfg.vocab_size)).all()), f"{arm}: ids out of range")
+        steps = st.decode_steps
+        if arm == "contiguous":
+            require(counts.get("decode_attention", 0) == L * steps,
+                    f"K5 launched {counts.get('decode_attention', 0)} times, expected "
+                    f"{L} x {steps}")
+            require(counts.get("flash_fwd", 0) > 0 and counts["flash_fwd"] % L == 0,
+                    f"K1 launched {counts.get('flash_fwd', 0)} times, not a positive "
+                    f"multiple of {L}")
+            require(counts.get("paged_decode_attention", 0) == 0, "K6 ran on slots")
+        else:
+            require(counts.get("paged_decode_attention", 0) == L * steps,
+                    f"K6 launched {counts.get('paged_decode_attention', 0)} times, expected "
+                    f"{L} x {steps}")
+            require(counts.get("decode_attention", 0) == 0 and counts.get("flash_fwd", 0) == 0,
+                    f"the paged arm launched K1 or K5: {counts}")
+            require(st.prefix_hits > 0 and st.stranded_fraction < arms["contiguous"][1]
+                    .stranded_fraction, "the paged arm shared no prefix or stranded more")
+    same, first, run = _agreement(np, prompts, arms["contiguous"][0], arms["paged"][0])
+    log(f"[stream] requests whose tokens agree between the arms: {same} of {len(prompts)} "
+        f"({same / len(prompts):.4f}); whose first token (the admission prefill's argmax) "
+        f"agrees: {first} of {len(prompts)}; tokens agreeing before the first difference, "
+        f"per request (of {gens}): {run}; bf16 near-ties may flip: the arms prefill through "
+        f"different attention code (K1; the masked einsum) in different batches, so their "
+        f"bf16 caches differ by rounding")
+    # the same stream on an f32 copy of the model: rounding 2^16 times finer
+    sess32 = InferenceSession(dataclasses.replace(cfg, dtype="float32"),
+                              tree_map(lambda x: x.float(), sess.params), device=sess.device)
+    outs32 = {arm: sess32.serve(prompts, gens, n_slots=n_slots,
+                                **(dict(paged=True, page_size=ps) if arm == "paged" else {}))[0]
+              for arm in ("contiguous", "paged")}
+    del sess32
+    torch.cuda.empty_cache()
+    same, first, run = _agreement(np, prompts, outs32["contiguous"], outs32["paged"])
+    log(f"[stream] f32 copy, full depth: requests whose tokens agree between the arms: "
+        f"{same} of {len(prompts)}; first token {first} of {len(prompts)}; tokens agreeing "
+        f"before the first difference: {run}")
+
+    # one decode step of each arm, profiled, at the stream's mid-depth: every
+    # slot holds a request 320 + 16 b tokens deep
+    with torch.inference_mode():
+        B = n_slots
+        ts = torch.tensor([320 + 16 * b for b in range(B)], dtype=torch.int32, device="cuda")
+        toks = torch.arange(1, B + 1, dtype=torch.int32, device="cuda")
+        max_len = max(len(p) + m for p, m in zip(prompts, gens))
+        caches = sess.init_cache(B, max_len)
+        for c in caches["blocks"]:
+            c["pos"].copy_(torch.where(torch.arange(max_len, device="cuda")[None] < ts[:, None],
+                                       torch.arange(max_len, device="cuda")[None], -1))
+        n_max = -(-max_len // ps)
+        pool = sess.init_paged_pool(1 + B * n_max, ps)
+        tables = (1 + torch.arange(B * n_max, dtype=torch.int32, device="cuda")).reshape(B, n_max)
+        tables = torch.where(torch.arange(n_max, device="cuda")[None] <= (ts[:, None] // ps),
+                             tables, -1).to(torch.int32).contiguous()
+        step = {"contiguous": lambda: sess.slot_step(sess.params, toks, ts, caches),
+                "paged": lambda: sess.paged_slot_step(sess.params, toks, ts, pool, tables)}
+        profiles = {}
+        for arm, fn in step.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()[0].cpu()                 # the scheduler reads each step's tokens
+            wall_ms = (time.perf_counter() - t0) / 5 * 1e3
+            prof = profile_window(torch, lambda: fn()[0].cpu(), top=6)
+            profiles[arm] = (wall_ms, prof)
+            if prof["device_ms"] == 0:
+                log(f"[profile] {arm} decode step: {wall_ms:.2f} ms host clock; device time "
+                    "not measured (no device events)")
+                continue
+            log(f"[profile] {arm} decode step (B = {B}, ts 320-{320 + 16 * (B - 1)}): device "
+                f"busy {prof['device_ms']:.3f} ms of {wall_ms:.3f} ms unprofiled wall "
+                f"({prof['device_ms'] / wall_ms:.1%}); profiled wall {prof['wall_ms']:.2f} ms")
+            for ms, count, key in prof["top"]:
+                log(f"[profile] {arm} decode step:   {ms:8.3f} ms  {count:5d}x  {key}")
+    del sess, caches, pool
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_stream_f32_identity(torch, np, fa, da, get_config, InferenceSession):
+    """granite-3-2b at full width, 2 layers, f32: a smaller chat stream on
+    the paged arm, on the contiguous arm and each request through uniform
+    ``generate`` alone give identical tokens, with the kernels and with
+    their plain versions."""
+    cfg = dataclasses.replace(get_config(STREAM["arch"]), n_layers=2, dtype="float32")
+    sess = InferenceSession.from_recipe(cfg, seed=1)
+    prompts, gens = chat_stream(np, cfg.vocab_size, requests=6, system=64, suffix=(5, 40),
+                                seed=1, gens=(24, 8, 12))
+    runs = {}
+    for plain in (False, True):
+        ctx = plain_versions(fa, da) if plain else contextlib.nullcontext()
+        with ctx:
+            tag = "plain" if plain else "kernel"
+            runs[f"paged {tag}"], _ = sess.serve(prompts, gens, n_slots=4, paged=True)
+            runs[f"contiguous {tag}"], _ = sess.serve(prompts, gens, n_slots=4)
+            runs[f"generate {tag}"] = [sess.generate(p[None], m)[0].cpu().numpy()
+                                       for p, m in zip(prompts, gens)]
+    want = runs["generate kernel"]
+    agree = {k: all(np.array_equal(a, b) for a, b in zip(v, want)) for k, v in runs.items()}
+    log(f"[f32 stream] {cfg.name} at full width, 2 layers, f32, {len(prompts)} requests: tokens "
+        f"equal uniform generate with the kernels: {agree}")
+    require(all(agree.values()), f"f32 stream tokens differ: {agree}")
     del sess
     torch.cuda.empty_cache()
 
@@ -686,12 +1026,62 @@ def phase_timing(torch, fa, da, smi):
             qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=200),
         bound_ms=b_ms, bound_by=b_by,
         shape="q (4,1,32,64), k/v (4,532,8,64) bf16, t=531, full ring")
+    rows.update(_time_paged(torch, da, gen, check))
     rows.update(_time_backward(torch, fa, gen, check))
     for name, r in rows.items():
         log(f"[time] {name} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {_ms(r['library_ms'])}, bound "
             f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), max |kernel - plain| "
             f"{r['max_abs_err']:.3g}; {smi}")
+    return rows
+
+
+def _time_paged(torch, da, gen, check):
+    """K6 at the stream's decode: 8 rows at positions 320-432 (page 16,
+    31-page tables, pages shuffled), Hq 32, Hkv 8, D 64; held against its
+    plain version in both dtypes, timed in bf16.  No single PyTorch call
+    gathers through a page table, so there is no library time; SDPA over
+    the same K/V laid out contiguously is printed for scale.  Then K5's
+    per-row form at the contiguous arm's decode (the same rows in 496-slot
+    ring caches)."""
+    F = torch.nn.functional
+    B, ps, n_max, Hkv, g, D = 8, 16, 31, 8, 4, 64
+    ts_list = [320 + 16 * b for b in range(B)]
+    rows, errs = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        gen.manual_seed(7)
+        q, kp, vp, pt, ts, kc, vc, kpos = _paged_case(torch, gen, B=B, ps=ps, n_max=n_max,
+                                                      Hkv=Hkv, g=g, D=D, dtype=dtype,
+                                                      ts=ts_list)
+        errs[name] = check(f"K6 O, stream shape, {name}",
+                           da.paged_decode_attention(q, kp, vp, pt, ts=ts),
+                           da.paged_decode_attention_plain(q, kp, vp, pt, ts=ts), TOL[name])
+        check(f"K5 per-row O, stream shape, {name}", da.decode_attention(q, kc, vc, kpos, t=ts),
+              da.decode_attention_plain(q, kc, vc, kpos, t=ts), TOL[name])
+    keys = sum(t + 1 for t in ts_list)                  # the keys the queries can see
+    nbytes = 2 * (2 * q.numel()) + 2 * keys * Hkv * D * 2 + 4 * (pt.numel() + B)
+    flops = 4 * Hkv * g * D * keys
+    b_ms, b_by = bound(nbytes, flops)
+    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    mask = ((kpos >= 0) & (kpos <= ts[:, None]))[:, None, None, :]
+    sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=200)
+    rows["paged_decode_attention"] = dict(
+        max_abs_err=errs["bfloat16"],
+        ms=time_ms(torch, lambda: da.paged_decode_attention(q, kp, vp, pt, ts=ts), iters=200),
+        plain_ms=time_ms(torch, lambda: da.paged_decode_attention_plain(q, kp, vp, pt, ts=ts)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        shape=f"q (8,1,32,64), pool ({kp.shape[0]},16,8,64) bf16, tables (8,31), ts 320-432")
+    k5_ms = time_ms(torch, lambda: da.decode_attention(q, kc, vc, kpos, t=ts), iters=200)
+    k5_plain = time_ms(torch, lambda: da.decode_attention_plain(q, kc, vc, kpos, t=ts))
+    # K5 reads every slot's position (no page table), and the K/V rows of
+    # the valid ones
+    k5_bound, _ = bound(nbytes - 4 * pt.numel() + 4 * kpos.numel(), flops)
+    log(f"[time] for scale only: SDPA over the same K/V laid out contiguously (B, S) = "
+        f"({B}, {n_max * ps}), masked: {sdpa_ms:.4f} ms; K5's per-row form on that layout: "
+        f"{k5_ms:.4f} ms, its plain version {k5_plain:.4f} ms, its bound "
+        f"{k5_bound * 1e3:.2f} us")
     return rows
 
 
@@ -805,8 +1195,11 @@ def main() -> int:
     phase_flash_sweep(torch, fa)
     phase_flash_bwd_sweep(torch, fa)
     phase_decode_sweep(torch, da)
+    phase_paged_sweep(torch, da)
     serve_launches = phase_slice(torch, np, build, fa, da, InferenceSession, tree_map)
     phase_f32_identity(torch, np, fa, da, get_config, InferenceSession)
+    stream_launches = phase_stream(torch, np, build, InferenceSession, tree_map, smi)
+    phase_stream_f32_identity(torch, np, fa, da, get_config, InferenceSession)
     train_launches = phase_train(torch, build, fa, da, TrainSession, stepfn,
                                  ParallelismConfig, DataConfig, smi)
     phase_train_f32_identity(torch, fa, da, get_config, TrainSession, stepfn,
@@ -823,12 +1216,18 @@ def main() -> int:
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:26"),
+        dict(name="paged_decode_attention", route="cuda",
+             source="src/repro_torch/csrc/paged_decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention.py:61"),
     ]
-    # launches: the counted main-path runs, the served generate and one train step
-    log(f"[launches] generate {serve_launches}; train step {train_launches}")
+    # launches: the counted main-path runs: the served generate, one train
+    # step, and the stream on each arm
+    runs = [serve_launches, train_launches, *stream_launches.values()]
+    log(f"[launches] generate {serve_launches}; train step {train_launches}; stream "
+        f"{stream_launches}")
     for kr in kernels:
         r = timing[kr["name"]]
-        n = serve_launches.get(kr["name"], 0) + train_launches.get(kr["name"], 0)
+        n = sum(c.get(kr["name"], 0) for c in runs)
         kr.update(launches=n, max_abs_err=r["max_abs_err"],
                   ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                   bound_by=r["bound_by"], library_ms=r["library_ms"])

@@ -9,6 +9,10 @@ its re-warm factor, and AdamW with the zero-update on a skipped step.  The
 train state is updated in place (params, ``m``, ``v`` and ``ef`` leaf by
 leaf), the metrics are 0-d tensors on the device under the reference's
 names, and the step reads nothing back to the host.
+
+The serving steps (``make_serve_step``, ``make_prefill_cache``, the slot
+steps and the paged steps) and the slot and page operations update their
+caches and pools in place, where the reference donates them.
 """
 
 from __future__ import annotations
@@ -241,10 +245,11 @@ def make_eval_step(cfg: ModelConfig, plan: ParallelismConfig):
 
 def make_serve_step(cfg: ModelConfig):
     """One greedy decode step: (params, token (B,), t, caches) →
-    (next token (B,) int32, caches).  ``torch.argmax`` takes the first
+    (next token (B,) int32, caches); ``t`` is an int, or a (B,) int32
+    tensor of one position per row.  ``torch.argmax`` takes the first
     maximum, as ``jnp.argmax`` does."""
 
-    def serve_step(params, token, t: int, caches):
+    def serve_step(params, token, t, caches):
         logits, caches = model_api.decode_step(cfg, params, token, t, caches)
         return logits.argmax(dim=-1).to(torch.int32), caches
 
@@ -259,3 +264,98 @@ def make_prefill_cache(cfg: ModelConfig):
         return model_api.prefill_cache(cfg, params, batch, caches)
 
     return prefill_cache
+
+
+def make_slot_serve_step(cfg: ModelConfig):
+    """Continuous-batching decode: like ``make_serve_step``, but every slot
+    (batch row) carries its own position ``ts[i]``, so requests at
+    different depths decode together in one full-width step.  The reference
+    vmaps its single-request decode over the slots; the port's decode takes
+    the (B,) int32 positions as they are (one launch per layer, no loop over
+    slots, no host sync), so this is ``make_serve_step`` called with a
+    tensor for ``t``: (params, tokens (B,), ts (B,), caches) → (next (B,)
+    int32, caches)."""
+    return make_serve_step(cfg)
+
+
+def make_paged_serve_step(cfg: ModelConfig):
+    """Continuous-batching decode against the block-paged KV pool: every row
+    has its own position and its own page-table row.  (params, tokens (B,),
+    ts (B,), pool, page_tables (B, n_max)) → (next (B,) int32, pool)."""
+
+    def paged_serve_step(params, tokens, ts, pool, page_tables):
+        logits, pool = model_api.paged_decode_step(cfg, params, tokens, ts, pool,
+                                                   page_tables)
+        return logits.argmax(dim=-1).to(torch.int32), pool
+
+    return paged_serve_step
+
+
+def make_paged_prefill(cfg: ModelConfig):
+    """Admission prefill into the paged pool: right-padded prompt suffixes
+    with per-row ``hist_lens`` and ``lengths``.  (params, batch, pool,
+    page_tables) → (logits (B, V), pool)."""
+
+    def paged_prefill(params, batch, pool, page_tables):
+        return model_api.paged_prefill(cfg, params, batch, pool, page_tables)
+
+    return paged_prefill
+
+
+def pool_copy_page(cfg: ModelConfig, pool, src: int, dst: int):
+    """The copy half of copy-on-write: physical page ``src`` over ``dst`` in
+    every layer's k and v, in place."""
+    for _, x in tree_leaves(pool):
+        x[dst] = x[src]
+    return pool
+
+
+def _slot_leaves(cfg: ModelConfig, caches):
+    """[(path, leaf, slot axis)] of batched decode caches."""
+    axes = dict(tree_leaves(model_api.cache_slot_axes(cfg, caches)))
+    return [(path, x, axes[path]) for path, x in tree_leaves(caches)]
+
+
+def cache_zero_slot(cfg: ModelConfig, caches, i: int):
+    """Reset request slot ``i`` of batched decode caches in place: ``pos``
+    leaves to -1 (no valid entries), everything else to zeros.  The
+    scheduler runs this on retire, so a freed slot never leaks stale K/V
+    into the next admission."""
+    for path, x, a in _slot_leaves(cfg, caches):
+        x.narrow(a, i, 1).fill_(-1 if path[-1] == "pos" else 0)
+    return caches
+
+
+def _map_slots(fn, caches, axes):
+    """``fn(leaf, slot axis)`` over batched decode caches, keeping their
+    structure."""
+    if isinstance(caches, dict):
+        return {k: _map_slots(fn, v, axes[k]) for k, v in caches.items()}
+    if isinstance(caches, list):
+        return [_map_slots(fn, v, a) for v, a in zip(caches, axes)]
+    return fn(caches, axes)
+
+
+def cache_take_slot(cfg: ModelConfig, caches, i: int):
+    """Request slot ``i`` of batched decode caches, as slot-width-1 views
+    (``cache_insert_slot`` copies them)."""
+    return _map_slots(lambda x, a: x.narrow(a, i, 1), caches,
+                      model_api.cache_slot_axes(cfg, caches))
+
+
+def cache_slice_slots(cfg: ModelConfig, caches, start: int, width: int):
+    """A copy of ``width`` consecutive request slots of batched decode
+    caches (the scheduler derives its admission-prefill templates from one
+    full-width template, which the prefill, updating in place, must not
+    touch)."""
+    return _map_slots(lambda x, a: x.narrow(a, start, width).clone(), caches,
+                      model_api.cache_slot_axes(cfg, caches))
+
+
+def cache_insert_slot(cfg: ModelConfig, caches, slot_caches, i: int):
+    """Write slot-width-1 ``slot_caches`` (a fresh prefill) into slot ``i``
+    of batched caches, in place."""
+    src = dict(tree_leaves(slot_caches))
+    for path, x, a in _slot_leaves(cfg, caches):
+        x.narrow(a, i, 1).copy_(src[path])
+    return caches

@@ -10,7 +10,7 @@ saves nothing.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -34,8 +34,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     kpos: torch.Tensor, *, t: int,
+                     kpos: torch.Tensor, *, t: Union[int, torch.Tensor],
                      window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, 1, Hq, D); k/v: (B, S, Hkv, D); kpos: (B, S) → (B, 1, Hq, D)."""
+    """q: (B, 1, Hq, D); k/v: (B, S, Hkv, D); kpos: (B, S); t: an int or a
+    (B,) int32 tensor → (B, 1, Hq, D)."""
     fn = da.decode_attention if _kernel(q) else da.decode_attention_plain
     return fn(q, k, v, kpos, t=t, window=window)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                           page_table: torch.Tensor, *, ts: torch.Tensor,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, 1, Hq, D); k/v pool: (n_pages, ps, Hkv, D); page_table:
+    (B, n_max) int32; ts: (B,) int32 → (B, 1, Hq, D).  K6 takes any page
+    size: unlike the reference, no page size falls back to the oracle."""
+    fn = da.paged_decode_attention if _kernel(q) else da.paged_decode_attention_plain
+    return fn(q, k_pool, v_pool, page_table, ts=ts, window=window)

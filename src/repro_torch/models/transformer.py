@@ -5,8 +5,10 @@ stacked ``blocks`` leaves (L, ...) become a list of L per-layer dicts, and
 the reference's ``lax.scan`` over layers is a Python loop.  Its
 ``jax.checkpoint`` per layer becomes ``torch.utils.checkpoint`` per block
 (``remat_policy="full"``).  Caches are ``{"blocks": [{"k", "v", "pos"},
-...]}`` and are updated in place.  The MoE, hybrid, xLSTM and VLM arms are
-not ported yet.
+...]}`` and the block-paged pool is ``{"blocks": [{"k", "v"}, ...]}``, one
+(n_pages, page_size, Hkv, hd) pair per layer where the reference stacks
+(L, ...); both are updated in place.  The MoE, hybrid, xLSTM and VLM arms
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,9 +18,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.tree import tree_map
 from repro_torch.models import layers
 from repro_torch.models.attention import (attention_apply, attention_decode,
-                                          attention_init, attention_prefill,
+                                          attention_decode_paged, attention_init,
+                                          attention_prefill, attention_prefill_paged,
                                           cache_init)
 from repro_torch.models.config import ModelConfig
 
@@ -70,11 +74,27 @@ def block_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return _mlp_half(cfg, p, x + h), cache
 
 
-def block_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, t: int, cache, *,
-                 window):
+def block_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, t, cache, *, window):
     h = layers.norm_apply(cfg.norm, p["norm1"], x)
     h, cache = attention_decode(cfg, p["attn"], h, t, cache, window=window)
     return _mlp_half(cfg, p, x + h), cache
+
+
+def block_decode_paged(cfg: ModelConfig, p: Params, x: torch.Tensor, ts: torch.Tensor,
+                       pool, page_table: torch.Tensor, *, window) -> torch.Tensor:
+    h = layers.norm_apply(cfg.norm, p["norm1"], x)
+    h = attention_decode_paged(cfg, p["attn"], h, ts, pool["k"], pool["v"], page_table,
+                               window=window)
+    return _mlp_half(cfg, p, x + h)
+
+
+def block_prefill_paged(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                        positions: torch.Tensor, valid: torch.Tensor, pool,
+                        page_table: torch.Tensor, *, window) -> torch.Tensor:
+    h = layers.norm_apply(cfg.norm, p["norm1"], x)
+    h = attention_prefill_paged(cfg, p["attn"], h, positions, valid, pool["k"], pool["v"],
+                                page_table, window=window)
+    return _mlp_half(cfg, p, x + h)
 
 
 # ---------------------------------------------------------------------------
@@ -152,32 +172,108 @@ def lm_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, device) -> Dict
                                   device=device) for _ in range(n_layers)]}
 
 
+def _invalidate_padded_slots(caches, lengths: torch.Tensor) -> None:
+    """Set ``pos = -1`` in place on every cache slot holding a padded
+    position (``pos >= length`` of its row), so decode's validity mask skips
+    it."""
+    lim = lengths.reshape(-1, 1)
+    for c in caches["blocks"]:
+        c["pos"].masked_fill_(c["pos"] >= lim, -1)
+
+
 def lm_prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
                caches) -> Tuple[torch.Tensor, Any]:
     """``lm_forward(last_only=True)`` that also fills the decode caches with
     the prompt's K/V.  Returns (last-position logits (B, V), caches).
-    Right-padded prompts (``batch["lengths"]``) come with the scheduler."""
+
+    ``batch["lengths"]`` (B,), when present, marks right-padded prompts (the
+    scheduler's bucketed, batched admission, with ``segment_ids`` -1 on the
+    pad tail): the logits come from position ``lengths - 1`` and cache slots
+    holding padded positions are invalidated."""
     layer_plan(cfg)
-    if "lengths" in batch:
-        raise NotImplementedError("padded prefill (lengths) comes with the "
-                                  "continuous-batching scheduler's port")
     tokens = batch["tokens"]
     x = layers.embed_lookup(params["embed"], tokens, cfg.compute_dtype)
     positions = _positions(tokens)
     for bp, c in zip(params["blocks"], caches["blocks"]):
         x, _ = block_prefill(cfg, bp, x, positions, c, window=cfg.swa_window,
                              segment_ids=batch.get("segment_ids"))
-    return _logits(cfg, params, x[:, -1:])[:, 0], caches
+    lengths = batch.get("lengths")
+    if lengths is None:
+        x_last = x[:, -1:]
+    else:
+        x_last = x[torch.arange(x.shape[0], device=x.device), lengths.long() - 1][:, None]
+        _invalidate_padded_slots(caches, lengths)
+    return _logits(cfg, params, x_last)[:, 0], caches
 
 
-def lm_decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor, t: int,
+def lm_decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor, t,
                    caches) -> Tuple[torch.Tensor, Any]:
-    """token: (B,) int; t: the position being decoded → (logits (B, V), caches)."""
+    """token: (B,) int; t: the position being decoded, an int for every row
+    or a (B,) int32 tensor of one per row → (logits (B, V), caches)."""
     layer_plan(cfg)
     x = layers.embed_lookup(params["embed"], token[:, None], cfg.compute_dtype)
     for bp, c in zip(params["blocks"], caches["blocks"]):
         x, _ = block_decode(cfg, bp, x, t, c, window=cfg.swa_window)
     return _logits(cfg, params, x)[:, 0], caches
+
+
+# ---------------------------------------------------------------------------
+# block-paged KV pool (serving; see repro_torch.session.kvpool)
+# ---------------------------------------------------------------------------
+
+def _require_paged_plan(cfg: ModelConfig) -> int:
+    scanned_kind, n_scanned, pre = layer_plan(cfg)
+    if scanned_kind != "dense" or pre:
+        raise NotImplementedError(
+            f"paged KV pool requires a pure dense attention stack; "
+            f"{cfg.name} has kind={scanned_kind!r} pre={pre}")
+    return n_scanned
+
+
+def lm_paged_pool_init(cfg: ModelConfig, n_pages: int, page_size: int, *, device,
+                       dtype=None):
+    """One pool of KV pages shared by all requests, per layer k/v
+    (n_pages, page_size, Hkv, hd) in the compute dtype (page 0 is the trash
+    page).  Sliding-window configs keep full pools (the window is applied at
+    attention time)."""
+    n_layers = _require_paged_plan(cfg)
+    shape = (n_pages, page_size, cfg.n_kv_heads, cfg.hd)
+    dt = dtype or cfg.compute_dtype
+    return {"blocks": [{"k": torch.zeros(shape, dtype=dt, device=device),
+                        "v": torch.zeros(shape, dtype=dt, device=device)}
+                       for _ in range(n_layers)]}
+
+
+def lm_paged_decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
+                         ts: torch.Tensor, pool, page_tables: torch.Tensor):
+    """One decode step in which every row reads and writes K/V through its
+    own page-table row at its own position.  token/ts: (B,) int32;
+    page_tables: (B, n_max) int32 → (logits (B, V), pool)."""
+    _require_paged_plan(cfg)
+    x = layers.embed_lookup(params["embed"], token[:, None], cfg.compute_dtype)
+    for bp, lp in zip(params["blocks"], pool["blocks"]):
+        x = block_decode_paged(cfg, bp, x, ts, lp, page_tables, window=cfg.swa_window)
+    return _logits(cfg, params, x)[:, 0], pool
+
+
+def lm_paged_prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+                     pool, page_tables: torch.Tensor):
+    """Suffix prefill into the paged pool.  ``batch``: ``tokens`` (B, S)
+    right-padded prompt suffixes, ``hist_lens`` (B,) tokens already in the
+    pool through shared prefix pages, ``lengths`` (B,) valid suffix lengths
+    (>= 1).  Returns (logits at the last valid suffix position (B, V), pool)."""
+    _require_paged_plan(cfg)
+    tokens, hist, lengths = batch["tokens"], batch["hist_lens"], batch["lengths"]
+    B, S = tokens.shape
+    ar = torch.arange(S, dtype=torch.int32, device=tokens.device)[None]
+    positions = hist.reshape(B, 1) + ar
+    valid = ar < lengths.reshape(B, 1)
+    x = layers.embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    for bp, lp in zip(params["blocks"], pool["blocks"]):
+        x = block_prefill_paged(cfg, bp, x, positions, valid, lp, page_tables,
+                                window=cfg.swa_window)
+    x_last = x[torch.arange(B, device=x.device), lengths.long() - 1][:, None]
+    return _logits(cfg, params, x_last)[:, 0], pool
 
 
 class DecoderOnlyLM:
@@ -201,3 +297,28 @@ class DecoderOnlyLM:
 
     def prefill_cache(self, cfg, params, batch, caches):
         return lm_prefill(cfg, params, batch, caches)
+
+    def supports_padded_prefill(self, cfg):
+        """The parallel causal-attention prefill honours ``lengths``: every
+        ported (dense) stack."""
+        scanned_kind, _, pre = layer_plan(cfg)
+        return scanned_kind == "dense" and not pre
+
+    def cache_slot_axes(self, cfg, caches):
+        """The request-slot axis of every cache leaf: the per-layer ring
+        caches are (B, ...), so 0 (the reference's stacked leaves put it at
+        1, after the layers)."""
+        return tree_map(lambda _: 0, caches)
+
+    def supports_paged_cache(self, cfg):
+        """Positional K/V lists only: exactly the pure-attention stacks."""
+        return self.supports_padded_prefill(cfg)
+
+    def init_paged_pool(self, cfg, params, n_pages, page_size):
+        return lm_paged_pool_init(cfg, n_pages, page_size, device=params["embed"].device)
+
+    def paged_decode_step(self, cfg, params, token, ts, pool, page_tables):
+        return lm_paged_decode_step(cfg, params, token, ts, pool, page_tables)
+
+    def paged_prefill(self, cfg, params, batch, pool, page_tables):
+        return lm_paged_prefill(cfg, params, batch, pool, page_tables)

@@ -1,16 +1,22 @@
 """``InferenceSession``: the serving side of the recipe in one object,
-mirroring ``repro.session.infer`` for uniform batches on one device.
+mirroring ``repro.session.infer`` on one device.
 
 It owns the compute-dtype parameters on its device, the cache init, the
-prefill and decode steps, and a batched greedy ``generate()``.  The session
-runs on the card unless the caller asks for the CPU; without CUDA the
-default raises.  ``serve()``, the slot operations and the paged steps come
-with the continuous-batching scheduler's port.
+prefill and decode steps, the continuous-batching slot operations
+(``slot_step``, ``insert_slot``, ``take_slot``, ``zero_slot``), the
+block-paged pool's steps (``init_paged_pool``, ``paged_prefill_step``,
+``paged_slot_step``, ``pool_copy_page``), a batched greedy ``generate()``
+and ``serve()``, which drains a mixed-length request stream through the
+continuous-batching scheduler (``repro_torch.session.scheduler``) on
+contiguous slots or on the paged pool.  The session runs on the card
+unless the caller asks for the CPU; without CUDA the default raises.  The
+reference's ``lower_prefill`` / ``lower_decode`` (compile-only dry runs over
+a mesh) wait for the parallel recipe's port.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Union
+from typing import Any, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -43,6 +49,10 @@ class InferenceSession:
         self.family = model_api.family_of(cfg)
         self.prefill_cache_step = stepfn.make_prefill_cache(cfg)
         self.serve_step = stepfn.make_serve_step(cfg)
+        self.slot_step = stepfn.make_slot_serve_step(cfg)
+        self.paged_prefill_step = stepfn.make_paged_prefill(cfg)
+        self.paged_slot_step = stepfn.make_paged_serve_step(cfg)
+        self.last_stats = None  # ServingStats of the most recent serve()
 
     # ------------------------------------------------------------------
     # construction
@@ -77,16 +87,47 @@ class InferenceSession:
     def init_cache(self, batch_size: int, max_len: int) -> Any:
         return model_api.init_cache(self.cfg, self.params, batch_size, max_len)
 
+    # continuous-batching slot operations, in place on the caches
+    def insert_slot(self, caches, slot_caches, i: int):
+        """Write slot-width-1 ``slot_caches`` into request slot ``i``."""
+        return stepfn.cache_insert_slot(self.cfg, caches, slot_caches, i)
+
+    def take_slot(self, caches, i: int):
+        """Request slot ``i`` of batched caches, slot-width 1 (views)."""
+        return stepfn.cache_take_slot(self.cfg, caches, i)
+
+    def zero_slot(self, caches, i: int):
+        """Reset request slot ``i`` (positions -1, K/V 0): retire uses this
+        so a freed slot never holds stale K/V."""
+        return stepfn.cache_zero_slot(self.cfg, caches, i)
+
+    # block-paged KV pool (repro_torch.session.kvpool)
+    def init_paged_pool(self, n_pages: int, page_size: int):
+        """Device KV page pool, per layer k/v (n_pages, page_size,
+        n_kv_heads, head_dim) in the compute dtype (page 0 is the trash
+        page)."""
+        return model_api.init_paged_pool(self.cfg, self.params, n_pages, page_size)
+
+    def pool_copy_page(self, pool, src: int, dst: int):
+        """COW page copy: physical page ``src`` over ``dst`` in every layer."""
+        return stepfn.pool_copy_page(self.cfg, pool, src, dst)
+
     def generate(self, prompts, max_new_tokens, *,
-                 stop_token: Optional[int] = None) -> torch.Tensor:
-        """Greedy decode of a uniform batch: one cache-populating prefill
-        ingests the (B, P) prompts, then argmax decode.  Returns
-        (B, P + max_new_tokens) int32 token ids on the session's device;
-        after ``stop_token`` a row is padded with it."""
+                 stop_token: Optional[int] = None, n_slots: Optional[int] = None):
+        """Greedy decode.
+
+        Uniform mode (a 2-D ``prompts`` array and an int ``max_new_tokens``):
+        one cache-populating prefill ingests the (B, P) prompts, then argmax
+        decode.  Returns (B, P + max_new_tokens) int32 token ids on the
+        session's device; after ``stop_token`` a row is padded with it.
+
+        Mixed-length mode (a list of prompts, or per-request
+        ``max_new_tokens``): delegates to :meth:`serve` and returns its list
+        of per-request 1-D numpy token arrays (stats in ``last_stats``)."""
         if isinstance(prompts, (list, tuple)) or isinstance(max_new_tokens, (list, tuple)):
-            raise NotImplementedError(
-                "mixed-length generate needs the continuous-batching scheduler, "
-                "which a later PR ports (ROADMAP queue 1, item 5)")
+            outs, _ = self.serve(prompts, max_new_tokens, stop_token=stop_token,
+                                 n_slots=n_slots)
+            return outs
         if not isinstance(prompts, torch.Tensor):
             prompts = torch.from_numpy(np.asarray(prompts))
         with torch.inference_mode():
@@ -112,6 +153,48 @@ class InferenceSession:
                 tok = nxt
                 cols.append(tok[:, None])
             return torch.cat(cols, dim=1)
+
+    def serve(self, prompts: Sequence, max_new_tokens, *,
+              stop_token: Optional[int] = None, n_slots: Optional[int] = None,
+              max_len: Optional[int] = None, bucket_prefills: bool = True,
+              paged: bool = False, page_size: int = 16, n_pages: Optional[int] = None,
+              prefix_sharing: bool = True, scheduler=None):
+        """Continuous-batching serve of a mixed-length request set.  Returns
+        (list of per-request 1-D token arrays in submit order,
+        ``ServingStats``).
+
+        ``bucket_prefills`` pads admission prefills to power-of-two prompt
+        lengths (masked: outputs are unchanged).  ``paged=True`` serves from
+        the block-paged KV pool (per-request page tables over shared
+        physical pages, prefix-cache reuse of identical prompt prefixes,
+        copy-on-write growth); greedy outputs stay token-identical to the
+        contiguous-slot path.  Pass a previously returned ``scheduler`` to
+        keep its prefix cache warm across calls."""
+        from repro_torch.session.scheduler import (ContinuousBatchingScheduler,
+                                                   RequestQueue, ServingStats)
+        prompts = [np.asarray(p, np.int32).reshape(-1) for p in prompts]
+        if isinstance(max_new_tokens, (list, tuple)):
+            mnt = [int(m) for m in max_new_tokens]
+        else:
+            mnt = [int(max_new_tokens)] * len(prompts)
+        if len(mnt) != len(prompts):
+            raise ValueError(f"{len(prompts)} prompts but {len(mnt)} max_new_tokens")
+        if not prompts:
+            self.last_stats = ServingStats()
+            return [], self.last_stats
+        if n_slots is None:
+            n_slots = min(4, len(prompts))
+        if max_len is None:
+            max_len = max(len(p) + m for p, m in zip(prompts, mnt))
+        queue = RequestQueue()
+        rids = [queue.submit(p, m, stop_token=stop_token) for p, m in zip(prompts, mnt)]
+        sched = scheduler if scheduler is not None else ContinuousBatchingScheduler(
+            self, n_slots=n_slots, max_len=max_len, bucket_prefills=bucket_prefills,
+            paged=paged, page_size=page_size, n_pages=n_pages,
+            prefix_sharing=prefix_sharing)
+        outputs, stats = sched.run(queue)
+        self.last_stats = stats
+        return [outputs[r] for r in rids], stats
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return f"<InferenceSession {self.cfg.name} on {self.device}>"

@@ -160,16 +160,27 @@ def test_reference_checkpoint_loads_into_port(tmp_path, dtype):
 
 
 def test_port_runs_without_jax_or_reference():
+    """Every module of the port imports, and serving runs on both arms of
+    the scheduler, in a process where ``jax`` and ``repro`` cannot be
+    imported."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         "import numpy as np\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "assert 'repro_torch.session.scheduler' in mods and len(mods) > 30, mods\n"
         "from repro_torch.session import InferenceSession\n"
-        "import repro_torch.launch.serve, repro_torch.checkpoint.bridge\n"
         "s = InferenceSession.from_recipe('granite_3_2b', reduced=True, device='cpu')\n"
         "out = s.generate(np.zeros((2, 8), np.int32), 4)\n"
         "assert tuple(out.shape) == (2, 12), out.shape\n"
+        "ps = [np.arange(1, n, dtype=np.int32) for n in (9, 21, 5)]\n"
+        "a, _ = s.serve(ps, [4, 3, 5], n_slots=2)\n"
+        "b, st = s.serve(ps, [4, 3, 5], n_slots=2, paged=True, page_size=8)\n"
+        "assert all((x == y).all() for x, y in zip(a, b)) and st.requests == 3\n"
         "assert not [m for m, v in sys.modules.items()\n"
         "            if v is not None and (m == 'jax' or m.startswith('jax.'))]\n"
         "print('ok')\n")
@@ -211,9 +222,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, capsys):
 
 
 def test_unported_paths_raise():
+    """The other model families, and the reference's compile-only lowering
+    (which waits for the parallel recipe), are not ported yet."""
     _, port = _sessions("granite_3_2b")
-    with pytest.raises(NotImplementedError, match="scheduler"):
-        port.generate([np.zeros(3, np.int32), np.zeros(5, np.int32)], 4)
+    assert not hasattr(port, "lower_prefill") and not hasattr(port, "lower_decode")
     moe = dataclasses.replace(get_config("granite_3_2b").reduced(), family="moe")
     with pytest.raises(NotImplementedError):
         InferenceSession.from_recipe(moe, device="cpu")
