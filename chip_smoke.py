@@ -22,6 +22,11 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    contiguously; shows that NaN in pages K6 must not read (the trash page,
    unmapped pages, pages before the window) changes nothing; and holds
    K5's per-row form (a (B,) tensor of positions) against its plain version;
+   then K7 (fused RMSNorm) against its plain version over the reference
+   test's shapes, one row, a prime row count, d 2047/2048/8192, granite's
+   training activations (8192 x 2048) and a 1-D x, eps 1e-6 and 1e-5, bf16
+   and f32 (2e-2 and 1e-5), and ``ops.rmsnorm``'s dispatch: one counted
+   launch with the ``fused_rmsnorm`` flag on, none with it off;
 5. serves granite-3-2b at its published width and depth (random bf16
    weights from seed 0) through ``InferenceSession.generate``: 4 prompts of
    500 tokens, 32 new tokens each.  Launch counts are zeroed just before and
@@ -53,12 +58,34 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
 10. checks that, in f32 at full width (2 layers), 3 training steps with the
    kernels and with the plain versions give the same losses (1e-5 relative)
    and params (1e-4);
-11. holds each kernel against its plain version at its slice's shapes (K1's
+11. runs the training CLI (``repro_torch.launch.train.main``, in this
+   process) at full width, 2 layers (a run may write at most 45 GiB to
+   the card's host disk, and a full-depth checkpoint is 30.4 GB; see
+   ``CLI``), the batch and plan of 9, 8 steps, a checkpoint every 4: with
+   ``--fail-at 6`` it must end in the injected crash; the same command
+   without it must resume from step 4, with the losses of steps 4 and 5
+   equal to the crashed run's bit for bit, and K1 4 x layers and K2-K4 2 x
+   layers launches a step.  It prints the checkpoint's bytes, the
+   snapshot, background write and restore times, ms per step inside
+   ``run()`` against bare ``step()`` on the same config, a step while the
+   background write runs, and peak memory;
+12. runs the six drills of ``benchmarks/run.py:resilience_bench`` (skip,
+   rollback, crash_restart, ckpt_retry, consensus_skip,
+   replica_loss_replan) through ``TrainSession.run`` at full width, 1
+   layer (the disk cap), bf16, with its fault plans, cadences, step counts
+   and data: every figure must equal ``BENCH_resilience.json``'s; then
+   times the in-step detection on vs off;
+13. checks that, in f32 at granite's attention and MLP widths (1 layer, a
+   4096-token vocabulary: the disk cap), the rollback and consensus drills
+   give the same events, losses (1e-5 relative) and params (1e-4) with the
+   kernels and with their plain versions;
+14. holds each kernel against its plain version at its slice's shapes (K1's
    O and lse, K2-K4 at the training attention, K5's O, K6 at the stream's
-   decode; f32 and bf16), then times it there beside its plain version, one
-   PyTorch library call (``scaled_dot_product_attention``, its backward for
-   K3 and K4; none for K2 and K6; timed only here) and its bound;
-12. prints a ``{"kernels": [...]}`` line and, last,
+   decode, K7 at the training activations; f32 and bf16), then times it
+   there beside its plain version, one PyTorch library call
+   (``scaled_dot_product_attention``, its backward for K3 and K4;
+   ``rms_norm`` for K7; none for K2 and K6; timed only here) and its bound;
+15. prints a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  It also exits non-zero
@@ -91,6 +118,7 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 LOGIT_FLOOR_FACTOR = 2.0
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_BF16_FLOP_PER_S = 989e12       # dense tensor-core bf16, H100 SXM data sheet
+H100_F32_FLOP_PER_S = 67e12         # f32 outside the tensor cores, H100 SXM data sheet
 
 SLICE = dict(arch="granite_3_2b", batch=4, prompt_len=500, new_tokens=32)
 # the chat stream served through both arms of the scheduler: 16 requests
@@ -100,6 +128,24 @@ STREAM = dict(arch="granite_3_2b", requests=16, system=256, suffix=(16, 112), sl
               page_size=16)
 STREAM_GENS = (128, 16, 16, 32)
 TRAIN = dict(arch="granite_3_2b", seq_len=1024, global_batch=8, gas=2, steps=4)
+# K7: tolerances (the reference's kernel test's) and the sweep's shapes
+RMS_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+RMS_SHAPES = ((8, 128), (3, 7, 256), (64, 512), (1, 2048), (131, 2048), (131, 2047),
+              (7, 8192), (2048,), (8192, 2048))
+# The card's host lets one run of this script write at most 45 GiB to its
+# disk, deleted files included.  A checkpoint takes 12 B a parameter (f32
+# params, m and v): 30.4 GB at full depth, 1.94 GB for one layer at full width (1.21 GB of it
+# the 49155 x 2048 embedding).  So the phases that checkpoint run at full
+# width with fewer layers: the CLI's crash -> resume at 2 (2 checkpoints,
+# 5.3 GB), the six drills at 1 (15 checkpoints, 29.1 GB) and the f32 drills
+# at 1 with a 4096-token vocabulary (8 checkpoints, 6.6 GB).
+CLI = dict(arch="granite_3_2b", n_layers=2, seq=1024, batch=8, gas=2, steps=8, ckpt_every=4,
+           fail_at=6)
+# the resilience drills: resilience_bench's scenarios, data and LR
+DRILL = dict(arch="granite_3_2b", n_layers=1, seq=128, batch=8, lr=1e-3)
+F32_DRILL = dict(n_layers=1, vocab_size=4096, dtype="float32")
+DRILLS = ("skip", "rollback", "crash_restart", "ckpt_retry", "consensus_skip",
+          "replica_loss_replan")
 
 
 class SmokeFailure(Exception):
@@ -124,15 +170,18 @@ def close(got, want, tol):
 
 KERNEL_NAMES = (("flash_fwd", "fa"), ("flash_delta", "fa"), ("flash_dq", "fa"),
                 ("flash_dkv", "fa"), ("decode_attention", "da"),
-                ("paged_decode_attention", "da"))
+                ("paged_decode_attention", "da"), ("rmsnorm", "rn"))
 
 
 @contextlib.contextmanager
-def plain_versions(fa, da):
+def plain_versions():
     """Inside this block the dispatch (``kernels.ops`` and ``FlashAttention``)
     sends CUDA tensors to the kernels' plain versions too: the comparison path
     on the card."""
-    mods = {"fa": fa, "da": da}
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    mods = {"fa": fa, "da": da, "rn": rn}
     saved = [(mods[m], n, getattr(mods[m], n)) for n, m in KERNEL_NAMES]
     for mod, name, _ in saved:
         setattr(mod, name, getattr(mod, f"{name}_plain"))
@@ -562,7 +611,7 @@ def phase_slice(torch, np, build, fa, da, InferenceSession, tree_map):
 
     with torch.inference_mode():
         logits_k = [prefill_logits(sess) for _ in range(2)]
-        with plain_versions(fa, da):
+        with plain_versions():
             logits_p = [prefill_logits(sess) for _ in range(2)]
             sess32 = InferenceSession(dataclasses.replace(cfg, dtype="float32"),
                                       tree_map(lambda x: x.float(), sess.params),
@@ -638,7 +687,7 @@ def phase_f32_identity(torch, np, fa, da, get_config, InferenceSession):
     sess = InferenceSession.from_recipe(cfg, seed=1)
     prompts = np.random.RandomState(1).randint(0, cfg.vocab_size, size=(2, 200)).astype(np.int32)
     toks_k = sess.generate(prompts, 16)
-    with plain_versions(fa, da):
+    with plain_versions():
         toks_p = sess.generate(prompts, 16)
     same = bool(torch.equal(toks_k, toks_p))
     log(f"[f32] {cfg.name} at full width, 2 layers, f32: greedy tokens kernel == plain: "
@@ -812,7 +861,7 @@ def phase_stream_f32_identity(torch, np, fa, da, get_config, InferenceSession):
                                 seed=1, gens=(24, 8, 12))
     runs = {}
     for plain in (False, True):
-        ctx = plain_versions(fa, da) if plain else contextlib.nullcontext()
+        ctx = plain_versions() if plain else contextlib.nullcontext()
         with ctx:
             tag = "plain" if plain else "kernel"
             runs[f"paged {tag}"], _ = sess.serve(prompts, gens, n_slots=4, paged=True)
@@ -902,7 +951,7 @@ def phase_train(torch, build, fa, da, TrainSession, stepfn, ParallelismConfig, D
     mask = batch["loss_mask"].float()
 
     def token_nll(c, plain):
-        ctx = plain_versions(fa, da) if plain else contextlib.nullcontext()
+        ctx = plain_versions() if plain else contextlib.nullcontext()
         with torch.no_grad(), ctx:
             logits = transformer.lm_forward(c, sess.state["params"], batch, remat_policy="none")
             return torch.logsumexp(logits, -1) - layers.gold_logit(logits, batch["labels"])
@@ -942,7 +991,7 @@ def phase_train_f32_identity(torch, fa, da, get_config, TrainSession, stepfn,
             cfg, seed=1, plan=ParallelismConfig(gas=2, remat_policy="full"),
             train_cfg=stepfn.TrainConfig(total_steps=3, warmup=1),
             data_cfg=DataConfig(seq_len=256, global_batch=4))
-        ctx = plain_versions(fa, da) if plain else contextlib.nullcontext()
+        ctx = plain_versions() if plain else contextlib.nullcontext()
         with ctx:
             losses = [float(sess.step()["loss"]) for _ in range(3)]
         return losses, sess.state["params"]
@@ -962,7 +1011,7 @@ def phase_train_f32_identity(torch, fa, da, get_config, TrainSession, stepfn,
     torch.cuda.empty_cache()
 
 
-def phase_timing(torch, fa, da, smi):
+def phase_timing(torch, fa, da, rn, smi):
     F = torch.nn.functional
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
@@ -1028,6 +1077,7 @@ def phase_timing(torch, fa, da, smi):
         shape="q (4,1,32,64), k/v (4,532,8,64) bf16, t=531, full ring")
     rows.update(_time_paged(torch, da, gen, check))
     rows.update(_time_backward(torch, fa, gen, check))
+    rows.update(_time_rmsnorm(torch, rn, gen, check))
     for name, r in rows.items():
         log(f"[time] {name} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {_ms(r['library_ms'])}, bound "
@@ -1152,6 +1202,411 @@ def _time_backward(torch, fa, gen, check):
     return rows
 
 
+def phase_rmsnorm_sweep(torch, build, rn, ops, flags):
+    """K7 against its plain version over the reference test's shapes, one
+    row, a prime row count, d 2047/2048/8192, granite's training activations
+    (8192 x 2048) and a 1-D x; eps 1e-6 and 1e-5; bf16 and f32.  Then
+    ``ops.rmsnorm``'s dispatch: one counted launch with the flag on, none
+    with it off."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    worst = {dt: 0.0 for dt in RMS_TOL}
+    failures, n = [], 0
+    for shape in RMS_SHAPES:
+        for eps in (1e-6, 1e-5):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                scale = 1 + 0.5 * torch.randn(shape[-1], generator=gen, device="cuda")
+                y = rn.rmsnorm(x, scale, eps=eps)
+                y_ref = rn.rmsnorm_plain(x, scale, eps=eps)
+                torch.cuda.synchronize()
+                name = str(dtype).split(".")[-1]
+                err, ok = close(y, y_ref, RMS_TOL[name])
+                worst[name] = max(worst[name], err)
+                n += 1
+                if not ok or y.dtype != dtype or y.shape != x.shape:
+                    failures.append(f"{shape} eps={eps} {name}: err {err:.3g}, {y.dtype} "
+                                    f"{tuple(y.shape)}")
+    for name, err in worst.items():
+        log(f"[K7 sweep] {name}: max |y - plain| {err:.3g} (tol {RMS_TOL[name]})")
+    require(not failures, f"K7 disagrees with its plain version in {len(failures)} of {n} "
+            f"cases:\n  " + "\n  ".join(failures[:20]))
+    log(f"[K7 sweep] {n} cases agree (shapes {list(RMS_SHAPES)})")
+    x = torch.randn((64, 2048), generator=gen, device="cuda").to(torch.bfloat16)
+    scale = torch.ones(2048, device="cuda")
+    counts = {}
+    for on in (False, True):
+        with flags.flag_ctx(fused_rmsnorm=on):
+            build.launch_counts.clear()
+            y = ops.rmsnorm(x, scale)
+            torch.cuda.synchronize()
+            counts[on] = build.launch_counts.get("rmsnorm", 0)
+            require(bool(torch.isfinite(y).all()), "ops.rmsnorm gave non-finite values")
+    log(f"[K7 dispatch] ops.rmsnorm on a CUDA tensor launches K7 {counts[True]} time(s) with "
+        f"fused_rmsnorm on, {counts[False]} with it off")
+    require(counts == {False: 0, True: 1}, f"ops.rmsnorm dispatch counted {counts}")
+
+
+def _time_rmsnorm(torch, rn, gen, check):
+    """K7 at granite's training activations, x (8192, 2048) bf16, scale f32:
+    held against its plain version in both dtypes, timed in bf16 beside its
+    plain version and ``torch.nn.functional.rms_norm`` (with the scale cast
+    to bf16, the dtype its fused kernel needs; timed only here)."""
+    import warnings
+    F = torch.nn.functional
+    rows, d = 8192, 2048
+    x32 = torch.randn((rows, d), generator=gen, device="cuda")
+    scale = 1 + 0.5 * torch.randn(d, generator=gen, device="cuda")
+    check("K7 y, training activations, float32", rn.rmsnorm(x32, scale),
+          rn.rmsnorm_plain(x32, scale), RMS_TOL["float32"])
+    x = x32.to(torch.bfloat16)
+    err = check("K7 y, training activations, bfloat16", rn.rmsnorm(x, scale),
+                rn.rmsnorm_plain(x, scale), RMS_TOL["bfloat16"])
+    nbytes = 2 * 2 * x.numel() + 4 * d                 # x read, y written, scale read
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = 4 * x.numel() / H100_F32_FLOP_PER_S * 1e3  # square, add, two multiplies (f32)
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    sb = scale.to(x.dtype)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")                # mixed dtypes: the unfused path
+        mixed = time_ms(torch, lambda: F.rms_norm(x, (d,), weight=scale, eps=1e-6))
+    row = dict(max_abs_err=err, ms=time_ms(torch, lambda: rn.rmsnorm(x, scale), iters=200),
+               plain_ms=time_ms(torch, lambda: rn.rmsnorm_plain(x, scale)),
+               library_ms=time_ms(torch, lambda: F.rms_norm(x, (d,), weight=sb, eps=1e-6),
+                                  iters=200),
+               bound_ms=b_ms, bound_by=b_by, shape="x (8192,2048) bf16, scale (2048,) f32")
+    log(f"[time] for scale only: F.rms_norm with the f32 scale as it is (mixed dtypes, "
+        f"unfused): {mixed:.4f} ms")
+    return {"rmsnorm": row}
+
+
+def phase_train_cli(torch, build, store, train_loop, launch_train, infer, TrainSession,
+                    InMemoryTracker, stepfn, ParallelismConfig, DataConfig, smi):
+    """The training CLI at full width, ``CLI["n_layers"]`` layers (the disk
+    cap, see ``CLI``), in this process so that launches are counted:
+    ``--fail-at 6`` must end in the injected crash with a checkpoint at step
+    4; the same command without it resumes there, and the losses of steps 4
+    and 5 must equal the crashed run's.  The config is cut through the
+    session's ``get_config``; the store's calls and the background writer
+    are timed through wrappers, and every logged step is recorded with its
+    time by a tracker handed to ``run``.  Bare ``step()`` on the same config
+    and batch is timed first, for the loop's overhead."""
+    import gc
+    import shutil
+    c = CLI
+    cfg = dataclasses.replace(infer.get_config(c["arch"]), n_layers=c["n_layers"])
+    sess = TrainSession(cfg, seed=0, plan=ParallelismConfig(gas=c["gas"]),
+                        train_cfg=stepfn.TrainConfig(total_steps=c["steps"], warmup=1),
+                        data_cfg=DataConfig(seq_len=c["seq"], global_batch=c["batch"]))
+    walls = []
+    for i in range(4):
+        sess.batches(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(sess.step()["loss"])
+        walls.append(time.perf_counter() - t0)
+    bare_step_ms = sum(walls[1:]) / 3 * 1e3
+    del sess
+    torch.cuda.empty_cache()
+    d = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    free = shutil.disk_usage(d).free
+    log(f"[cli] checkpoints under {d}: {free / 1e9:.1f} GB free on its disk")
+    argv = ["--arch", c["arch"], "--seq", str(c["seq"]), "--batch", str(c["batch"]),
+            "--gas", str(c["gas"]), "--steps", str(c["steps"]), "--ckpt-every",
+            str(c["ckpt_every"]), "--ckpt-dir", str(d)]
+    timings = {"snapshot_s": [], "write_s": [], "restore_s": []}
+    trackers = []
+
+    class TimedTracker(InMemoryTracker):
+        def log_metrics(self, step, metrics):
+            super().log_metrics(step, metrics)
+            self.rows[-1]["t"] = time.perf_counter()
+
+    orig = (TrainSession.run, train_loop.save_checkpoint, train_loop.restore_latest,
+            store.CheckpointWriter._run, infer.get_config)
+
+    def run(self, *a, **kw):
+        trackers.append(TimedTracker())
+        return orig[0](self, *a, tracker=trackers[-1], **kw)
+
+    def save(*a, **kw):
+        t0 = time.perf_counter()
+        w = orig[1](*a, **kw)
+        timings["snapshot_s"].append(time.perf_counter() - t0)
+        return w
+
+    def restore(*a, **kw):
+        t0 = time.perf_counter()
+        r = orig[2](*a, **kw)
+        torch.cuda.synchronize()
+        if r[0] is not None:                   # a state was restored
+            timings["restore_s"].append(time.perf_counter() - t0)
+        return r
+
+    def writer_run(self, fn):
+        t0 = time.perf_counter()
+        orig[3](self, fn)
+        timings["write_s"].append(time.perf_counter() - t0)
+
+    TrainSession.run, train_loop.save_checkpoint, train_loop.restore_latest, \
+        store.CheckpointWriter._run = run, save, restore, writer_run
+    infer.get_config = lambda name: cfg if name == c["arch"] else orig[4](name)
+    try:
+        runs, peaks, walls, crash = [], [], [], None
+        for i, extra in enumerate((["--fail-at", str(c["fail_at"])], [])):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            build.launch_counts.clear()
+            t0 = time.perf_counter()
+            try:
+                out = launch_train.main(argv + extra)
+            except RuntimeError as e:
+                if i != 0 or f"injected failure at step {c['fail_at']}" not in str(e):
+                    raise
+                crash, out = str(e), None
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            runs.append(dict(build.launch_counts))
+            peaks.append(torch.cuda.max_memory_allocated())
+            if i == 0:
+                require(crash is not None, "the --fail-at run did not crash")
+                require(store.list_steps(d) == [c["ckpt_every"]],
+                        f"after the crash the checkpoints are {store.list_steps(d)}")
+                ck_bytes = sum(f.stat().st_size for f in (d / f"step_{c['ckpt_every']:08d}").iterdir())
+    finally:
+        TrainSession.run, train_loop.save_checkpoint, train_loop.restore_latest, \
+            store.CheckpointWriter._run, infer.get_config = orig
+    require(out["resumed_from"] == c["ckpt_every"], f"resumed from {out['resumed_from']}")
+    steps1 = [r["step"] for r in trackers[0].rows]
+    steps2 = [r["step"] for r in trackers[1].rows]
+    require(steps1 == list(range(c["fail_at"])) and steps2 == list(range(4, c["steps"])),
+            f"logged steps {steps1} then {steps2}")
+    loss1 = {r["step"]: r["loss"] for r in trackers[0].rows}
+    loss2 = {r["step"]: r["loss"] for r in trackers[1].rows}
+    same = {s: loss1[s] == loss2[s] for s in (4, 5)}
+    rel = max(abs(loss1[s] - loss2[s]) / abs(loss1[s]) for s in (4, 5))
+    log(f"[cli] crash at step {c['fail_at']} ({crash!r}), resumed from step "
+        f"{out['resumed_from']}; losses of steps 4, 5 before the crash "
+        f"{[loss1[4], loss1[5]]}, after the resume {[loss2[4], loss2[5]]}: bitwise equal "
+        f"{same} (max rel diff {rel:.3g})")
+    require(all(same.values()), f"the resumed losses differ: {loss1} vs {loss2}")
+    require(all(math.isfinite(v) for v in [*loss1.values(), *loss2.values()]),
+            "non-finite losses")
+    L = cfg.n_layers
+    want = {"flash_fwd": 2 * L * c["gas"], "flash_delta": L * c["gas"],
+            "flash_dq": L * c["gas"], "flash_dkv": L * c["gas"]}
+    for counts, n in zip(runs, (len(steps1), len(steps2))):
+        require(all(counts.get(k, 0) == v * n for k, v in want.items()),
+                f"CLI launches {counts} over {n} steps, expected {want} per step")
+    t1 = [r["t"] for r in trackers[0].rows]
+    t2 = [r["t"] for r in trackers[1].rows]
+    clean = [t1[2] - t1[1], t1[3] - t1[2], t2[2] - t2[1], t2[3] - t2[2]]
+    step_ms = sum(clean) / len(clean) * 1e3
+    snap, wr, rs = timings["snapshot_s"], timings["write_s"], timings["restore_s"]
+    log(f"[cli] launches per run {runs} ({len(steps1)} and {len(steps2)} steps: K1 "
+        f"{want['flash_fwd']}, K2-K4 {want['flash_dq']} a step); wall {walls[0]:.1f} s and "
+        f"{walls[1]:.1f} s; peak memory {peaks[0]} B and {peaks[1]} B "
+        f"({max(peaks) / 1e9:.2f} GB); {smi}")
+    log(f"[cli] checkpoint {ck_bytes} B ({ck_bytes / 1e9:.2f} GB) a step: snapshot to the host "
+        f"(in the loop) {[round(x, 2) for x in snap]} s ({ck_bytes / snap[0] / 1e9:.2f} GB/s); "
+        f"background write (sha256 + np.save + rename) {[round(x, 2) for x in wr]} s "
+        f"({ck_bytes / wr[0] / 1e9:.3f} GB/s); restore (read + sha256 + to the card) "
+        f"{[round(x, 2) for x in rs]} s ({ck_bytes / rs[-1] / 1e9:.3f} GB/s)")
+    log(f"[cli] {cfg.name} at full width, {cfg.n_layers} layers, batch {c['batch']} x "
+        f"{c['seq']}, gas {c['gas']}: ms per step inside run(): {step_ms:.1f} (steps 2-3 and "
+        f"6-7, host clock between logged steps) against {bare_step_ms:.1f} ms of bare step() "
+        f"on the same config (steps 1-3); step 4 (after the snapshot) "
+        f"{(t1[4] - t1[3]) * 1e3:.1f} ms, step 5 while the background write runs "
+        f"{(t1[5] - t1[4]) * 1e3:.1f} ms")
+    require(max(peaks) < 80e9, f"peak memory {max(peaks)} B does not fit the card")
+    del out
+    shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _drill(name, make, d, FaultPlan, RetryPolicy, FleetController):
+    """One scenario of ``benchmarks/run.py:resilience_bench`` through
+    ``TrainSession.run``: its fault plan, cadence and step count."""
+    run = dict(log_every=1, log=lambda m: None)
+    if name == "skip":
+        sess = make(12, dict(max_consecutive_skips=3))
+        out = sess.run(12, ckpt_dir=d, ckpt_every=4, async_ckpt=False,
+                       chaos=FaultPlan(nan_grad_steps=(6,)), **run)
+    elif name == "rollback":
+        sess = make(16, dict(max_consecutive_skips=3, rewarm_steps=4))
+        out = sess.run(16, ckpt_dir=d, ckpt_every=4, async_ckpt=False,
+                       chaos=FaultPlan(nan_grad_steps=(6, 7, 8)), **run)
+    elif name == "crash_restart":
+        crashed = False
+        try:
+            make(12).run(12, ckpt_dir=d, ckpt_every=4, async_ckpt=False,
+                         chaos=FaultPlan(crash_at=10), **run)
+        except RuntimeError as e:
+            if "injected failure at step 10" not in str(e):
+                raise
+            crashed = True
+        require(crashed, "crash_restart: the run did not crash")
+        sess = make(12)
+        out = sess.run(12, ckpt_dir=d, ckpt_every=4, async_ckpt=False, **run)
+    elif name == "ckpt_retry":
+        sess = make(8)
+        out = sess.run(8, ckpt_dir=d, ckpt_every=4, async_ckpt=False,
+                       chaos=FaultPlan(ckpt_write_failures=2),
+                       ckpt_retry=RetryPolicy(attempts=4, backoff_s=0.001, sleep=lambda s: None),
+                       **run)
+    elif name == "consensus_skip":
+        sess = make(8, dict(consensus_replicas=2), dict(dp=2))
+        out = sess.run(8, chaos=FaultPlan(replica_nan={4: (1,)}, replicas=2), **run)
+    else:
+        sess = make(12, plan_kw=dict(dp=2))
+        out = sess.run(12, ckpt_dir=d, ckpt_every=4, async_ckpt=False,
+                       chaos=FaultPlan(lose_replica={7: 1}), fleet=FleetController(2), **run)
+    return out, sess
+
+
+def _drill_figures(name, out):
+    """The scenario's figures as ``BENCH_resilience.json`` records them
+    (its timings left out)."""
+    ev = lambda kind: next(e for e in out["events"] if e.kind == kind).detail
+    if name == "skip":
+        return {"injected_nan_steps": 1, "steps_skipped": out["skipped_steps"],
+                "rollbacks": out["rollbacks"]}
+    if name == "rollback":
+        return {k: ev("rollback")[k] for k in ("steps_lost", "data_skipped", "rewarm_steps")}
+    if name == "crash_restart":
+        return {"crash_at": 10, "resumed_from": out["resumed_from"],
+                "steps_lost": 10 - out["resumed_from"]}
+    if name == "ckpt_retry":
+        return {"injected_failures": 2, "retry_attempts": 4,
+                "write_gave_up": sum(e.kind == "ckpt_write_failed" for e in out["events"]),
+                "resumable": out["resumed_from"] is None}
+    if name == "consensus_skip":
+        return {"replicas": 2, "injected_divergent_replicas": 1,
+                "steps_skipped": out["skipped_steps"],
+                "verdict": "masked" if not out["skipped_steps"] else "skipped"}
+    return {"lost_replica_at_step": 7, "replans": out["replans"], "new_dp": out["plan"].dp,
+            "steps_lost": ev("replan")["steps_lost"]}
+
+
+def _events(out):
+    return [(e.step, e.kind) for e in out["events"] if e.kind != "straggler"]
+
+
+def _drill_maker(torch, TrainSession, stepfn, ParallelismConfig, DataConfig, ResilienceConfig,
+                 cfg, **data):
+    def make(steps, rs_kw=None, plan_kw=None):
+        return TrainSession(
+            cfg, seed=0, plan=ParallelismConfig(**(plan_kw or {})),
+            train_cfg=stepfn.TrainConfig(peak_lr=DRILL["lr"], warmup=2, total_steps=steps,
+                                         resilience=ResilienceConfig(**(rs_kw or {}))),
+            data_cfg=DataConfig(seq_len=data.get("seq", DRILL["seq"]),
+                                global_batch=data.get("batch", DRILL["batch"])))
+    return make
+
+
+def phase_drills(torch, get_config, TrainSession, stepfn, ParallelismConfig, DataConfig,
+                 ResilienceConfig, FaultPlan, RetryPolicy, FleetController, smi):
+    """The six resilience drills at granite's full width, ``DRILL["n_layers"]``
+    layer(s) (the disk cap, see ``CLI``), bf16, on the card, with
+    resilience_bench's fault plans, cadences, step counts and data (batch 8
+    x 128, peak LR 1e-3): each figure must equal the benchmark's (CPU runs
+    of the reference).  Then the in-step detection on vs off, ms per
+    step."""
+    import shutil
+    cfg = dataclasses.replace(get_config(DRILL["arch"]), n_layers=DRILL["n_layers"])
+    make = _drill_maker(torch, TrainSession, stepfn, ParallelismConfig, DataConfig,
+                        ResilienceConfig, cfg)
+    bench = json.loads((ROOT / "BENCH_resilience.json").read_text())["scenarios"]
+    root = ROOT / "build" / "chip_smoke_drills"
+    for name in DRILLS:
+        d = root / name
+        shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, sess = _drill(name, make, str(d), FaultPlan, RetryPolicy, FleetController)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _drill_figures(name, out)
+        want = {k: v for k, v in bench[name].items() if k in got}
+        losses = [h["loss"] for h in out["history"]]
+        steps = [p for p in d.glob("step_*") if p.is_dir()] if d.exists() else []
+        size = sum(f.stat().st_size for f in steps[0].iterdir()) if steps else 0
+        log(f"[drill] {name}: {got}; events {_events(out)}; {len(losses)} steps, losses "
+            f"{losses[0]:.4f} .. {losses[-1]:.4f}; {wall:.1f} s; checkpoint {size} B; {smi}")
+        require(got == want, f"drill {name}: {got}, the benchmark's {want}")
+        require(math.isfinite(losses[-1]), f"drill {name}: final loss {losses[-1]}")
+        del out, sess
+        shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[drill] {cfg.name} at full width, {cfg.n_layers} layers: all {len(DRILLS)} drills give "
+        f"the benchmark's figures")
+    ms = {}
+    for label, kw in (("off", dict(enabled=False)), ("on", {}), ("off", dict(enabled=False)),
+                      ("on", {})):
+        sess = make(16, kw)
+        float(sess.step()["loss"])                 # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            float(sess.step()["loss"])
+        ms.setdefault(label, []).append((time.perf_counter() - t0) / 8 * 1e3)
+        del sess
+        torch.cuda.empty_cache()
+    on, off = min(ms["on"]), min(ms["off"])
+    log(f"[drill] detection (anomaly signals + skip gate) on vs off, {cfg.n_layers} layers, "
+        f"batch {DRILL['batch']} x {DRILL['seq']}, ms per step (off, on, off, on): "
+        f"off {ms['off']}, on {ms['on']}; best {on:.2f} vs {off:.2f} ms "
+        f"({on / off - 1:+.1%}); {smi}")
+
+
+def phase_drills_f32_identity(torch, get_config, TrainSession, stepfn, ParallelismConfig,
+                              DataConfig, ResilienceConfig, FaultPlan, RetryPolicy,
+                              FleetController):
+    """granite's attention and MLP widths, ``F32_DRILL``'s layer count and
+    vocabulary (the disk cap, see ``CLI``), f32: the rollback and consensus
+    drills with the kernels and with their plain versions give the same
+    events (``straggler`` left out), losses within 1e-5 relative and params
+    within 1e-4."""
+    import shutil
+    from repro_torch.core.tree import tree_leaves
+    cfg = dataclasses.replace(get_config(DRILL["arch"]), **F32_DRILL)
+    make = _drill_maker(torch, TrainSession, stepfn, ParallelismConfig, DataConfig,
+                        ResilienceConfig, cfg)
+    root = ROOT / "build" / "chip_smoke_f32_drills"
+    for name in ("rollback", "consensus_skip"):
+        res = {}
+        for plain in (False, True):
+            shutil.rmtree(root, ignore_errors=True)
+            with plain_versions() if plain else contextlib.nullcontext():
+                out, sess = _drill(name, make, str(root), FaultPlan, RetryPolicy,
+                                   FleetController)
+            res[plain] = (out, sess.state["params"])
+            del sess
+        (ok_, pk), (op, pp) = res[False], res[True]
+        lk = [h["loss"] for h in ok_["history"]]
+        lp = [h["loss"] for h in op["history"]]
+        rel = max((abs(a - b) / abs(b) for a, b in zip(lk, lp) if math.isfinite(b)), default=0.0)
+        same_nan = [math.isfinite(a) for a in lk] == [math.isfinite(b) for b in lp]
+        errs = [close(a, b, 1e-4) for (_, a), (_, b) in zip(tree_leaves(pk), tree_leaves(pp))]
+        worst = max(e for e, _ in errs)
+        log(f"[f32 drill] {name}, {cfg.name}, {cfg.n_layers} layer(s), vocab {cfg.vocab_size}, "
+            f"f32: events kernel "
+            f"{_events(ok_)}, plain {_events(op)}; losses max rel diff {rel:.3g} (tol 1e-5); "
+            f"params max |kernel - plain| {worst:.3g} (tol 1e-4)")
+        require(_events(ok_) == _events(op), f"f32 drill {name}: events differ")
+        require(same_nan and rel <= 1e-5, f"f32 drill {name}: losses differ by {rel:.3g}")
+        require(all(ok for _, ok in errs), f"f32 drill {name}: params differ by {worst:.3g}")
+        del res
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1174,11 +1629,20 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.checkpoint import RetryPolicy, store
     from repro_torch.core import stepfn
     from repro_torch.core.recipe import ParallelismConfig
     from repro_torch.core.tree import tree_map
     from repro_torch.data import DataConfig
-    from repro_torch.session import InferenceSession, TrainSession
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime import flags, train_loop
+    from repro_torch.runtime.chaos import FaultPlan
+    from repro_torch.runtime.fleet import FleetController
+    from repro_torch.runtime.resilience import ResilienceConfig
+    from repro_torch.session import InferenceSession, TrainSession, infer
+    from repro_torch.session.tracker import InMemoryTracker
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1196,6 +1660,7 @@ def main() -> int:
     phase_flash_bwd_sweep(torch, fa)
     phase_decode_sweep(torch, da)
     phase_paged_sweep(torch, da)
+    phase_rmsnorm_sweep(torch, build, rn, ops, flags)
     serve_launches = phase_slice(torch, np, build, fa, da, InferenceSession, tree_map)
     phase_f32_identity(torch, np, fa, da, get_config, InferenceSession)
     stream_launches = phase_stream(torch, np, build, InferenceSession, tree_map, smi)
@@ -1204,7 +1669,14 @@ def main() -> int:
                                  ParallelismConfig, DataConfig, smi)
     phase_train_f32_identity(torch, fa, da, get_config, TrainSession, stepfn,
                              ParallelismConfig, DataConfig)
-    timing = phase_timing(torch, fa, da, smi)
+    cli_launches = phase_train_cli(torch, build, store, train_loop, launch_train, infer,
+                                   TrainSession, InMemoryTracker, stepfn, ParallelismConfig,
+                                   DataConfig, smi)
+    drill_args = (torch, get_config, TrainSession, stepfn, ParallelismConfig, DataConfig,
+                  ResilienceConfig, FaultPlan, RetryPolicy, FleetController)
+    phase_drills(*drill_args, smi)
+    phase_drills_f32_identity(*drill_args)
+    timing = phase_timing(torch, fa, da, rn, smi)
 
     fa_src, bwd_src = "src/repro_torch/csrc/flash_fwd.cu", "src/repro_torch/csrc/flash_bwd.cu"
     ref_fa = "src/repro/kernels/flash_attention.py"
@@ -1219,12 +1691,16 @@ def main() -> int:
         dict(name="paged_decode_attention", route="cuda",
              source="src/repro_torch/csrc/paged_decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:61"),
+        dict(name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
+             replaces="src/repro/kernels/rmsnorm.py:17"),
     ]
     # launches: the counted main-path runs: the served generate, one train
-    # step, and the stream on each arm
-    runs = [serve_launches, train_launches, *stream_launches.values()]
+    # step, the stream on each arm, and the training CLI's crashed and
+    # resumed runs.  K7 is reached only through ops.rmsnorm under the
+    # fused_rmsnorm flag, as in the reference, so no main path launches it
+    runs = [serve_launches, train_launches, *stream_launches.values(), *cli_launches]
     log(f"[launches] generate {serve_launches}; train step {train_launches}; stream "
-        f"{stream_launches}")
+        f"{stream_launches}; training CLI (crashed, resumed) {cli_launches}")
     for kr in kernels:
         r = timing[kr["name"]]
         n = sum(c.get(kr["name"], 0) for c in runs)

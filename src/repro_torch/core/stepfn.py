@@ -5,7 +5,10 @@
 (one micro-batch, or ``plan.gas`` of them accumulated token-weighted in the
 compute dtype, a non-finite micro-batch masked out), the in-step finite /
 z-score skip gate on ``rstat``, gradient compression, the LR schedule with
-its re-warm factor, and AdamW with the zero-update on a skipped step.  The
+its re-warm factor, and AdamW with the zero-update on a skipped step.  With
+``consensus_replicas = R > 1`` the batch splits into R simulated replicas
+that each accumulate and judge their own gradients, and a minority of bad
+replicas is masked out (the reference's ``consensus_grads``).  The
 train state is updated in place (params, ``m``, ``v`` and ``ef`` leaf by
 leaf), the metrics are 0-d tensors on the device under the reference's
 names, and the step reads nothing back to the host.
@@ -42,7 +45,9 @@ class TrainConfig:
 
 
 def check_single_device(plan: ParallelismConfig) -> None:
-    for axis in ("tp", "pp", "dp", "pods"):
+    """tp and pp need the parallel recipe; dp and pods are accepted without a
+    mesh, as the reference accepts them (one replica group computes)."""
+    for axis in ("tp", "pp"):
         if getattr(plan, axis) > 1:
             raise NotImplementedError(
                 f"{axis}={getattr(plan, axis)}: the parallel recipe over "
@@ -96,9 +101,9 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
     fault-injection harness' gradient multiplier, per micro-batch)."""
     check_single_device(plan)
     rs = train_cfg.resilience
-    if rs.enabled and rs.consensus and rs.consensus_replicas > 1:
-        raise NotImplementedError("skip consensus across replicas comes with the "
-                                  "fleet's port (ROADMAP queue 1, item 9)")
+    # replica groups that vote on a skip: without a mesh only a simulated
+    # fleet (``consensus_replicas``) has more than one
+    n_rep = (rs.consensus_replicas or 1) if rs.enabled and rs.consensus else 1
 
     def value_and_grad(leaves, params, batch):
         loss, metrics = model_api.loss_fn(cfg, params, batch,
@@ -107,43 +112,26 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
-    def grads_and_metrics(params, batch, chaos_scale):
-        """(loss, metrics, grads in leaf order, anomaly aux), honouring
-        ``plan.gas``: with gas > 1 the micro-batches' gradients accumulate in
-        the compute dtype, each weighted by its live-token count, and a
-        non-finite micro-batch is dropped with the weights renormalized."""
-        leaves = [p.requires_grad_() for _, p in tree_leaves(params)]
-        if plan.gas <= 1:
-            loss, metrics, grads = value_and_grad(leaves, params, batch)
-            if chaos_scale is not None:
-                _scale_(grads, torch.prod(chaos_scale.to(torch.float32)))
-            usable = torch.isfinite(adamw.global_norm(grads))
-            aux = {"usable": usable,
-                   "nonfinite_micros": (~usable).to(torch.int32),
-                   "bad_micro_bits": (~usable).to(torch.float32)}
-            return loss, metrics, grads, aux
-        gas = plan.gas
-        for k, x in batch.items():
-            if x.shape[0] % gas:
-                raise ValueError(f"batch dim {x.shape[0]} of {k!r} not divisible by gas={gas}")
-        micro = {k: x.reshape(gas, x.shape[0] // gas, *x.shape[1:]) for k, x in batch.items()}
-        device = batch["labels"].device
+    def token_weights(batch, n: int) -> torch.Tensor:
+        """(n,) live-token counts of the n micro-batches, normalized to mean 1."""
         if batch.get("loss_mask") is not None:
-            w = torch.sum(batch["loss_mask"].to(torch.float32).reshape(gas, -1), dim=1)
+            w = torch.sum(batch["loss_mask"].to(torch.float32).reshape(n, -1), dim=1)
         else:
-            w = torch.full((gas,), batch["labels"].reshape(gas, -1).shape[1],
-                           dtype=torch.float32, device=device)
-        wn = w * (gas / torch.clamp_min(torch.sum(w), 1.0))
-        if chaos_scale is not None:
-            chaos_scale = torch.broadcast_to(chaos_scale.to(torch.float32), (gas,))
+            w = torch.full((n,), batch["labels"].reshape(n, -1).shape[1],
+                           dtype=torch.float32, device=batch["labels"].device)
+        return w * (n / torch.clamp_min(torch.sum(w), 1.0))
 
+    def accumulate(leaves, params, micros, wn, scale):
+        """Gradients of the micro-batches ``micros`` accumulated in the
+        compute dtype, each scaled by ``scale[i]`` and weighted by ``wn[i]``,
+        a non-finite one dropped.  → (acc, losses, metricses, fins (n,))."""
         acc = [torch.zeros(p.shape, dtype=cfg.compute_dtype, device=p.device) for p in leaves]
-        zero = torch.zeros((), dtype=cfg.compute_dtype, device=device)
+        zero = torch.zeros((), dtype=cfg.compute_dtype, device=wn.device)
         losses, metricses, fins = [], [], []
-        for i in range(gas):
-            loss, metrics, g = value_and_grad(leaves, params, {k: x[i] for k, x in micro.items()})
-            if chaos_scale is not None:
-                _scale_(g, chaos_scale[i])
+        for i, mb in enumerate(micros):
+            loss, metrics, g = value_and_grad(leaves, params, mb)
+            if scale is not None:
+                _scale_(g, scale[i])
             fin = torch.isfinite(adamw.global_norm(g))
             with torch.no_grad():
                 for a, gi in zip(acc, g):
@@ -152,7 +140,39 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
             losses.append(loss)
             metricses.append(metrics)
             fins.append(fin)
-        fins = torch.stack(fins)
+        return acc, losses, metricses, torch.stack(fins)
+
+    def grads_and_metrics(params, batch, chaos_scale, rstat):
+        """(loss, metrics, grads in leaf order, anomaly aux), honouring
+        ``plan.gas``: with gas > 1 the micro-batches' gradients accumulate in
+        the compute dtype, each weighted by its live-token count, and a
+        non-finite micro-batch is dropped with the weights renormalized.
+        With ``n_rep > 1`` the consensus path takes over."""
+        leaves = [p.requires_grad_() for _, p in tree_leaves(params)]
+        if n_rep > 1:
+            return consensus_grads(leaves, params, batch, chaos_scale, rstat)
+        if plan.gas <= 1:
+            loss, metrics, grads = value_and_grad(leaves, params, batch)
+            if chaos_scale is not None:
+                _scale_(grads, torch.prod(chaos_scale.to(torch.float32)))
+            usable = torch.isfinite(adamw.global_norm(grads))
+            aux = {"usable": usable,
+                   "nonfinite_micros": (~usable).to(torch.int32),
+                   "bad_replicas": torch.zeros((), dtype=torch.int32, device=usable.device),
+                   "bad_micro_bits": (~usable).to(torch.float32)}
+            return loss, metrics, grads, aux
+        gas = plan.gas
+        for k, x in batch.items():
+            if x.shape[0] % gas:
+                raise ValueError(f"batch dim {x.shape[0]} of {k!r} not divisible by gas={gas}")
+        micro = {k: x.reshape(gas, x.shape[0] // gas, *x.shape[1:]) for k, x in batch.items()}
+        device = batch["labels"].device
+        wn = token_weights(batch, gas)
+        if chaos_scale is not None:
+            chaos_scale = torch.broadcast_to(chaos_scale.to(torch.float32), (gas,))
+        acc, losses, metricses, fins = accumulate(
+            leaves, params, [{k: x[i] for k, x in micro.items()} for i in range(gas)], wn,
+            chaos_scale)
         wn_live = wn * fins.to(torch.float32)
         # exactly gas when every micro-batch is finite (sum(wn) == gas)
         denom = torch.where(torch.all(fins), torch.tensor(float(gas), device=device),
@@ -170,14 +190,100 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
         loss = torch.where(usable, wmean(losses), torch.tensor(float("nan"), device=device))
         aux = {"usable": usable,
                "nonfinite_micros": torch.sum((~fins).to(torch.int32)),
+               "bad_replicas": torch.zeros((), dtype=torch.int32, device=device),
                "bad_micro_bits": _micro_bits(~fins)}
         return loss, metrics, acc, aux
+
+    def consensus_grads(leaves, params, batch, chaos_scale, rstat):
+        """The fleet-voted verdict, the reference's ``consensus_grads`` on
+        one device: the batch rows split into ``n_rep`` replica shards of
+        ``gas`` micro-batches; each replica accumulates its own gradients
+        (per-micro finite masking inside) and judges them against the shared
+        ``rstat`` baseline (every micro non-finite, a non-finite norm, or a
+        z-score and multiplicative spike).  A bad replica's contribution is
+        masked before the sum over replicas (the reference's cross-replica
+        reduce), with the weights renormalized over the survivors.  Replicas
+        run one after another; two gradient-sized buffers are live (the
+        replica's and the running sum)."""
+        R, gas = n_rep, max(plan.gas, 1)
+        for k, x in batch.items():
+            if x.shape[0] % (R * gas):
+                raise ValueError(f"batch dim {x.shape[0]} of {k!r} not divisible by "
+                                 f"replicas*gas={R}*{gas}")
+        micro = {k: x.reshape(R, gas, x.shape[0] // (R * gas), *x.shape[1:])
+                 for k, x in batch.items()}
+        device = batch["labels"].device
+        wn = token_weights(batch, R * gas).reshape(R, gas)
+        if chaos_scale is not None:
+            s = chaos_scale.to(torch.float32).reshape(-1)
+            if s.numel() == R * gas:
+                scale = s.reshape(R, gas)
+            elif s.numel() == gas:
+                scale = torch.broadcast_to(s[None, :], (R, gas))
+            else:
+                scale = torch.broadcast_to(torch.prod(s), (R, gas))
+        else:
+            scale = None
+        armed = rstat["n"] >= rs.warmup_steps
+        std = torch.sqrt(torch.clamp_min(rstat["var"], 1e-12))
+
+        total = [torch.zeros(p.shape, dtype=cfg.compute_dtype, device=p.device) for p in leaves]
+        wlosses, wmets, fins_r, bad_r, live_ws = [], [], [], [], []
+        for r in range(R):
+            g_r, ls, mets, fins = accumulate(
+                leaves, params, [{k: x[r, i] for k, x in micro.items()} for i in range(gas)],
+                wn[r], None if scale is None else scale[r])
+            # local verdict on this replica's per-micro-average gradient
+            live_w = torch.sum(wn[r] * fins.to(torch.float32))
+            norm_r = adamw.global_norm(g_r) / torch.clamp_min(live_w, 1e-6)
+            z_r = (norm_r - rstat["ema"]) / std
+            spike_r = armed & (z_r > rs.zscore_threshold) & (norm_r > rs.spike_factor * rstat["ema"])
+            bad = (~torch.any(fins)) | (~torch.isfinite(norm_r)) | spike_r
+            with torch.no_grad():
+                # mask a bad replica before the reduce: its poison never enters
+                for t, a in zip(total, g_r):
+                    t.add_(torch.where(bad, torch.zeros((), dtype=a.dtype, device=device), a))
+            del g_r
+
+            def wsum(xs):
+                x = torch.stack(xs)
+                return torch.sum(torch.where(fins, x * wn[r].to(x.dtype), 0.0))
+
+            wlosses.append(wsum(ls))
+            wmets.append({k: wsum([m[k] for m in mets]) for k in mets[0]})
+            fins_r.append(fins)
+            bad_r.append(bad)
+            live_ws.append(live_w)
+        fins, bad_r, live_ws = torch.stack(fins_r), torch.stack(bad_r), torch.stack(live_ws)
+        good_r = ~bad_r
+        n_bad = torch.sum(bad_r.to(torch.int32))              # the fleet vote
+        all_clean = torch.all(fins) & (n_bad == 0)
+        live_w = torch.sum(torch.where(good_r, live_ws, 0.0))
+        denom = torch.where(all_clean, torch.tensor(float(R * gas), device=device),
+                            torch.clamp_min(live_w, 1e-6))
+        with torch.no_grad():
+            for t in total:
+                t.copy_((t.to(torch.float32) / denom).to(t.dtype))
+
+        def vote(xs):
+            x = torch.stack(xs)
+            return torch.sum(torch.where(good_r, x, 0.0)) / denom.to(x.dtype)
+
+        metrics = {k: vote([m[k] for m in wmets]) for k in wmets[0]}
+        usable = live_w > 0
+        loss = torch.where(usable, vote(wlosses), torch.tensor(float("nan"), device=device))
+        aux = {"usable": usable,
+               "nonfinite_micros": torch.sum((~fins).to(torch.int32)),
+               "bad_replicas": n_bad,
+               "bad_micro_bits": _micro_bits(torch.any(~fins, dim=0))}
+        return loss, metrics, total, aux
 
     def train_step(state, batch):
         batch = dict(batch)
         chaos_scale = batch.pop("_chaos_grad_scale", None)
         rstat = state["rstat"]
-        loss, metrics, grads, aux = grads_and_metrics(state["params"], batch, chaos_scale)
+        loss, metrics, grads, aux = grads_and_metrics(state["params"], batch, chaos_scale,
+                                                      rstat)
         device = loss.device
 
         # in-step anomaly signals, all on the device
@@ -188,8 +294,12 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
         z = torch.where(finite, (gnorm - rstat["ema"]) / std,
                         torch.tensor(float("inf"), device=device))
         spike = armed & (z > rs.zscore_threshold) & (gnorm > rs.spike_factor * rstat["ema"])
-        skip = (~finite) | spike if rs.enabled else torch.zeros((), dtype=torch.bool,
-                                                                 device=device)
+        if rs.enabled:
+            skip = (~finite) | spike
+            if n_rep > 1 and not rs.mask_divergent_replicas:
+                skip = skip | (aux["bad_replicas"] > 0)   # one bad replica vetoes
+        else:
+            skip = torch.zeros((), dtype=torch.bool, device=device)
 
         # EMA / variance track accepted steps only; the re-warm counts down
         first = rstat["n"] == 0
@@ -223,8 +333,8 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
             skipped=skip.to(torch.float32),
             gnorm_z=torch.where(armed & finite, z, 0.0),
             nonfinite_micros=aux["nonfinite_micros"].to(torch.float32),
-            bad_replicas=torch.zeros((), dtype=torch.float32, device=device),
-            n_replicas=torch.ones((), dtype=torch.float32, device=device),
+            bad_replicas=aux["bad_replicas"].to(torch.float32),
+            n_replicas=torch.full((), float(n_rep), dtype=torch.float32, device=device),
             bad_micro_bits=aux["bad_micro_bits"],
             lr=lr)
         return new_state, metrics

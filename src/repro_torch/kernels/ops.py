@@ -5,7 +5,8 @@ cannot take; a CPU tensor takes the kernel's plain version.  Nothing falls
 back from one to the other.  Where gradients are wanted, flash attention
 goes through ``FlashAttention`` (K1 forward, K2-K4 backward); otherwise,
 as in serving under ``inference_mode``, it runs the forward alone and
-saves nothing.
+saves nothing.  ``rmsnorm`` follows the reference: the plain oracle unless
+the ``fused_rmsnorm`` flag is on, then K7 for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.runtime import flags
 
 
 def _kernel(x: torch.Tensor) -> bool:
@@ -50,3 +54,12 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
     size: unlike the reference, no page size falls back to the oracle."""
     fn = da.paged_decode_attention if _kernel(q) else da.paged_decode_attention_plain
     return fn(q, k_pool, v_pool, page_table, ts=ts, window=window)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """x: (..., d); scale: (d,).  With ``fused_rmsnorm`` off, the oracle; on,
+    K7 for a CUDA tensor and its plain version for a CPU one."""
+    if not flags.use_fused_rmsnorm():
+        return ref.rmsnorm_reference(x, scale, eps=eps)
+    fn = rn.rmsnorm if _kernel(x) else rn.rmsnorm_plain
+    return fn(x, scale, eps=eps)

@@ -103,3 +103,11 @@ def paged_decode_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
     :func:`decode_attention_reference` over the equivalent contiguous cache."""
     k, v, kpos = gather_pages(k_pool, v_pool, page_table)
     return decode_attention_reference(q, k, v, kpos, t=ts, window=window)
+
+
+def rmsnorm_reference(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """x · rsqrt(mean(x²) + eps) · scale over the last axis, in f32, returned
+    in x's dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)

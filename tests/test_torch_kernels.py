@@ -8,6 +8,11 @@ The plain versions of K2-K4 (the flash backward) are held against the
 reference's ``_backward`` in interpret mode over the cases of
 ``tests/test_flash_vjp.py`` (5e-4 in f32, 5e-2 in bf16), and on ragged
 lengths against ``jax.grad`` of the oracle.
+The plain version of K7 (fused RMSNorm) is held against the Pallas kernel in
+interpret mode and the reference's oracle at ``tests/test_kernels.py``'s
+shapes and tolerances (1e-5 in f32, 2e-2 in bf16), plus a ragged ``d``, a
+prime row count and a 1-D x; ``ops.rmsnorm`` follows the ``fused_rmsnorm``
+flag as the reference's does.
 The CUDA kernels themselves run only on the card (``chip_smoke.py``); here
 their wrappers must refuse CPU tensors and the dispatch must take the plain
 versions without counting a launch.
@@ -25,9 +30,13 @@ from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.flash_attention import _backward as pallas_flash_backward
 from repro.kernels.flash_attention import _forward as pallas_flash_forward
+from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
+from repro.runtime import flags as jflags
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.runtime import flags
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -338,3 +347,66 @@ def test_build_refuses_an_install_without_sources(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "CSRC", tmp_path)
     with pytest.raises(RuntimeError, match="editable install"):
         build.build_all()
+
+
+# ---------------------------------------------------------------------------
+# K7: fused RMSNorm
+# ---------------------------------------------------------------------------
+
+RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _rms_inputs(shape, dtype, seed=0):
+    rs = np.random.RandomState(seed)
+    x = rs.standard_normal(shape).astype(np.float32)
+    scale = (1.0 + 0.5 * rs.standard_normal(shape[-1])).astype(np.float32)
+    return (torch.from_numpy(x).to(getattr(torch, dtype)), torch.from_numpy(scale),
+            jnp.asarray(x, jnp.dtype(dtype)), jnp.asarray(scale))
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (3, 7, 256), (64, 512)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("eps", [1e-6, 1e-5])
+def test_rmsnorm_plain_matches_pallas_kernel_and_oracle(shape, dtype, eps):
+    x, scale, jx, jscale = _rms_inputs(shape, dtype)
+    got = rn.rmsnorm_plain(x, scale, eps=eps)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    close(got, pallas_rmsnorm(jx, jscale, eps=eps, interpret=True), RMS_TOL[dtype])
+    close(got, jref.rmsnorm_reference(jx, jscale, eps=eps), RMS_TOL[dtype])
+    close(ref.rmsnorm_reference(x, scale, eps=eps), jref.rmsnorm_reference(jx, jscale, eps=eps),
+          RMS_TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", [(7, 2047), (13, 96), (1, 2048), (2048,), (5, 3, 8192)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_ragged_d_and_prime_rows_match_oracle(shape, dtype):
+    """Shapes the Pallas kernel's (8, 128) tiling does not take: held to the
+    reference's oracle (a 1-D x is one row)."""
+    x, scale, jx, jscale = _rms_inputs(shape, dtype, seed=1)
+    close(rn.rmsnorm_plain(x, scale), jref.rmsnorm_reference(jx, jscale), RMS_TOL[dtype])
+    # a bf16 scale is cast to f32 inside, as the reference casts it
+    close(rn.rmsnorm_plain(x, scale.to(torch.bfloat16)),
+          jref.rmsnorm_reference(jx, jscale.astype(jnp.bfloat16)), RMS_TOL[dtype])
+
+
+def test_ops_rmsnorm_follows_the_flag_and_counts_no_launch_on_cpu(monkeypatch):
+    x, scale, jx, jscale = _rms_inputs((6, 256), "float32", seed=2)
+    calls = []
+    monkeypatch.setattr(rn, "rmsnorm_plain",
+                        lambda *a, **k: calls.append(1) or ref.rmsnorm_reference(*a, **k))
+    build.launch_counts.clear()
+    for on in (False, True):
+        with flags.flag_ctx(fused_rmsnorm=on), jflags.flag_ctx(fused_rmsnorm=on,
+                                                               pallas_interpret="1"):
+            from repro.kernels import ops as jops
+            close(ops.rmsnorm(x, scale, eps=1e-5), jops.rmsnorm(jx, jscale, eps=1e-5), 1e-5)
+        assert len(calls) == int(on)           # the plain version only with the flag on
+    assert sum(build.launch_counts.values()) == 0
+    assert not flags.use_fused_rmsnorm()
+    with pytest.raises(KeyError):
+        flags.set_flag("flash_attention", True)
+    with pytest.raises(ValueError, match="CUDA"):
+        rn.rmsnorm(x, scale)
+    with pytest.raises(ValueError, match="scale"):
+        rn.rmsnorm(x, scale[:5])
+    assert sum(build.launch_counts.values()) == 0

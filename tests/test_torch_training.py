@@ -115,19 +115,24 @@ def test_lm_loss_and_grads_match_reference(arch, path, packed, remat):
 
 
 def test_unported_remat_policies_and_plans_raise():
+    """Remat "dots"/"stage", tp and pp still raise; dp (and pods) and the
+    simulated-replica consensus are accepted without a mesh, as the
+    reference accepts them."""
     cfg = get_config("granite_3_2b").reduced()
     sess = TrainSession(cfg, device="cpu", data_cfg=_data()[1])
     for policy in ("dots", "stage"):
         with pytest.raises(NotImplementedError, match="remat_policy"):
             ttf.lm_loss(cfg, sess.state["params"], sess._to_device(sess.batches(0)),
                         remat_policy=policy)
-    for plan in (ParallelismConfig(tp=2), ParallelismConfig(pp=2), ParallelismConfig(dp=2)):
+    for plan in (ParallelismConfig(tp=2), ParallelismConfig(pp=2)):
         with pytest.raises(NotImplementedError, match="one device"):
             TrainSession(cfg, plan=plan, device="cpu")
     from repro_torch.runtime.resilience import ResilienceConfig
-    with pytest.raises(NotImplementedError, match="consensus"):
-        stepfn.make_train_step(cfg, ParallelismConfig(), stepfn.TrainConfig(
-            resilience=ResilienceConfig(consensus_replicas=2)))
+    tcfg = stepfn.TrainConfig(resilience=ResilienceConfig(consensus_replicas=2))
+    for plan in (ParallelismConfig(dp=2), ParallelismConfig(pods=2)):
+        s = TrainSession(cfg, plan=plan, train_cfg=tcfg, device="cpu", data_cfg=_data()[1])
+        assert float(s.step()["n_replicas"]) == 2.0
+    stepfn.make_train_step(cfg, ParallelismConfig(), tcfg)
 
 
 # ---------------------------------------------------------------------------
