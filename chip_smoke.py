@@ -8,9 +8,12 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
 1. prints the environment: torch and CUDA versions, the card's name and
    power limit as ``nvidia-smi`` reports them;
 2. builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` and
-   prints the build's seconds and ptxas's register/spill report;
+   prints the build's seconds and ptxas's register/spill report per entry
+   function (K1's bf16 wgmma instantiations named by padded head dim);
 3. holds K1 (flash forward) against its plain version on the card, O and lse,
-   over head groupings, head dims, ragged lengths, masks and dtypes;
+   over head groupings (h2o-danube's 32/8 among them), head dims 16, 64, 96,
+   120 and 128, lengths 128/200/500 (ragged to its 128-row tiles), masks and
+   dtypes;
    then K2, K3 and K4 (flash backward: delta, dQ, dK and dV) the same way,
    and the autograd ``FlashAttention`` against autograd through K1's plain
    version;
@@ -80,9 +83,13 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    give the same events, losses (1e-5 relative) and params (1e-4) with the
    kernels and with their plain versions;
 14. holds each kernel against its plain version at its slice's shapes (K1's
-   O and lse, K2-K4 at the training attention, K5's O, K6 at the stream's
-   decode, K7 at the training activations; f32 and bf16), then times it
-   there beside its plain version, one PyTorch library call
+   O and lse at the prefill and at the training attention, K2-K4 at the
+   training attention, K5's O, K6 at the stream's decode, K7 at the training
+   activations; f32 and bf16), then times it there beside its plain
+   version (K1 against SDPA's forward in turns: kernel, SDPA, SDPA,
+   kernel, in CUDA events as the host issues the calls and in device time
+   with the calls queued behind a spinning kernel, which K1's row keeps),
+   one PyTorch library call
    (``scaled_dot_product_attention``, its backward for K3 and K4;
    ``rms_norm`` for K7; none for K2 and K6; timed only here) and its bound;
 15. prints a ``{"kernels": [...]}`` line and, last,
@@ -110,6 +117,9 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# the head dims the attention sweeps take: the reduced configs' 16 and the
+# published configs' 64, 96, 120 (h2o-danube-3-4b) and 128
+HEAD_DIMS = (16, 64, 96, 120, 128)
 # bf16 logits of the 40-layer prefill, kernels vs plain versions: both round
 # every layer's activations to bf16 (8 bits) and the kernel also rounds P
 # before P V, so through 40 random layers they drift apart by about as much
@@ -215,6 +225,37 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, n: int = 20) -> float:
+    """Device time of one call of ``fn``, not paced by the host: the ``n``
+    calls are queued behind a kernel that spins on the card until the host
+    has enqueued them all, so the events around them time the calls back to
+    back on the device (``time_ms`` times them as the host issues them,
+    which at ~25 us a kernel measures the host's ~40-50 us dispatch)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    for _ in range(6):
+        spin = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        spin[0].record()
+        torch.cuda._sleep(cycles)
+        spin[1].record()
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if enqueue_ms < 0.5 * spin[0].elapsed_time(spin[1]):
+            return start.elapsed_time(end) / n
+        cycles *= 4                  # the host was slower than the spin: spin longer
+    raise SmokeFailure(f"device_ms: the host took {enqueue_ms:.1f} ms to enqueue {n} calls, "
+                       "longer than the card's spin")
+
+
 def _ms(x) -> str:
     return "none" if x is None else f"{x:.4f} ms"
 
@@ -227,8 +268,8 @@ def bound(nbytes: float, flops: float):
 
 def profile_window(torch, fn, top: int = 8):
     """Run ``fn`` under ``torch.profiler``: host wall time (inflated by the
-    profiler), summed device time of the kernels, and the kernels that take
-    most of it as (ms, launches, name)."""
+    profiler), summed device time of the kernels, the kernels that take
+    most of it as (ms, launches, name), and every kernel as ``all``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -244,7 +285,8 @@ def profile_window(torch, fn, top: int = 8):
 
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows = sorted(((dev_ms(e), e.count, e.key[:90]) for e in kern), reverse=True)
-    return {"wall_ms": wall * 1e3, "device_ms": sum(r[0] for r in rows), "top": rows[:top]}
+    return {"wall_ms": wall * 1e3, "device_ms": sum(r[0] for r in rows), "top": rows[:top],
+            "all": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -252,6 +294,8 @@ def profile_window(torch, fn, top: int = 8):
 # ---------------------------------------------------------------------------
 
 def phase_build(build):
+    """Build every kernel; print ptxas's registers and spills per entry
+    function (K1's bf16 wgmma instantiations by their padded head dim)."""
     t0 = time.perf_counter()
     paths = build.build_all()
     secs = time.perf_counter() - t0
@@ -261,9 +305,19 @@ def phase_build(build):
         log_path = Path(f"{p}.log")
         if not log_path.exists():
             continue
+        fn = "?"
         for line in log_path.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Performance Loss" in line or "warpgroup.wait is injected" in line:
+                # ptxas serialized (or fenced) wgmma: the kernel runs ~2x slower
+                log(f"[build] {name}: ptxas note: {line.strip()[:240]}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or "spill" in line:
+                label = fn
+                if "flash_fwd_wgmma" in fn:
+                    label = (f"K1 bf16 wgmma, D padded to {'64' if 'ILi64E' in fn else '128'}, "
+                             f"{'segment ids' if 'Lb1E' in fn else 'no segment ids'}")
+                log(f"[build] {name}: {label}: {line.strip()}")
 
 
 def _segments(torch, B, S):
@@ -279,9 +333,9 @@ def phase_flash_sweep(torch, fa):
     gen.manual_seed(1)
     worst = {dt: [0.0, 0.0] for dt in TOL}
     failures, n = [], 0
-    for Hq, Hkv in ((4, 4), (8, 2), (32, 8)):
-        for D in (16, 64, 96, 128):
-            for S in (128, 200):
+    for Hq, Hkv in ((4, 4), (8, 2), (32, 8)):       # (32, 8): granite's and h2o's
+        for D in HEAD_DIMS:
+            for S in (128, 200, 500):                # 200, 500: ragged to 64 and 128 rows
                 for mask in ("causal", "window64", "none", "segments"):
                     for dtype in (torch.bfloat16, torch.float32):
                         B = 2
@@ -321,8 +375,10 @@ def phase_flash_bwd_sweep(torch, fa):
     gen.manual_seed(4)
     worst = {dt: [0.0] * 4 for dt in TOL}
     failures, n = [], 0
-    for Hq, Hkv in ((4, 4), (8, 2)):                 # g = 1 and 4
-        for D in (16, 64, 96, 128):
+    for Hq, Hkv in ((4, 4), (8, 2), (32, 8)):        # g = 1 and 4; (32, 8) h2o's, at D 120
+        for D in HEAD_DIMS:
+            if Hq == 32 and D != 120:
+                continue
             for S in (200, 1024):                    # 200 is ragged to every tile
                 for mask in ("causal", "window", "none", "segments"):
                     for dtype in (torch.bfloat16, torch.float32):
@@ -407,7 +463,7 @@ def phase_decode_sweep(torch, da):
     for S in (532, 544):
         cases = [dict(fill=f) for f in (0, 300, S - 1)] + [dict(t_wrap=2000)]
         for g in (1, 4):
-            for D in (16, 64, 96, 128):
+            for D in HEAD_DIMS:
                 for case in cases:
                     for window in (None, 128):
                         for dtype in (torch.bfloat16, torch.float32):
@@ -483,7 +539,7 @@ def phase_paged_sweep(torch, da):
     cases = []
     for ps, n_max in ((16, 6), (64, 3), (128, 3)):
         for g in (1, 4):
-            for D in (16, 64, 96, 128):
+            for D in HEAD_DIMS:
                 for window in (None, 8):
                     cases.append(dict(B=4, ps=ps, n_max=n_max, Hkv=2, g=g, D=D, window=window,
                                       ts=[5, 2 * ps, n_max * ps - 1, n_max * ps - 1],
@@ -538,7 +594,7 @@ def phase_paged_sweep(torch, da):
     worst5, n5, fail5 = {dt: 0.0 for dt in TOL}, 0, []
     B, S, Hkv = 8, 532, 8
     for g in (1, 4):
-        for D in (16, 64, 96, 128):
+        for D in HEAD_DIMS:
             for window in (None, 128):
                 for dtype in (torch.bfloat16, torch.float32):
                     ts = torch.tensor([0, 7, 100, 531, 532, 900, 2000, 311], dtype=torch.int32,
@@ -940,6 +996,11 @@ def phase_train(torch, build, fa, da, TrainSession, stepfn, ParallelismConfig, D
             f"profiled wall {prof['wall_ms']:.2f} ms")
         for ms, count, key in prof["top"]:
             log(f"[profile] train step:   {ms:8.3f} ms  {count:5d}x  {key}")
+        k1 = [(ms, count) for ms, count, key in prof["all"] if "flash_fwd" in key]
+        k1_ms, k1_n = sum(r[0] for r in k1), sum(r[1] for r in k1)
+        log(f"[profile] train step: K1 (flash_fwd) {k1_ms:.3f} ms of device time over {k1_n} "
+            f"launches ({k1_ms / max(k1_n, 1):.4f} ms a launch), "
+            f"{k1_ms / prof['device_ms']:.1%} of the step's device time; {smi}")
 
     # one batch, three ways: kernels, plain versions, plain versions on f32.
     # Held per token, as phase 5 holds logits: the mean over 8192 tokens of
@@ -1025,31 +1086,53 @@ def phase_timing(torch, fa, da, rn, smi):
         return err
 
     # K1 at the slice's prefill: (B, S, Hq, Hkv, D) = (4, 500, 32, 8, 64), causal;
-    # held against the plain version in both dtypes, timed in bf16
-    B, S, Hq, Hkv, D = 4, 500, 32, 8, 64
-    q32 = torch.randn((B, S, Hq, D), generator=gen, device="cuda")
-    k32, v32 = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda") for _ in range(2))
-    o, lse = fa.flash_fwd(q32, k32, v32, causal=True)
-    o_ref, lse_ref = fa.flash_fwd_plain(q32, k32, v32, causal=True)
-    check("K1 O, slice shape, float32", o, o_ref, TOL["float32"])
-    check("K1 lse, slice shape, float32", lse, lse_ref, TOL["float32"])
-    q, k, v = (x.to(bf) for x in (q32, k32, v32))
-    o, lse = fa.flash_fwd(q, k, v, causal=True)
-    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal=True)
-    err_o = check("K1 O, slice shape, bfloat16", o, o_ref, TOL["bfloat16"])
-    check("K1 lse, slice shape, bfloat16", lse, lse_ref, TOL["bfloat16"])
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
-    flops = 4 * B * Hq * D * (S * (S + 1) // 2)           # causal pairs only
-    b_ms, b_by = bound(nbytes, flops)
-    rows["flash_fwd"] = dict(
-        max_abs_err=err_o,
-        ms=time_ms(torch, lambda: fa.flash_fwd(q, k, v, causal=True)),
-        plain_ms=time_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, causal=True), iters=10),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
-        bound_ms=b_ms, bound_by=b_by, shape="q (4,500,32,64), k/v (4,500,8,64) bf16, causal")
+    # held against the plain version in both dtypes, timed in bf16; then at
+    # the training step's attention, (4, 1024, 32, 8, 64).  At each shape
+    # SDPA's forward is timed in the same call, in turns (kernel, SDPA, SDPA,
+    # kernel)
+    Hq, Hkv, D = 32, 8, 64
+    k1 = {}
+    for B, S in ((4, 500), (4, 1024)):
+        q32 = torch.randn((B, S, Hq, D), generator=gen, device="cuda")
+        k32, v32 = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda") for _ in range(2))
+        o, lse = fa.flash_fwd(q32, k32, v32, causal=True)
+        o_ref, lse_ref = fa.flash_fwd_plain(q32, k32, v32, causal=True)
+        check(f"K1 O, S={S}, float32", o, o_ref, TOL["float32"])
+        check(f"K1 lse, S={S}, float32", lse, lse_ref, TOL["float32"])
+        q, k, v = (x.to(bf) for x in (q32, k32, v32))
+        o, lse = fa.flash_fwd(q, k, v, causal=True)
+        o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal=True)
+        err_o = check(f"K1 O, S={S}, bfloat16", o, o_ref, TOL["bfloat16"])
+        check(f"K1 lse, S={S}, bfloat16", lse, lse_ref, TOL["bfloat16"])
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
+        flops = 4 * B * Hq * D * (S * (S + 1) // 2)       # causal pairs only
+        b_ms, b_by = bound(nbytes, flops)
+        kern = lambda: fa.flash_fwd(q, k, v, causal=True)  # noqa: E731
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
+                                                     enable_gqa=True)
+        # turns in CUDA events as the host issues the calls (a longer warm-up:
+        # the card's clocks ramp after the idle before it) and in device time
+        # (``device_ms``), which the row keeps: at these sizes a call's host
+        # dispatch (~40-50 us of Python and ctypes) paces the first
+        turns = [time_ms(torch, f, warmup=30) for f in (kern, lib, lib, kern)]
+        dev = [device_ms(torch, f) for f in (kern, lib, lib, kern)]
+        k1[S] = dict(
+            max_abs_err=err_o, ms=(dev[0] + dev[3]) / 2,
+            plain_ms=time_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, causal=True), iters=10),
+            library_ms=(dev[1] + dev[2]) / 2, bound_ms=b_ms, bound_by=b_by,
+            shape=f"q ({B},{S},32,64), k/v ({B},{S},8,64) bf16, causal")
+        log(f"[time] K1 at {k1[S]['shape']}, turns kernel, SDPA, SDPA, kernel: device time "
+            f"{dev[0]:.4f} / {dev[3]:.4f} ms, SDPA forward {dev[1]:.4f} / "
+            f"{dev[2]:.4f} ms ({k1[S]['ms'] / k1[S]['library_ms']:.2f}x SDPA); CUDA events "
+            f"{turns[0]:.4f} / {turns[3]:.4f} ms, SDPA {turns[1]:.4f} / {turns[2]:.4f} ms "
+            f"({(turns[0] + turns[3]) / (turns[1] + turns[2]):.2f}x); bound "
+            f"{b_ms * 1e3:.2f} us ({b_by}), {k1[S]['ms'] / b_ms:.1f}x it; {smi}")
+    rows["flash_fwd"] = k1[500]
+    rows["flash_fwd (training shape)"] = k1[1024]
+    _k1_shapes(torch, fa, gen, smi)
 
+    B, Hq, Hkv, D = 4, 32, 8, 64
     # K5 at the slice's decode: B=4, S=532 (full ring; its last 32-key chunk
     # holds 20 keys), Hq=32, Hkv=8, D=64; held in both dtypes, timed in bf16
     S = 532
@@ -1084,6 +1167,46 @@ def phase_timing(torch, fa, da, rn, smi):
             f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), max |kernel - plain| "
             f"{r['max_abs_err']:.3g}; {smi}")
     return rows
+
+
+def _k1_shapes(torch, fa, gen, smi):
+    """K1 beside SDPA's forward, device time (``device_ms``), at shapes past the
+    slice's: a long sequence with and without the causal mask, head dims 120
+    (h2o-danube) and 128 (gpt-175b, qwen) at the training shape; and one
+    call's host dispatch at the prefill shape."""
+    F = torch.nn.functional
+    for B, S, D, causal in ((1, 4096, 64, False), (1, 4096, 64, True), (4, 1024, 120, True),
+                            (4, 1024, 128, True)):
+        q = torch.randn((B, S, 32, D), generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((B, S, 8, D), generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ms = device_ms(torch, lambda: fa.flash_fwd(q, k, v, causal=causal))
+        lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
+        flops = 4 * B * 32 * D * (S * (S + 1) // 2 if causal else S * S)
+        log(f"[time] K1 at q ({B},{S},32,{D}), k/v ({B},{S},8,{D}) bf16, "
+            f"{'causal' if causal else 'no mask'}: device time {ms:.4f} ms "
+            f"({flops / ms / 1e9:.0f} TFLOP/s), SDPA forward {lib:.4f} ms "
+            f"({flops / lib / 1e9:.0f} TFLOP/s), {ms / lib:.2f}x; {smi}")
+    q = torch.randn((4, 500, 32, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((4, 500, 8, 64), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    host = {}
+    for name, fn in (("K1", lambda: fa.flash_fwd(q, k, v, causal=True)),
+                     ("SDPA", lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, is_causal=True, enable_gqa=True))):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        host[name] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+    log(f"[time] host dispatch of one call at q (4,500,32,64) (host clock, no sync): K1's "
+        f"wrapper {host['K1']:.1f} us, SDPA {host['SDPA']:.1f} us")
 
 
 def _time_paged(torch, da, gen, check):

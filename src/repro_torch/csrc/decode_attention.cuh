@@ -15,7 +15,10 @@
 // valid (KeyRows below).  The chunk-to-warp assignment and every operation's
 // order are the same for both, so K6 over a pool equals K5 over the same K/V
 // laid out contiguously (kpos = logical position, -1 on unmapped pages)
-// bit for bit.
+// bit for bit.  Any head dim D that is a multiple of 8 up to 128: the body
+// is instantiated for DMAX = 16/32/64/96/128 (its shared arrays and
+// per-lane registers) and loops over D, in D/8 (bf16) or D/4 (f32) 16-byte
+// vectors per K row.
 
 #pragma once
 
@@ -38,7 +41,7 @@ struct Params {
   const int* page_table;   // paged: (B, n_max) physical pages, -1 = unmapped
   const int* ts;           // (B,) per-row query positions, or null: t for all rows
   void* o;                 // (B, 1, Hq, D)
-  int B, S, Hq, Hkv, t, window;  // paged: S = n_max * ps; window <= 0: none
+  int B, S, Hq, Hkv, D, t, window;  // paged: S = n_max * ps; window <= 0: none
   int ps, n_max;
   float scale;
 };
@@ -99,15 +102,16 @@ struct KeyRows {
   }
 };
 
-template <typename T, int D, bool PAGED>
+template <typename T, int DMAX, bool PAGED>
 __global__ void __launch_bounds__(NTHREADS) decode_kernel(const Params p) {
-  constexpr int DL = (D + 31) / 32;  // head dims per lane: d = lane + 32 * i
+  constexpr int DL = (DMAX + 31) / 32;  // head dims per lane: d = lane + 32 * i
   using V = Vec<T>;
-  __shared__ float q_s[MAXG][D];
+  __shared__ float q_s[MAXG][DMAX];
   __shared__ float p_s[NWARPS][MAXG][32];
   __shared__ float m_w[NWARPS][MAXG];
   __shared__ float l_w[NWARPS][MAXG];
-  __shared__ float acc_w[NWARPS][MAXG][D];
+  __shared__ float acc_w[NWARPS][MAXG][DMAX];
+  const int D = p.D;  // <= DMAX, a multiple of 8
 
   const int hk = blockIdx.x, b = blockIdx.y;
   const int G = p.Hq / p.Hkv;
@@ -228,24 +232,24 @@ __global__ void __launch_bounds__(NTHREADS) decode_kernel(const Params p) {
 }
 
 template <typename T, bool PAGED>
-int launch(int D, const Params& p, cudaStream_t s) {
+int launch(const Params& p, cudaStream_t s) {
   const dim3 grid(p.Hkv, p.B);
-  switch (D) {
-    case 16: decode_kernel<T, 16, PAGED><<<grid, NTHREADS, 0, s>>>(p); break;
-    case 64: decode_kernel<T, 64, PAGED><<<grid, NTHREADS, 0, s>>>(p); break;
-    case 96: decode_kernel<T, 96, PAGED><<<grid, NTHREADS, 0, s>>>(p); break;
-    case 128: decode_kernel<T, 128, PAGED><<<grid, NTHREADS, 0, s>>>(p); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (p.D <= 16) decode_kernel<T, 16, PAGED><<<grid, NTHREADS, 0, s>>>(p);
+  else if (p.D <= 32) decode_kernel<T, 32, PAGED><<<grid, NTHREADS, 0, s>>>(p);
+  else if (p.D <= 64) decode_kernel<T, 64, PAGED><<<grid, NTHREADS, 0, s>>>(p);
+  else if (p.D <= 96) decode_kernel<T, 96, PAGED><<<grid, NTHREADS, 0, s>>>(p);
+  else decode_kernel<T, 128, PAGED><<<grid, NTHREADS, 0, s>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <bool PAGED>
-int dispatch(int dtype, int D, const Params& p, cudaStream_t s) {
-  if (p.Hkv <= 0 || p.Hq % p.Hkv != 0 || p.Hq / p.Hkv > MAXG || p.B <= 0)
+int dispatch(int dtype, int D, Params p, cudaStream_t s) {
+  if (p.Hkv <= 0 || p.Hq % p.Hkv != 0 || p.Hq / p.Hkv > MAXG || p.B <= 0 || D < 8 ||
+      D > 128 || D % 8)
     return (int)cudaErrorInvalidValue;
-  if (dtype == DTYPE_F32) return launch<float, PAGED>(D, p, s);
-  if (dtype == DTYPE_BF16) return launch<__nv_bfloat16, PAGED>(D, p, s);
+  p.D = D;
+  if (dtype == DTYPE_F32) return launch<float, PAGED>(p, s);
+  if (dtype == DTYPE_BF16) return launch<__nv_bfloat16, PAGED>(p, s);
   return (int)cudaErrorInvalidValue;
 }
 

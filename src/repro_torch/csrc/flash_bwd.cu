@@ -29,8 +29,11 @@
 // through WMMA with f32 accumulation, P and dS rounded to bf16 before their
 // products; f32 keeps FMA loops (and q tiles of 32 rows in K4, so four tiles
 // and two accumulators fit in shared memory).  Ragged q/k tails are
-// zero-filled and masked.  A simple first kernel: no wgmma, TMA or warp
-// specialisation yet.
+// zero-filled and masked.  Any head dim D that is a multiple of 8 up to 128:
+// the tiles are instantiated for D padded to 16/32/64/96/128 (WMMA's depth
+// is 16), the columns past D are zero in shared memory, and only D columns
+// are written.  A simple first kernel: no wgmma, TMA or warp specialisation
+// yet.
 
 #include <mma.h>
 #include <stdint.h>
@@ -62,7 +65,7 @@ struct Params {
   void* dq;            // (B, Sq, Hq, D) contiguous
   void* dk;            // (B, Sk, Hkv, D) contiguous
   void* dv;            // (B, Sk, Hkv, D) contiguous
-  int B, Sq, Sk, Hq, Hkv;
+  int B, Sq, Sk, Hq, Hkv, D;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh;
   int causal, window;  // window <= 0: none
   float scale;
@@ -125,14 +128,15 @@ struct DkvLayout {
   static constexpr size_t bytes = ks_off + sizeof(int) * BK;
 };
 
-// rows [row0, row0 + rows) of one head into shared memory; rows past `avail`
-// are zero
-template <typename T, int D>
+// rows [row0, row0 + rows) of one head into shared memory, DP columns;
+// rows past `avail` and columns past `d` are zero
+template <typename T, int DP>
 __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src, long long row_stride,
-                                          int row0, int avail, int rows) {
-  for (int idx = threadIdx.x; idx < rows * D; idx += NTHREADS) {
-    const int r = idx / D, c = idx % D;
-    dst[r * ld + c] = r < avail ? src[(long long)(row0 + r) * row_stride + c] : from_f<T>(0.f);
+                                          int row0, int avail, int rows, int d) {
+  for (int idx = threadIdx.x; idx < rows * DP; idx += NTHREADS) {
+    const int r = idx / DP, c = idx % DP;
+    dst[r * ld + c] =
+        (r < avail && c < d) ? src[(long long)(row0 + r) * row_stride + c] : from_f<T>(0.f);
   }
 }
 
@@ -273,8 +277,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_dq_kernel(const Params p) {
   const long long row0 = ((long long)b * p.Hq + h) * p.Sq;
   const int* segb = has_seg ? p.seg + (long long)b * p.Sq : nullptr;
 
-  load_tile<T, D>(Qs, L::LDT, qg, p.q_ss, q0, nq, BQ);
-  load_tile<T, D>(dOs, L::LDT, dog, p.do_ss, q0, nq, BQ);
+  load_tile<T, D>(Qs, L::LDT, qg, p.q_ss, q0, nq, BQ, p.D);
+  load_tile<T, D>(dOs, L::LDT, dog, p.do_ss, q0, nq, BQ, p.D);
   for (int i = tid; i < BQ * L::LDO; i += NTHREADS) acc[i] = 0.f;
   if (tid < BQ) {
     lse_s[tid] = tid < nq ? p.lse[row0 + q0 + tid] : 0.f;
@@ -300,8 +304,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_dq_kernel(const Params p) {
     const int k0 = kt * BK;
     const int nk = min(BK, p.Sk - k0);
     __syncthreads();  // the previous tile is done with Ks, Vs, dSs, kseg_s
-    load_tile<T, D>(Ks, L::LDT, kg, p.k_ss, k0, nk, BK);
-    load_tile<T, D>(Vs, L::LDT, vg, p.v_ss, k0, nk, BK);
+    load_tile<T, D>(Ks, L::LDT, kg, p.k_ss, k0, nk, BK, p.D);
+    load_tile<T, D>(Vs, L::LDT, vg, p.v_ss, k0, nk, BK, p.D);
     if (has_seg && tid < BK) kseg_s[tid] = tid < nk ? segb[k0 + tid] : 0;
     __syncthreads();
     if (has_seg) {
@@ -326,9 +330,10 @@ __global__ void __launch_bounds__(NTHREADS) flash_dq_kernel(const Params p) {
   __syncthreads();
 
   T* dqg = static_cast<T*>(p.dq);
-  for (int idx = tid; idx < nq * D; idx += NTHREADS) {
-    const int r = idx / D, d = idx % D;
-    dqg[(((long long)b * p.Sq + q0 + r) * p.Hq + h) * D + d] = from_f<T>(acc[r * L::LDO + d] * p.scale);
+  for (int idx = tid; idx < nq * p.D; idx += NTHREADS) {
+    const int r = idx / p.D, d = idx % p.D;
+    dqg[(((long long)b * p.Sq + q0 + r) * p.Hq + h) * p.D + d] =
+        from_f<T>(acc[r * L::LDO + d] * p.scale);
   }
 }
 
@@ -365,8 +370,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_dkv_kernel(const Params p) {
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
   const int* segb = has_seg ? p.seg + (long long)b * p.Sq : nullptr;
 
-  load_tile<T, D>(Ks, L::LDT, kg, p.k_ss, k0, nk, BK);
-  load_tile<T, D>(Vs, L::LDT, vg, p.v_ss, k0, nk, BK);
+  load_tile<T, D>(Ks, L::LDT, kg, p.k_ss, k0, nk, BK, p.D);
+  load_tile<T, D>(Vs, L::LDT, vg, p.v_ss, k0, nk, BK, p.D);
   for (int i = tid; i < BK * L::LDO; i += NTHREADS) {
     dKs[i] = 0.f;
     dVs[i] = 0.f;
@@ -397,8 +402,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_dkv_kernel(const Params p) {
       const int q0 = qt * BQ;
       const int nq = min(BQ, p.Sq - q0);
       __syncthreads();  // the previous tile is done with Qs, dOs, PTs, dSTs, lse_s, ...
-      load_tile<T, D>(Qs, L::LDT, qg, p.q_ss, q0, nq, BQ);
-      load_tile<T, D>(dOs, L::LDT, dog, p.do_ss, q0, nq, BQ);
+      load_tile<T, D>(Qs, L::LDT, qg, p.q_ss, q0, nq, BQ, p.D);
+      load_tile<T, D>(dOs, L::LDT, dog, p.do_ss, q0, nq, BQ, p.D);
       if (tid < BQ) {
         lse_s[tid] = tid < nq ? p.lse[row0 + q0 + tid] : 0.f;
         delta_s[tid] = tid < nq ? p.delta[row0 + q0 + tid] : 0.f;
@@ -431,9 +436,9 @@ __global__ void __launch_bounds__(NTHREADS) flash_dkv_kernel(const Params p) {
 
   T* dkg = static_cast<T*>(p.dk);
   T* dvg = static_cast<T*>(p.dv);
-  for (int idx = tid; idx < nk * D; idx += NTHREADS) {
-    const int r = idx / D, d = idx % D;
-    const long long off = (((long long)b * p.Sk + k0 + r) * p.Hkv + hk) * D + d;
+  for (int idx = tid; idx < nk * p.D; idx += NTHREADS) {
+    const int r = idx / p.D, d = idx % p.D;
+    const long long off = (((long long)b * p.Sk + k0 + r) * p.Hkv + hk) * p.D + d;
     dkg[off] = from_f<T>(dKs[r * L::LDO + d] * p.scale);
     dvg[off] = from_f<T>(dVs[r * L::LDO + d]);
   }
@@ -476,36 +481,36 @@ int launch_dkv(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// the tiles of D padded to the next of 16/32/64/96/128
 template <typename T>
-int dispatch_dq(int D, const Params& p, cudaStream_t s) {
-  switch (D) {
-    case 16: return launch_dq<T, 16>(p, s);
-    case 64: return launch_dq<T, 64>(p, s);
-    case 96: return launch_dq<T, 96>(p, s);
-    case 128: return launch_dq<T, 128>(p, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+int dispatch_dq(const Params& p, cudaStream_t s) {
+  if (p.D < 8 || p.D > 128 || p.D % 8) return (int)cudaErrorInvalidValue;
+  if (p.D <= 16) return launch_dq<T, 16>(p, s);
+  if (p.D <= 32) return launch_dq<T, 32>(p, s);
+  if (p.D <= 64) return launch_dq<T, 64>(p, s);
+  if (p.D <= 96) return launch_dq<T, 96>(p, s);
+  return launch_dq<T, 128>(p, s);
 }
 
+// the tiles of D padded to the next of 16/32/64/96/128
 template <typename T>
-int dispatch_dkv(int D, const Params& p, cudaStream_t s) {
-  switch (D) {
-    case 16: return launch_dkv<T, 16>(p, s);
-    case 64: return launch_dkv<T, 64>(p, s);
-    case 96: return launch_dkv<T, 96>(p, s);
-    case 128: return launch_dkv<T, 128>(p, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+int dispatch_dkv(const Params& p, cudaStream_t s) {
+  if (p.D < 8 || p.D > 128 || p.D % 8) return (int)cudaErrorInvalidValue;
+  if (p.D <= 16) return launch_dkv<T, 16>(p, s);
+  if (p.D <= 32) return launch_dkv<T, 32>(p, s);
+  if (p.D <= 64) return launch_dkv<T, 64>(p, s);
+  if (p.D <= 96) return launch_dkv<T, 96>(p, s);
+  return launch_dkv<T, 128>(p, s);
 }
 
 Params make_params(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, const void* seg, void* dq, void* dk,
-                   void* dv, int B, int Sq, int Sk, int Hq, int Hkv, const long long* st,
+                   void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int D, const long long* st,
                    int causal, int window, float scale) {
   return Params{q, k, v, dout,
                 static_cast<const float*>(lse), static_cast<const float*>(delta),
                 static_cast<const int*>(seg), dq, dk, dv,
-                B, Sq, Sk, Hq, Hkv,
+                B, Sq, Sk, Hq, Hkv, D,
                 st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
                 causal, window, scale};
 }
@@ -542,10 +547,10 @@ extern "C" int repro_flash_dq(const void* q, const void* k, const void* v, const
                               void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   const Params p = make_params(q, k, v, dout, lse, delta, seg, dq, nullptr, nullptr, B, Sq, Sk,
-                               Hq, Hkv, strides, causal, window, scale);
+                               Hq, Hkv, D, strides, causal, window, scale);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::DTYPE_F32) return dispatch_dq<float>(D, p, s);
-  if (dtype == repro::DTYPE_BF16) return dispatch_dq<bf16>(D, p, s);
+  if (dtype == repro::DTYPE_F32) return dispatch_dq<float>(p, s);
+  if (dtype == repro::DTYPE_BF16) return dispatch_dq<bf16>(p, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -556,9 +561,9 @@ extern "C" int repro_flash_dkv(const void* q, const void* k, const void* v, cons
                                float scale, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   const Params p = make_params(q, k, v, dout, lse, delta, seg, nullptr, dk, dv, B, Sq, Sk, Hq,
-                               Hkv, strides, causal, window, scale);
+                               Hkv, D, strides, causal, window, scale);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::DTYPE_F32) return dispatch_dkv<float>(D, p, s);
-  if (dtype == repro::DTYPE_BF16) return dispatch_dkv<bf16>(D, p, s);
+  if (dtype == repro::DTYPE_F32) return dispatch_dkv<float>(p, s);
+  if (dtype == repro::DTYPE_BF16) return dispatch_dkv<bf16>(p, s);
   return (int)cudaErrorInvalidValue;
 }

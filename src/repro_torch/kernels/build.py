@@ -105,6 +105,21 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def supported_head_dim(d: int) -> bool:
+    """The head dims the attention kernels K1-K6 take: every multiple of 8
+    from 16 to 128 (16 of the reduced configs, 64, 96, 120 and 128 of the
+    published ones).  Inside the kernels a D below its tile width is padded
+    with zeros in shared memory."""
+    return 16 <= d <= 128 and d % 8 == 0
+
+
+def require_head_dim(name: str, d: int) -> None:
+    """Raise, naming the kernel, for a head dim the kernels do not take."""
+    if not supported_head_dim(d):
+        raise ValueError(f"{name}: head dim {d} is not supported: the kernels take a "
+                         f"multiple of 8 from 16 to 128")
+
+
 def check(rc: int, name: str) -> None:
     """Raise if a C entry point reported an error (its ``cudaGetLastError()``
     after the launch, or an argument it refused)."""

@@ -33,7 +33,6 @@ import torch
 from repro_torch.kernels import build, ref
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 64, 96, 128)
 MAX_GROUP = 8                      # query heads per KV head the kernel takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,11 +49,13 @@ def _entry(lib: str, fn: str):
 def _check_common(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   *ints: torch.Tensor) -> None:
     """The checks K5 and K6 share: Hq a multiple of k's Hkv (at most
-    ``MAX_GROUP`` times it), bf16 or f32 q/k/v of one dtype, a head dim the
-    kernels take, every tensor contiguous on one CUDA device, k/v 16-byte
-    aligned (vector loads)."""
+    ``MAX_GROUP`` times it), a head dim the kernels take
+    (``build.supported_head_dim``), bf16 or f32 q/k/v of one dtype, every
+    tensor contiguous on one CUDA device, k/v 16-byte aligned (vector
+    loads)."""
     B, _, Hq, D = q.shape
     Hkv = k.shape[2]
+    build.require_head_dim(name, D)
     if Hq % Hkv or Hq // Hkv > MAX_GROUP:
         raise ValueError(f"{name}: Hq={Hq} must be a multiple of Hkv={Hkv}, "
                          f"at most {MAX_GROUP} times it")
@@ -63,8 +64,6 @@ def _check_common(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: bf16 or f32 q/k/v of one dtype; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D} not in {HEAD_DIMS}")
     if not all(x.is_contiguous() for x in (q, k, v, *ints)):
         raise ValueError(f"{name}: every input must be contiguous")
     if k.data_ptr() % 16 or v.data_ptr() % 16:

@@ -17,7 +17,11 @@ and ``8·B·Hq·Sq·Sk·D``, about halved when causal), K2 by bytes.  The
 kernels bound their tile loops the way ``_block_relevant`` does and run
 their products on the tensor cores in bf16 (FMA in f32); see the sources
 for the design.  Unlike the reference's ``flash_supported``, any sequence
-length launches them: they mask the ragged tails themselves.
+length launches them: they mask the ragged tails themselves.  Any head dim
+``build.supported_head_dim`` admits (a multiple of 8 from 16 to 128)
+launches them; the kernels pad it inside.  K1 in bf16 reads q/k/v through
+TMA tensor maps, so their base addresses and (b, s, h) strides must be
+16-byte aligned; the wrapper checks that and raises otherwise.
 """
 
 from __future__ import annotations
@@ -30,7 +34,6 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 64, 96, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -75,16 +78,20 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_inputs(q, k, v, segment_ids, window)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
+    build.require_head_dim("flash_fwd", D)
     ts = (q, k, v) if segment_ids is None else (q, k, v, segment_ids)
     if not all(t.is_cuda and t.device == q.device for t in ts):
         raise ValueError("flash_fwd: every input must be on the same CUDA device")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_fwd: bf16 or f32 q/k/v of one dtype; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_fwd: head dim {D} not in {HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_fwd: the head dim of q/k/v must be contiguous")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any((2 * st) % 16 for st in t.stride()[:3])
+            for t in (q, k, v)):
+        raise ValueError("flash_fwd: bf16 q/k/v need 16-byte aligned base addresses and "
+                         "(b, s, h) strides (TMA tensor maps)")
     if Hq > 65535 or B > 65535:
         raise ValueError(f"flash_fwd: grid too large (Hq={Hq}, B={B})")
     seg = None
@@ -187,6 +194,7 @@ def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def _launch_grad(name: str, q, k, v, do, lse, delta, segment_ids, causal, window, outs):
     _check_grad_inputs(q, k, v, do, lse, delta, segment_ids, window)
+    build.require_head_dim(name, q.shape[3])
     _check_card(name, (q, k, v, do))
     if not (lse.device == delta.device == q.device and lse.is_contiguous()
             and delta.is_contiguous()):
@@ -195,8 +203,6 @@ def _launch_grad(name: str, q, k, v, do, lse, delta, segment_ids, causal, window
         raise ValueError(f"{name}: segment_ids must be on q's device")
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D} not in {HEAD_DIMS}")
     if Hq > 65535 or B > 65535:
         raise ValueError(f"{name}: grid too large (Hq={Hq}, B={B})")
     seg = None

@@ -4,7 +4,7 @@ Parameters are a dict shaped like the reference's pytree, except that the
 stacked ``blocks`` leaves (L, ...) become a list of L per-layer dicts, and
 the reference's ``lax.scan`` over layers is a Python loop.  Its
 ``jax.checkpoint`` per layer becomes ``torch.utils.checkpoint`` per block
-(``remat_policy="full"``).  Caches are ``{"blocks": [{"k", "v", "pos"},
+(``remat_policy`` "full", "stage" and "dots"; see :func:`lm_forward`).  Caches are ``{"blocks": [{"k", "v", "pos"},
 ...]}`` and the block-paged pool is ``{"blocks": [{"k", "v"}, ...]}``, one
 (n_pages, page_size, Hkv, hd) pair per layer where the reference stacks
 (L, ...); both are updated in place.  The MoE, hybrid, xLSTM and VLM arms
@@ -15,8 +15,11 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
+import functools
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.tree import tree_map
 from repro_torch.models import layers
@@ -124,7 +127,27 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     return layers.unembed(params.get("lm_head", params["embed"]), x)
 
 
-REMAT_POLICIES = ("none", "full")
+REMAT_POLICIES = ("none", "full", "dots", "stage")
+# the ops "dots" keeps for the backward: the blocks' projection and MLP
+# matmuls, which lower to these (``x @ W`` with a 3-D x folds into one mm)
+_SAVED_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_block(policy: str):
+    """``block_apply`` wrapped for ``policy``, or None when nothing is
+    recomputed."""
+    if policy == "none" or not torch.is_grad_enabled():
+        return None
+    if policy == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+        return functools.partial(checkpoint, block_apply, use_reentrant=False,
+                                 context_fn=ctx)
+    return functools.partial(checkpoint, block_apply, use_reentrant=False)
 
 
 def lm_forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
@@ -132,25 +155,24 @@ def lm_forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     """→ fp32 logits (B, S, V), or (B, 1, V) when ``last_only`` (the hidden
     states are sliced before the unembed).
 
-    ``remat_policy="full"`` keeps only each block's input for the backward
-    and recomputes the block there (``jax.checkpoint`` with
-    ``nothing_saveable`` in the reference); ``"none"`` keeps every
-    activation.  ``"dots"`` and ``"stage"`` are not ported yet."""
+    The remat policies are the reference's on one device: ``"full"`` keeps
+    only each block's input for the backward and recomputes the block there
+    (``jax.checkpoint`` with ``nothing_saveable``), and so does ``"stage"``
+    (the reference's policy outside a pipeline); ``"dots"`` also keeps the
+    outputs of the block's matmuls and recomputes the rest, the flash
+    forward included (``checkpoint_dots_with_no_batch_dims``); ``"none"``
+    keeps every activation."""
     layer_plan(cfg)
     if remat_policy not in REMAT_POLICIES:
-        raise NotImplementedError(f"remat_policy {remat_policy!r} is not ported yet "
-                                  f"(ported: {', '.join(REMAT_POLICIES)})")
-    remat = remat_policy == "full" and torch.is_grad_enabled()
+        raise ValueError(f"remat_policy {remat_policy!r} is not one of "
+                         f"{', '.join(REMAT_POLICIES)}")
+    block = _remat_block(remat_policy) or block_apply
     tokens = batch["tokens"]
     x = layers.embed_lookup(params["embed"], tokens, cfg.compute_dtype)
     positions = _positions(tokens)
     segment_ids = batch.get("segment_ids")
     for bp in params["blocks"]:
-        kw = dict(window=cfg.swa_window, segment_ids=segment_ids)
-        if remat:
-            x = checkpoint(block_apply, cfg, bp, x, positions, use_reentrant=False, **kw)
-        else:
-            x = block_apply(cfg, bp, x, positions, **kw)
+        x = block(cfg, bp, x, positions, window=cfg.swa_window, segment_ids=segment_ids)
     if last_only:
         x = x[:, -1:]
     return _logits(cfg, params, x)

@@ -13,6 +13,10 @@ interpret mode and the reference's oracle at ``tests/test_kernels.py``'s
 shapes and tolerances (1e-5 in f32, 2e-2 in bf16), plus a ragged ``d``, a
 prime row count and a 1-D x; ``ops.rmsnorm`` follows the ``fused_rmsnorm``
 flag as the reference's does.
+At D = 120 (h2o-danube-3-4b's head dim), with GQA 4:1 and a window, the
+plain versions of K1-K6 are held against the Pallas kernels in interpret
+mode at the same tolerances.  ``build.supported_head_dim`` admits every
+attention config's head dim, and the wrappers refuse any other D.
 The CUDA kernels themselves run only on the card (``chip_smoke.py``); here
 their wrappers must refuse CPU tensors and the dispatch must take the plain
 versions without counting a launch.
@@ -27,7 +31,10 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.configs import ARCH_IDS
+from repro.configs import get_config as jget_config
 from repro.kernels.decode_attention import decode_attention as pallas_decode
+from repro.kernels.decode_attention import paged_decode_attention as pallas_paged
 from repro.kernels.flash_attention import _backward as pallas_flash_backward
 from repro.kernels.flash_attention import _forward as pallas_flash_forward
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
@@ -324,6 +331,106 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_bad_shapes():
         da.decode_attention(torch.zeros((1, 1, 36, 16)), torch.zeros((1, 8, 4, 16)),
                             torch.zeros((1, 8, 4, 16)), torch.zeros((1, 8), dtype=torch.int32),
                             t=0)
+    assert sum(build.launch_counts.values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# head dims: D = 120, the rule, the refusals
+# ---------------------------------------------------------------------------
+
+D120 = dict(Hq=8, Hkv=2, D=120, window=64)          # GQA 4:1, a window, h2o's head dim
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_at_d120_matches_pallas_kernels(dtype):
+    """K1's and K2-K4's plain versions at D = 120 against the Pallas forward
+    and backward (which pad D inside), causal with a window."""
+    B, S, Hq, Hkv, D, window = 2, 128, D120["Hq"], D120["Hkv"], D120["D"], D120["window"]
+    arrs = _qkv(B, S, S, Hq, Hkv, D, seed=17)
+    do_np = np.random.RandomState(18).standard_normal((B, S, Hq, D)).astype(np.float32)
+    (q, k, v, do), (jq, jk, jv, jdo) = _pair((*arrs, do_np), dtype)
+    kw = dict(causal=True, window=window)
+    o, lse = fa.flash_fwd_plain(q, k, v, **kw)
+    jo, jlse = _pallas_fwd(jq, jk, jv, None, **kw)
+    close(o, jo, TOL[dtype])
+    close(lse, jlse, TOL[dtype])
+    want = _pallas_bwd(jq, jk, jv, None, jo, jlse, jdo, **kw)
+    o_ref = torch.from_numpy(np.array(jo.astype(jnp.float32))).to(q.dtype)
+    got = _plain_backward(q, k, v, None, o_ref, torch.from_numpy(np.array(jlse)), do, **kw)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == tuple(w.shape)
+        close(g, w.astype(jnp.float32), GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_at_d120_matches_pallas_kernel(dtype):
+    """K5's plain version at D = 120 on a wrapped ring, windowed, GQA 4:1."""
+    B, S = 2, 256
+    (q, k, v), (jq, jk, jv) = _pair(_qkv(B, 1, S, D120["Hq"], D120["Hkv"], D120["D"], seed=19),
+                                    dtype)
+    kpos, t = _ring(B, S, t_wrap=700)
+    o = da.decode_attention_plain(q, k, v, torch.from_numpy(kpos), t=t, window=D120["window"])
+    jo = pallas_decode(jq, jk, jv, jnp.asarray(kpos), t=jnp.int32(t), window=D120["window"],
+                       bk=128, interpret=True)
+    close(o, jo, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_plain_at_d120_matches_pallas_kernel(dtype):
+    """K6's plain version at D = 120: shuffled pages, a hole, a position per
+    row, windowed, GQA 4:1."""
+    rs = np.random.RandomState(20)
+    B, ps, n_max, Hkv, D = 4, 16, 4, D120["Hkv"], D120["D"]
+    n_pages = 1 + B * n_max
+    q = rs.standard_normal((B, 1, D120["Hq"], D)).astype(np.float32)
+    kp, vp = (rs.standard_normal((n_pages, ps, Hkv, D)).astype(np.float32) for _ in range(2))
+    ts = np.array([5, 2 * ps, n_max * ps - 1, n_max * ps - 1], np.int32)
+    phys = rs.permutation(np.arange(1, n_pages)).astype(np.int32)
+    pt = np.full((B, n_max), -1, np.int32)
+    for b, t in enumerate(ts):
+        pt[b, :t // ps + 1] = phys[b * n_max:b * n_max + t // ps + 1]
+    pt[3, 1] = -1
+    (tq, tkp, tvp), (jq, jkp, jvp) = _pair((q, kp, vp), dtype)
+    o = da.paged_decode_attention_plain(tq, tkp, tvp, torch.from_numpy(pt),
+                                        ts=torch.from_numpy(ts), window=D120["window"])
+    jo = pallas_paged(jq, jkp, jvp, jnp.asarray(pt), ts=jnp.asarray(ts), window=D120["window"],
+                      interpret=True)
+    close(o, jo, TOL[dtype])
+
+
+def test_supported_head_dim_admits_every_attention_config():
+    """Every attention config of the reference (read through its own
+    ``get_config``; all but the xLSTM, whose ``ssm`` blocks run no softmax
+    attention) has a head dim the kernels take; so do the reduced ones."""
+    dims = set()
+    for arch in ARCH_IDS:
+        cfg = jget_config(arch)
+        if cfg.family != "ssm":
+            dims |= {cfg.hd, cfg.reduced().hd}
+    assert {16, 64, 96, 120, 128} <= dims
+    assert all(build.supported_head_dim(d) for d in dims), sorted(dims)
+    assert [d for d in range(1, 257) if build.supported_head_dim(d)] == list(range(16, 129, 8))
+
+
+@pytest.mark.parametrize("D", [12, 20, 136])
+def test_wrappers_refuse_an_unsupported_head_dim(D):
+    """Every wrapper of K1-K6 names the head dim it refuses (before it looks
+    at the device: nothing falls back), and counts nothing."""
+    q, k, v = (torch.zeros(s) for s in ((1, 8, 4, D), (1, 8, 2, D), (1, 8, 2, D)))
+    lse = delta = torch.zeros((1, 4, 8))
+    build.launch_counts.clear()
+    msg = f"head dim {D} is not supported"
+    with pytest.raises(ValueError, match=msg):
+        fa.flash_fwd(q, k, v)
+    with pytest.raises(ValueError, match=msg):
+        fa.flash_dq(q, k, v, q, lse, delta)
+    with pytest.raises(ValueError, match=msg):
+        fa.flash_dkv(q, k, v, q, lse, delta)
+    with pytest.raises(ValueError, match=msg):
+        da.decode_attention(q[:, :1], k, v, torch.zeros((1, 8), dtype=torch.int32), t=3)
+    with pytest.raises(ValueError, match=msg):
+        da.paged_decode_attention(q[:, :1], k, v, torch.zeros((1, 1), dtype=torch.int32),
+                                  ts=torch.zeros((1,), dtype=torch.int32))
     assert sum(build.launch_counts.values()) == 0
 
 

@@ -86,7 +86,7 @@ def _path_ctx(path):
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("path", ["default", "pallas"])
 @pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("remat", ["none", "full", "dots", "stage"])
 def test_lm_loss_and_grads_match_reference(arch, path, packed, remat):
     cfg = get_config(arch).reduced()
     jcfg = jget_config(arch).reduced()
@@ -115,15 +115,17 @@ def test_lm_loss_and_grads_match_reference(arch, path, packed, remat):
 
 
 def test_unported_remat_policies_and_plans_raise():
-    """Remat "dots"/"stage", tp and pp still raise; dp (and pods) and the
-    simulated-replica consensus are accepted without a mesh, as the
-    reference accepts them."""
+    """tp and pp (so remat "stage" inside a pipeline) still raise; an
+    unknown remat policy raises; dp (and pods) and the simulated-replica
+    consensus are accepted without a mesh, as the reference accepts them."""
     cfg = get_config("granite_3_2b").reduced()
     sess = TrainSession(cfg, device="cpu", data_cfg=_data()[1])
-    for policy in ("dots", "stage"):
-        with pytest.raises(NotImplementedError, match="remat_policy"):
-            ttf.lm_loss(cfg, sess.state["params"], sess._to_device(sess.batches(0)),
-                        remat_policy=policy)
+    with pytest.raises(ValueError, match="remat_policy"):
+        ttf.lm_loss(cfg, sess.state["params"], sess._to_device(sess.batches(0)),
+                    remat_policy="offload")
+    with pytest.raises(NotImplementedError, match="one device"):
+        TrainSession(cfg, plan=ParallelismConfig(pp=2, gas=2, remat_policy="stage"),
+                     device="cpu")
     for plan in (ParallelismConfig(tp=2), ParallelismConfig(pp=2)):
         with pytest.raises(NotImplementedError, match="one device"):
             TrainSession(cfg, plan=plan, device="cpu")
@@ -209,11 +211,13 @@ def test_three_steps_match_reference(gas, compression):
         assert float(torch.where(tie, 0.0, d).max()) <= 1e-5, path
 
 
-@pytest.mark.parametrize("remat,fwd_per_layer", [("full", 2), ("none", 1)])
+@pytest.mark.parametrize("remat,fwd_per_layer", [("full", 2), ("none", 1), ("dots", 2),
+                                                  ("stage", 2)])
 def test_remat_recomputes_the_flash_forward_once_per_block(monkeypatch, remat, fwd_per_layer):
     """Trap (d): per step with gas G and L layers the flash forward runs
-    2·L·G times under remat "full" (forward, then again in the backward) and
-    L·G under "none"; the backward L·G times either way."""
+    2·L·G times under remat "full", "stage" and "dots" (forward, then again
+    in the backward: "dots" keeps only the matmuls) and L·G under "none";
+    the backward L·G times either way."""
     from repro_torch.kernels import flash_attention as fa
     calls = {"fwd": 0, "dq": 0}
 
