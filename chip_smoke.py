@@ -15,8 +15,10 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    120 and 128, lengths 128/200/500 (ragged to its 128-row tiles), masks and
    dtypes;
    then K2, K3 and K4 (flash backward: delta, dQ, dK and dV) the same way,
-   and the autograd ``FlashAttention`` against autograd through K1's plain
-   version;
+   over the edges of their tiles (lengths 200/500/1024, windows of 64 and
+   16, MHA and GQA 4/1, 8/2, 32/8), and two launches of K3 and of K4 on
+   equal inputs must give equal bits; and the autograd ``FlashAttention``
+   against autograd through K1's plain version;
 4. holds K5 (decode attention) against its plain version the same way;
    then K6 (paged decode attention) against its plain version over page
    sizes 16/64/128, head groupings, head dims, windows and dtypes (pages
@@ -88,8 +90,9 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    activations; f32 and bf16), then times it there beside its plain
    version (K1 against SDPA's forward in turns: kernel, SDPA, SDPA,
    kernel, in CUDA events as the host issues the calls and in device time
-   with the calls queued behind a spinning kernel, which K1's row keeps),
-   one PyTorch library call
+   with the calls queued behind a spinning kernel, which K1's row keeps;
+   K2-K4 against SDPA's backward alone the same way, at head dims 64, 128
+   and 120, their rows keeping device time), one PyTorch library call
    (``scaled_dot_product_attention``, its backward for K3 and K4;
    ``rms_norm`` for K7; none for K2 and K6; timed only here) and its bound;
 15. prints a ``{"kernels": [...]}`` line and, last,
@@ -295,7 +298,8 @@ def profile_window(torch, fn, top: int = 8):
 
 def phase_build(build):
     """Build every kernel; print ptxas's registers and spills per entry
-    function (K1's bf16 wgmma instantiations by their padded head dim)."""
+    function (the bf16 wgmma instantiations of K1, K3 and K4 by their padded
+    head dim) and its notes that it serialized or fenced wgmma."""
     t0 = time.perf_counter()
     paths = build.build_all()
     secs = time.perf_counter() - t0
@@ -314,9 +318,12 @@ def phase_build(build):
                 fn = line.split("'")[1] if "'" in line else line.strip()
             elif "registers" in line or "spill" in line:
                 label = fn
-                if "flash_fwd_wgmma" in fn:
-                    label = (f"K1 bf16 wgmma, D padded to {'64' if 'ILi64E' in fn else '128'}, "
-                             f"{'segment ids' if 'Lb1E' in fn else 'no segment ids'}")
+                for pat, k in (("flash_fwd_wgmma", "K1"), ("flash_dq_wgmma", "K3"),
+                               ("flash_dkv_wgmma", "K4")):
+                    if pat in fn:
+                        label = (f"{k} bf16 wgmma, D padded to "
+                                 f"{'64' if 'ILi64E' in fn else '128'}, "
+                                 f"{'segment ids' if 'Lb1E' in fn else 'no segment ids'}")
                 log(f"[build] {name}: {label}: {line.strip()}")
 
 
@@ -369,53 +376,69 @@ def phase_flash_sweep(torch, fa):
 
 def phase_flash_bwd_sweep(torch, fa):
     """K2, K3 and K4 against their plain versions on the same residuals
-    (O and lse from K1's plain version, so both sides see equal inputs), then
-    the whole ``FlashAttention`` against autograd through ``flash_fwd_plain``."""
+    (O and lse from K1's plain version, so both sides see equal inputs), over
+    the edges of the kernels' tiles: lengths 200 and 500 (ragged to K3's
+    128-row q tiles and 64/128-key tiles, K4's 128-key items and 64-row q
+    tiles) and 1024, every head dim of ``HEAD_DIMS``, MHA and GQA 4/1, 8/2
+    and 32/8, causal, a window of 64 and one of 16 (smaller than any tile),
+    none, segment ids, and queries and keys of two lengths (200 and 500);
+    in every case two launches of K3 and of K4 on the same inputs
+    must give equal bits (no atomics: the bitwise crash -> resume relies on
+    it); then the whole ``FlashAttention`` against autograd through
+    ``flash_fwd_plain``."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     worst = {dt: [0.0] * 4 for dt in TOL}
-    failures, n = [], 0
-    for Hq, Hkv in ((4, 4), (8, 2), (32, 8)):        # g = 1 and 4; (32, 8) h2o's, at D 120
-        for D in HEAD_DIMS:
-            if Hq == 32 and D != 120:
-                continue
-            for S in (200, 1024):                    # 200 is ragged to every tile
-                for mask in ("causal", "window", "none", "segments"):
-                    for dtype in (torch.bfloat16, torch.float32):
-                        B = 2
-                        q, do = (torch.randn((B, S, Hq, D), generator=gen,
-                                             device="cuda").to(dtype) for _ in range(2))
-                        k, v = (torch.randn((B, S, Hkv, D), generator=gen,
-                                            device="cuda").to(dtype) for _ in range(2))
-                        kw = dict(causal=mask != "none",
-                                  window=64 if mask == "window" else None,
-                                  segment_ids=_segments(torch, B, S) if mask == "segments"
-                                  else None)
-                        o, lse = fa.flash_fwd_plain(q, k, v, **kw)
-                        delta = fa.flash_delta(o, do)
-                        delta_ref = fa.flash_delta_plain(o, do)
-                        got = (delta, fa.flash_dq(q, k, v, do, lse, delta_ref, **kw),
-                               *fa.flash_dkv(q, k, v, do, lse, delta_ref, **kw))
-                        want = (delta_ref, fa.flash_dq_plain(q, k, v, do, lse, delta_ref, **kw),
-                                *fa.flash_dkv_plain(q, k, v, do, lse, delta_ref, **kw))
-                        torch.cuda.synchronize()
-                        name = str(dtype).split(".")[-1]
-                        errs = []
-                        for i, (a, b) in enumerate(zip(got, want)):
-                            err, ok = close(a, b, TOL[name])
-                            worst[name][i] = max(worst[name][i], err)
-                            errs.append((err, ok))
-                        n += 1
-                        if not all(ok for _, ok in errs):
-                            failures.append(
-                                f"Hq={Hq} Hkv={Hkv} D={D} S={S} {mask} {name}: errors "
-                                f"delta/dQ/dK/dV " + " ".join(f"{e:.3g}" for e, _ in errs))
+    failures, unequal, n = [], [], 0
+    cases = [(Hq, Hkv, D, S, S, mask)
+             for Hq, Hkv in ((4, 4), (4, 1), (8, 2), (32, 8))   # (32, 8): granite's, h2o's
+             for D in HEAD_DIMS if Hq != 32 or D in (64, 120)
+             for S in (200, 500, 1024)
+             for mask in ("causal", "window", "window16", "none", "segments")]
+    # queries and keys of two lengths (no segment ids then)
+    cases += [(8, 2, D, Sq, Sk, mask) for D in (64, 120) for Sq, Sk in ((200, 500), (500, 200))
+              for mask in ("causal", "window16", "none")]
+    for Hq, Hkv, D, S, Sk, mask in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            B = 2
+            q, do = (torch.randn((B, S, Hq, D), generator=gen, device="cuda").to(dtype)
+                     for _ in range(2))
+            k, v = (torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            kw = dict(causal=mask != "none", window={"window": 64, "window16": 16}.get(mask),
+                      segment_ids=_segments(torch, B, S) if mask == "segments" else None)
+            o, lse = fa.flash_fwd_plain(q, k, v, **kw)
+            delta = fa.flash_delta(o, do)
+            delta_ref = fa.flash_delta_plain(o, do)
+            got = (delta, fa.flash_dq(q, k, v, do, lse, delta_ref, **kw),
+                   *fa.flash_dkv(q, k, v, do, lse, delta_ref, **kw))
+            again = (fa.flash_dq(q, k, v, do, lse, delta_ref, **kw),
+                     *fa.flash_dkv(q, k, v, do, lse, delta_ref, **kw))
+            want = (delta_ref, fa.flash_dq_plain(q, k, v, do, lse, delta_ref, **kw),
+                    *fa.flash_dkv_plain(q, k, v, do, lse, delta_ref, **kw))
+            torch.cuda.synchronize()
+            name = str(dtype).split(".")[-1]
+            case = f"Hq={Hq} Hkv={Hkv} D={D} Sq={S} Sk={Sk} {mask} {name}"
+            errs = []
+            for i, (a, b) in enumerate(zip(got, want)):
+                err, ok = close(a, b, TOL[name])
+                worst[name][i] = max(worst[name][i], err)
+                errs.append((err, ok))
+            n += 1
+            if not all(ok for _, ok in errs):
+                failures.append(f"{case}: errors delta/dQ/dK/dV "
+                                + " ".join(f"{e:.3g}" for e, _ in errs))
+            if not all(torch.equal(a, b) for a, b in zip(got[1:], again)):
+                unequal.append(case)
     for name, w in worst.items():
         log(f"[K2-K4 sweep] {name}: max |kernel - plain| delta {w[0]:.3g}, dQ {w[1]:.3g}, "
             f"dK {w[2]:.3g}, dV {w[3]:.3g} (tol {TOL[name]})")
     require(not failures, f"K2-K4 disagree with their plain versions in {len(failures)} of "
             f"{n} cases:\n  " + "\n  ".join(failures[:20]))
     log(f"[K2-K4 sweep] {n} cases agree")
+    require(not unequal, f"two launches of K3/K4 on equal inputs gave different bits in "
+            f"{len(unequal)} of {n} cases:\n  " + "\n  ".join(unequal[:20]))
+    log(f"[K2-K4 sweep] K3 and K4 launched twice on equal inputs: equal bits in all {n} cases")
 
     # the autograd Function (K1 forward, K2 -> K3 -> K4 backward) against
     # autograd through K1's plain version, f32, at the training slice's shape
@@ -996,11 +1019,13 @@ def phase_train(torch, build, fa, da, TrainSession, stepfn, ParallelismConfig, D
             f"profiled wall {prof['wall_ms']:.2f} ms")
         for ms, count, key in prof["top"]:
             log(f"[profile] train step:   {ms:8.3f} ms  {count:5d}x  {key}")
-        k1 = [(ms, count) for ms, count, key in prof["all"] if "flash_fwd" in key]
-        k1_ms, k1_n = sum(r[0] for r in k1), sum(r[1] for r in k1)
-        log(f"[profile] train step: K1 (flash_fwd) {k1_ms:.3f} ms of device time over {k1_n} "
-            f"launches ({k1_ms / max(k1_n, 1):.4f} ms a launch), "
-            f"{k1_ms / prof['device_ms']:.1%} of the step's device time; {smi}")
+        for label, pat in (("K1", "flash_fwd"), ("K2", "flash_delta"), ("K3", "flash_dq"),
+                           ("K4", "flash_dkv")):
+            rs = [(ms, count) for ms, count, key in prof["all"] if pat in key]
+            k_ms, k_n = sum(r[0] for r in rs), sum(r[1] for r in rs)
+            log(f"[profile] train step: {label} ({pat}) {k_ms:.3f} ms of device time over "
+                f"{k_n} launches ({k_ms / max(k_n, 1):.4f} ms a launch), "
+                f"{k_ms / prof['device_ms']:.1%} of the step's device time; {smi}")
 
     # one batch, three ways: kernels, plain versions, plain versions on f32.
     # Held per token, as phase 5 holds logits: the mean over 8192 tokens of
@@ -1261,67 +1286,87 @@ def _time_paged(torch, da, gen, check):
 def _time_backward(torch, fa, gen, check):
     """K2, K3 and K4 at the training slice's attention: q (4,1024,32,64),
     k/v (4,1024,8,64), causal; held against their plain versions in f32 and
-    bf16, timed in bf16.  The library yardstick is the backward of
-    ``scaled_dot_product_attention`` as a whole (forward + backward minus
-    forward), which computes dQ, dK and dV together."""
+    bf16, timed in bf16 in device time (``device_ms``), their CUDA-event
+    times printed beside.  The library yardstick is the backward of
+    ``scaled_dot_product_attention`` alone, which computes dQ, dK and dV
+    together: one forward, then ``autograd.grad`` with ``retain_graph`` per
+    call, in device time.  The same at head dims 128 and 120 (printed only)."""
     F = torch.nn.functional
-    B, S, Hq, Hkv, D = 4, 1024, 32, 8, 64
-    q32, do32 = (torch.randn((B, S, Hq, D), generator=gen, device="cuda") for _ in range(2))
-    k32, v32 = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda") for _ in range(2))
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[-1]
-        q, do, k, v = (x.to(dtype) for x in (q32, do32, k32, v32))
-        o, lse = fa.flash_fwd(q, k, v, causal=True)
-        delta = fa.flash_delta_plain(o, do)
-        errs["flash_delta"] = check(f"K2 delta, slice shape, {name}", fa.flash_delta(o, do),
-                                    delta, TOL[name])
-        errs["flash_dq"] = check(f"K3 dQ, slice shape, {name}",
-                                 fa.flash_dq(q, k, v, do, lse, delta, causal=True),
-                                 fa.flash_dq_plain(q, k, v, do, lse, delta, causal=True),
-                                 TOL[name])
-        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal=True)
-        dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, do, lse, delta, causal=True)
-        errs["flash_dkv"] = max(check(f"K4 dK, slice shape, {name}", dk, dk_ref, TOL[name]),
-                                check(f"K4 dV, slice shape, {name}", dv, dv_ref, TOL[name]))
-    # bf16 now: q, do, k, v, o, lse, delta of the last pass
-    pairs = S * (S + 1) // 2                          # causal (q, k) pairs
-    prod = 2 * B * Hq * D * pairs                     # one (q, k, d) product
-    qb, kb = 2 * q.numel(), 2 * k.numel()             # bytes of a q-shaped / k-shaped bf16 tensor
-    stats = 2 * 4 * lse.numel()                       # lse and delta, f32
-    bounds = {
-        "flash_delta": bound(2 * qb + stats / 2, 0),
-        "flash_dq": bound(3 * qb + 2 * kb + stats, 3 * prod),
-        "flash_dkv": bound(2 * qb + 4 * kb + stats, 4 * prod),
-    }
-    calls = {
-        "flash_delta": (lambda: fa.flash_delta(o, do), lambda: fa.flash_delta_plain(o, do)),
-        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, causal=True),
-                     lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, causal=True)),
-        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal=True),
-                      lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, causal=True)),
-    }
-    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
-    dot = do.transpose(1, 2).contiguous()
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-
-    sdpa_fwd = time_ms(torch, lambda: sdpa().detach())
-    sdpa_both = time_ms(torch, lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot))
-    sdpa_bwd = sdpa_both - sdpa_fwd
-    shape = "q (4,1024,32,64), k/v (4,1024,8,64) bf16, causal"
+    B, S, Hq, Hkv = 4, 1024, 32, 8
     rows = {}
-    for name, (kern, plain) in calls.items():
-        b_ms, b_by = bounds[name]
-        rows[name] = dict(max_abs_err=errs[name], ms=time_ms(torch, kern),
-                          plain_ms=time_ms(torch, plain, iters=10),
-                          library_ms=None if name == "flash_delta" else sdpa_bwd,
-                          bound_ms=b_ms, bound_by=b_by, shape=shape)
-    whole = sum(rows[n]["ms"] for n in calls)
-    log(f"[time] flash backward as a whole (K2 + K3 + K4) at {shape}: {whole:.4f} ms; SDPA "
-        f"backward {sdpa_bwd:.4f} ms (forward + backward {sdpa_both:.4f} ms, forward "
-        f"{sdpa_fwd:.4f} ms)")
+    for D in (64, 128, 120):
+        q32, do32 = (torch.randn((B, S, Hq, D), generator=gen, device="cuda") for _ in range(2))
+        k32, v32 = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda") for _ in range(2))
+        errs = {}
+        for dtype in ((torch.float32, torch.bfloat16) if D == 64 else (torch.bfloat16,)):
+            name = str(dtype).split(".")[-1]
+            q, do, k, v = (x.to(dtype) for x in (q32, do32, k32, v32))
+            o, lse = fa.flash_fwd(q, k, v, causal=True)
+            delta = fa.flash_delta_plain(o, do)
+            errs["flash_delta"] = check(f"K2 delta, D={D}, {name}", fa.flash_delta(o, do),
+                                        delta, TOL[name])
+            errs["flash_dq"] = check(f"K3 dQ, D={D}, {name}",
+                                     fa.flash_dq(q, k, v, do, lse, delta, causal=True),
+                                     fa.flash_dq_plain(q, k, v, do, lse, delta, causal=True),
+                                     TOL[name])
+            dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal=True)
+            dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, do, lse, delta, causal=True)
+            errs["flash_dkv"] = max(check(f"K4 dK, D={D}, {name}", dk, dk_ref, TOL[name]),
+                                    check(f"K4 dV, D={D}, {name}", dv, dv_ref, TOL[name]))
+        # bf16 now: q, do, k, v, o, lse, delta of the last pass
+        pairs = S * (S + 1) // 2                          # causal (q, k) pairs
+        prod = 2 * B * Hq * D * pairs                     # one (q, k, d) product
+        qb, kb = 2 * q.numel(), 2 * k.numel()             # bytes of a q-/k-shaped bf16 tensor
+        stats = 2 * 4 * lse.numel()                       # lse and delta, f32
+        bounds = {
+            "flash_delta": bound(2 * qb + stats / 2, 0),
+            "flash_dq": bound(3 * qb + 2 * kb + stats, 3 * prod),
+            "flash_dkv": bound(2 * qb + 4 * kb + stats, 4 * prod),
+        }
+        calls = {
+            "flash_delta": (lambda: fa.flash_delta(o, do), lambda: fa.flash_delta_plain(o, do)),
+            "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, causal=True),
+                         lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, causal=True)),
+            "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal=True),
+                          lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, causal=True)),
+        }
+        qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,  # noqa: E731
+                                               retain_graph=True)
+        # in turns: the kernels, SDPA's backward, SDPA's backward, the kernels
+        dev = {n: [device_ms(torch, kern)] for n, (kern, _) in calls.items()}
+        lib = [device_ms(torch, sdpa_bwd), device_ms(torch, sdpa_bwd)]
+        for n, (kern, _) in calls.items():
+            dev[n].append(device_ms(torch, kern))
+        ev = {n: time_ms(torch, kern) for n, (kern, _) in calls.items()}
+        ev_lib = time_ms(torch, sdpa_bwd)
+        sdpa_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True).detach()
+        ev_old = (time_ms(torch, lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+            (qt, kt, vt), dot)) - time_ms(torch, sdpa_fwd))
+        lib_ms = sum(lib) / 2
+        ms = {n: sum(t) / 2 for n, t in dev.items()}
+        whole = sum(ms.values())
+        here = f"q (4,1024,32,{D}), k/v (4,1024,8,{D}) bf16, causal"
+        for n, (kern, plain) in calls.items():
+            b_ms, b_by = bounds[n]
+            log(f"[time] {n} at {here}: device time {dev[n][0]:.4f} / {dev[n][1]:.4f} ms "
+                f"(turns), CUDA events {ev[n]:.4f} ms; bound {b_ms * 1e3:.2f} us ({b_by}), "
+                f"{ms[n] / b_ms:.1f}x it")
+            if D == 64:
+                rows[n] = dict(max_abs_err=errs[n], ms=ms[n],
+                               plain_ms=time_ms(torch, plain, iters=10),
+                               library_ms=None if n == "flash_delta" else lib_ms,
+                               bound_ms=b_ms, bound_by=b_by, shape=here)
+        log(f"[time] flash backward as a whole (K2 + K3 + K4) at {here}: device time "
+            f"{whole:.4f} ms; SDPA's backward alone {lib[0]:.4f} / {lib[1]:.4f} ms "
+            f"({whole / lib_ms:.2f}x SDPA); CUDA events: K2 + K3 + K4 "
+            f"{sum(ev.values()):.4f} ms, SDPA's backward alone {ev_lib:.4f} ms, and as "
+            f"forward + backward minus forward {ev_old:.4f} ms")
     return rows
 
 

@@ -138,35 +138,6 @@ struct RowState {  // a thread's two rows: running max (log2 units) and partial 
   float m0, m1, l0, l1;
 };
 
-// S (64 x BK, raw scores) = Q K^T for one consumer: q at its 64 rows of the
-// Q tile, k the K tile of the stage
-template <int DP>
-__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q, uint32_t k) {
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk)
-    hp::wgmma_ss_n128(sc, hp::desc_kmajor(q + (kk / 4) * BQ * 128 + (kk % 4) * 32),
-                      hp::desc_kmajor(k + (kk / 4) * BK * 128 + (kk % 4) * 32), kk > 0);
-  hp::wgmma_commit();
-}
-
-// O += P V, P the bf16 A fragments of the tile's probabilities, v the V tile
-template <int ATOMS>
-__device__ __forceinline__ void issue_pv(float (&o)[ATOMS][32], uint32_t (&pa)[BK / 16][4],
-                                         uint32_t v) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-    for (int a = 0; a < ATOMS; ++a)
-      hp::wgmma_rs_n64(o[a], pa[kk], hp::desc_mnmajor(v + a * BK * 128 + kk * 16 * 128));
-  hp::wgmma_commit();
-}
-
-template <int ATOMS>
-__device__ __forceinline__ void fence_o(float (&o)[ATOMS][32]) {
-#pragma unroll
-  for (int a = 0; a < ATOMS; ++a) hp::fence_regs(o[a]);
-}
-
 // One tile of the online softmax on raw scores sc (masked ones -1e30): the
 // new row maxima, P = 2^(s sl2 - m) in f32 into pe (which may be sc), the
 // partial row sums, and the factors al0/al1 by which O must be rescaled.  A
@@ -204,13 +175,6 @@ __device__ __forceinline__ void softmax_tile(RowState& st, float (&sc)[64], floa
   }
   st.l0 = st.l0 * al0 + sum0;
   st.l1 = st.l1 * al1 + sum1;
-}
-
-// P as bf16 A fragments: S columns 16kk.. (blocks 2kk, 2kk + 1) are P V's
-// k16 slice kk.  Written only while no product reads pa.
-__device__ __forceinline__ void pack_p(const float (&sc)[64], uint32_t (&pa)[BK / 16][4]) {
-#pragma unroll
-  for (int j = 0; j < 64; j += 2) pa[j / 8][(j % 8) / 2] = hp::pack_bf16(sc[j], sc[j + 1]);
 }
 
 template <int ATOMS>
@@ -388,10 +352,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     };
 
     float o[R::ATOMS][32];
-#pragma unroll
-    for (int a = 0; a < R::ATOMS; ++a)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[a][i] = 0.f;
+    hp::zero_acc(o);
     RowState st{NEG_INF, NEG_INF, 0.f, 0.f};
     float sc[64], al0, al1;
     hp::mbar_wait(qfull, it & 1);
@@ -407,25 +368,28 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         hp::mbar_wait(full(s_prev), (n / R::STAGES) & 1);
         turn_begin();
         hp::wgmma_fence();
-        issue_qk<DP>(sc, sqc, sk(s_prev));
+        hp::mma_ss<BK, DP>(sc, sqc, BQ * 128, sk(s_prev), BK * 128);
+        hp::wgmma_commit();
         turn_end(0);
         hp::wgmma_wait<0>();
         hp::fence_regs(sc);
         if (T == 1) hp::mbar_arrive(qempty);  // the producer may load the next Q
         mask_tile(sc, kt_begin * BK);
         softmax_tile(st, sc, sc, sl2, al0, al1);  // O is still 0
-        pack_p(sc, pp);
+        hp::pack_a(sc, pp);
         for (int i = 1; i < T; ++i) {
           const int s = (n + i) % R::STAGES;
           hp::mbar_wait(full(s), ((n + i) / R::STAGES) & 1);
           turn_begin();
-          fence_o(o);
+          hp::fence_acc(o);
           hp::wgmma_fence();
-          issue_qk<DP>(sc, sqc, sk(s));
+          hp::mma_ss<BK, DP>(sc, sqc, BQ * 128, sk(s), BK * 128);
+          hp::wgmma_commit();
           // P V in a pipeline stage of its own: the softmax below rewrites
           // S's registers while it runs
           hp::wgmma_fence();
-          issue_pv(o, pp, sv(s_prev));
+          hp::mma_rs<BK>(o, pp, sv(s_prev), BK * 128);
+          hp::wgmma_commit();
           turn_end(i);
           hp::wgmma_wait<1>();  // S is the older group
           hp::fence_regs(sc);
@@ -433,19 +397,20 @@ __global__ void __launch_bounds__(NTHREADS, 1)
           mask_tile(sc, (kt_begin + i) * BK);
           softmax_tile(st, sc, sc, sl2, al0, al1);  // in place: S is done
           hp::wgmma_wait<0>();
-          fence_o(o);
+          hp::fence_acc(o);
           hp::fence_regs(pp);
           hp::mbar_arrive(empty(s_prev));
           // O holds the tiles before this one, relative to the old max
           rescale_o(o, al0, al1);
-          pack_p(sc, pp);
+          hp::pack_a(sc, pp);
           s_prev = s;
         }
-        fence_o(o);
+        hp::fence_acc(o);
         hp::wgmma_fence();
-        issue_pv(o, pp, sv(s_prev));
+        hp::mma_rs<BK>(o, pp, sv(s_prev), BK * 128);
+        hp::wgmma_commit();
         hp::wgmma_wait<0>();
-        fence_o(o);
+        hp::fence_acc(o);
         hp::fence_regs(pp);
         hp::mbar_arrive(empty(s_prev));
       }
@@ -465,7 +430,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         turn_begin();
         if (!skip) {
           hp::wgmma_fence();
-          issue_qk<DP>(sc, sqc, sk(s));
+          hp::mma_ss<BK, DP>(sc, sqc, BQ * 128, sk(s), BK * 128);
+          hp::wgmma_commit();
         }
         turn_end(i);
         if (!skip) {
@@ -478,12 +444,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
           softmax_tile(st, sc, pe, sl2, al0, al1);
           rescale_o(o, al0, al1);
           uint32_t pn[BK / 16][4];
-          pack_p(pe, pn);
-          fence_o(o);
+          hp::pack_a(pe, pn);
+          hp::fence_acc(o);
           hp::wgmma_fence();
-          issue_pv(o, pn, sv(s));
+          hp::mma_rs<BK>(o, pn, sv(s), BK * 128);
+          hp::wgmma_commit();
           hp::wgmma_wait<0>();
-          fence_o(o);
+          hp::fence_acc(o);
           hp::fence_regs(pn);
         }
         hp::mbar_arrive(empty(s));

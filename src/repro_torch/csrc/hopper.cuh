@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
 // TMA tile loads through tensor maps, warpgroup register rebalancing and the
 // wgmma products with their shared-memory descriptors.  K1 (flash_fwd.cu)
-// is built from them; the flash backward's redesign is meant to reuse them.
+// and the bf16 flash backward K3/K4 (flash_bwd.cu) are built from them.
 //
 // Conventions.  Tiles are brought in by TMA with a 128-byte swizzle: a box
 // of 64 bf16 columns by R rows lands as R rows of 128 bytes, the 16-byte
@@ -74,6 +74,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `box` consecutive elements of a 1-D tensor map from element c0 on; those
+// past the end arrive as zeros
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
       : "memory");
 }
 
@@ -187,6 +198,23 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// The same at N = 64: D is 32 registers, the first 8-column blocks of the
+// layout above.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // A from registers (the bf16 fragment of a 64 x 16 slice: a[0] and a[1] rows
 // lane/4 and lane/4 + 8 at columns 2(lane % 4) + {0, 1}, a[2] and a[3] the
 // same rows at columns 8 + 2(lane % 4) + {0, 1}: the layout of two 8-column
@@ -209,6 +237,59 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A 64 x N/2 f32 accumulator (N registers) rounded to bf16 A fragments:
+// columns 16kk.. (8-column blocks 2kk, 2kk + 1) become the k16 slice kk of
+// a product that reduces over them.
+template <int N>
+__device__ __forceinline__ void pack_a(const float (&x)[N], uint32_t (&a)[N / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < N; j += 2) a[j / 8][(j % 8) / 2] = pack_bf16(x[j], x[j + 1]);
+}
+
+// A (64 x 64 ATOMS) f32 accumulator: kept in place around an asynchronous
+// product (fence_regs on each 64-column block), or zeroed
+template <int ATOMS>
+__device__ __forceinline__ void fence_acc(float (&x)[ATOMS][32]) {
+#pragma unroll
+  for (int a = 0; a < ATOMS; ++a) fence_regs(x[a]);
+}
+
+template <int ATOMS>
+__device__ __forceinline__ void zero_acc(float (&x)[ATOMS][32]) {
+#pragma unroll
+  for (int a = 0; a < ATOMS; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[a][i] = 0.f;
+}
+
+// D (64 x N/2, N = 64 or 128 registers) = A B^T over DP columns (a multiple
+// of 64), A and B K-major 128-byte-swizzled tiles whose 64-column boxes lie
+// a_box and b_box bytes apart (A at the warpgroup's 64 rows).  Not committed.
+template <int N, int DP>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint32_t a, uint32_t a_box, uint32_t b,
+                                       uint32_t b_box) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint64_t da = desc_kmajor(a + (kk / 4) * a_box + (kk % 4) * 32);
+    const uint64_t db = desc_kmajor(b + (kk / 4) * b_box + (kk % 4) * 32);
+    if constexpr (N == 128) wgmma_ss_n128(d, da, db, kk > 0);
+    else wgmma_ss_n64(d, da, db, kk > 0);
+  }
+}
+
+// D (64 x 64 ATOMS) += A (bf16 fragments in registers, KR / 16 k16 slices)
+// . B, B a KR-row tile read MN-major, its 64-column boxes b_box bytes apart.
+// Not committed.
+template <int KR, int ATOMS>
+__device__ __forceinline__ void mma_rs(float (&d)[ATOMS][32], const uint32_t (&a)[KR / 16][4],
+                                       uint32_t b, uint32_t b_box) {
+#pragma unroll
+  for (int kk = 0; kk < KR / 16; ++kk)
+#pragma unroll
+    for (int at = 0; at < ATOMS; ++at)
+      wgmma_rs_n64(d[at], a[kk], desc_mnmajor(b + at * b_box + kk * 16 * 128));
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -258,6 +339,20 @@ inline bool make_tensor_map_bhsd(CUtensorMap* map, const void* base, int B, int 
                 box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A contiguous f32 array of n elements as a 1-D tensor map whose box is
+// `box` elements (box * 4 a multiple of 16 bytes; base 16-byte aligned).
+inline bool make_tensor_map_f32(CUtensorMap* map, const void* base, long long n, int box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 4};  // unread at rank 1
+  const cuuint32_t boxdim[1] = {(cuuint32_t)box};
+  const cuuint32_t estr[1] = {1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(base), dims, strides,
+                boxdim, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

@@ -15,13 +15,14 @@ K4 dK and dV with the GQA group summed inside the kernel.
 Bound on the H100: K1, K3 and K4 by tensor-core operations (``4``, ``6``
 and ``8·B·Hq·Sq·Sk·D``, about halved when causal), K2 by bytes.  The
 kernels bound their tile loops the way ``_block_relevant`` does and run
-their products on the tensor cores in bf16 (FMA in f32); see the sources
-for the design.  Unlike the reference's ``flash_supported``, any sequence
-length launches them: they mask the ragged tails themselves.  Any head dim
-``build.supported_head_dim`` admits (a multiple of 8 from 16 to 128)
-launches them; the kernels pad it inside.  K1 in bf16 reads q/k/v through
-TMA tensor maps, so their base addresses and (b, s, h) strides must be
-16-byte aligned; the wrapper checks that and raises otherwise.
+their products on the tensor cores in bf16 (wgmma; FMA in f32); see the
+sources for the design.  Unlike the reference's ``flash_supported``, any
+sequence length launches them: they mask the ragged tails themselves.  Any
+head dim ``build.supported_head_dim`` admits (a multiple of 8 from 16 to
+128) launches them; the kernels pad it inside.  K1, K3 and K4 in bf16 read
+q/k/v (and dO) through TMA tensor maps, so their base addresses and
+(b, s, h) strides must be 16-byte aligned; the wrappers check that and
+raise otherwise.
 """
 
 from __future__ import annotations
@@ -70,6 +71,15 @@ def _check_inputs(q, k, v, segment_ids, window):
         raise ValueError(f"flash_fwd: window must be positive, got {window}")
 
 
+def _check_tma_aligned(name: str, ts) -> None:
+    """bf16 inputs that a kernel reads through TMA tensor maps: 16-byte
+    aligned base addresses and (b, s, h) strides, or raise."""
+    if ts[0].dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any((2 * st) % 16 for st in t.stride()[:3]) for t in ts):
+        raise ValueError(f"{name}: bf16 inputs need 16-byte aligned base addresses and "
+                         f"(b, s, h) strides (TMA tensor maps)")
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               segment_ids: Optional[torch.Tensor] = None, causal: bool = True,
               window: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -87,11 +97,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_fwd: the head dim of q/k/v must be contiguous")
-    if q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 or any((2 * st) % 16 for st in t.stride()[:3])
-            for t in (q, k, v)):
-        raise ValueError("flash_fwd: bf16 q/k/v need 16-byte aligned base addresses and "
-                         "(b, s, h) strides (TMA tensor maps)")
+    _check_tma_aligned("flash_fwd", (q, k, v))
     if Hq > 65535 or B > 65535:
         raise ValueError(f"flash_fwd: grid too large (Hq={Hq}, B={B})")
     seg = None
@@ -196,15 +202,17 @@ def _launch_grad(name: str, q, k, v, do, lse, delta, segment_ids, causal, window
     _check_grad_inputs(q, k, v, do, lse, delta, segment_ids, window)
     build.require_head_dim(name, q.shape[3])
     _check_card(name, (q, k, v, do))
+    _check_tma_aligned(name, (q, k, v, do))
     if not (lse.device == delta.device == q.device and lse.is_contiguous()
-            and delta.is_contiguous()):
-        raise ValueError(f"{name}: lse and delta must be contiguous on q's device")
+            and delta.is_contiguous() and lse.data_ptr() % 16 == delta.data_ptr() % 16 == 0):
+        raise ValueError(f"{name}: lse and delta must be contiguous and 16-byte aligned "
+                         f"on q's device")
     if segment_ids is not None and segment_ids.device != q.device:
         raise ValueError(f"{name}: segment_ids must be on q's device")
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    if Hq > 65535 or B > 65535:
-        raise ValueError(f"{name}: grid too large (Hq={Hq}, B={B})")
+    if Hq > 65535 or B > 65535 or B * Hq * Sq >= 2 ** 31:
+        raise ValueError(f"{name}: grid too large (Hq={Hq}, B={B}, Sq={Sq})")
     seg = None
     if segment_ids is not None:
         seg = segment_ids.to(torch.int32).contiguous()

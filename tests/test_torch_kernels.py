@@ -18,11 +18,13 @@ plain versions of K1-K6 are held against the Pallas kernels in interpret
 mode at the same tolerances.  ``build.supported_head_dim`` admits every
 attention config's head dim, and the wrappers refuse any other D.
 The CUDA kernels themselves run only on the card (``chip_smoke.py``); here
-their wrappers must refuse CPU tensors and the dispatch must take the plain
-versions without counting a launch.
+their wrappers must refuse CPU tensors (and bf16 inputs that TMA cannot
+read) and the dispatch must take the plain versions without counting a
+launch; the flash backward's sources must use no atomics.
 """
 
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -454,6 +456,55 @@ def test_build_refuses_an_install_without_sources(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "CSRC", tmp_path)
     with pytest.raises(RuntimeError, match="editable install"):
         build.build_all()
+
+
+def test_tma_kernels_refuse_misaligned_bf16_inputs():
+    """K1, K3 and K4 read bf16 q/k/v (and dO) through TMA tensor maps, which
+    need 16-byte aligned bases and (b, s, h) strides; f32 takes plain loads."""
+    shape, n = (2, 8, 4, 16), 2 * 8 * 4 * 16
+    x = torch.zeros(shape, dtype=torch.bfloat16)
+    fa._check_tma_aligned("flash_dq", (x, x))
+    shifted = torch.zeros(n + 1, dtype=torch.bfloat16)[1:].view(shape)
+    with pytest.raises(ValueError, match="flash_dq: bf16 inputs need 16-byte aligned"):
+        fa._check_tma_aligned("flash_dq", (x, shifted))
+    fa._check_tma_aligned("flash_dkv", (torch.zeros(n + 1)[1:].view(shape),))
+
+
+# ---------------------------------------------------------------------------
+# the flash backward's sources: no atomics
+# ---------------------------------------------------------------------------
+
+# an atomic or a memory reduction, in CUDA C++ or in inline PTX (``bar.red``,
+# a barrier's reduction of a predicate, is neither)
+_ATOMIC = re.compile(r"\batomic[A-Z]\w*\s*\(|atomic_ref|(?<![\w.])(?:red|atom)\.|"
+                     r"cp\.reduce\.async")
+# the backward's source and the headers of csrc/ it includes
+_BWD_SOURCES = ("flash_bwd.cu", "common.cuh", "hopper.cuh")
+
+
+def _code(name):
+    """A CUDA source of ``csrc/`` without its ``//`` comments."""
+    return "\n".join(ln.split("//")[0] for ln in (build.CSRC / name).read_text().splitlines())
+
+
+@pytest.mark.parametrize("source", _BWD_SOURCES)
+def test_flash_backward_sources_use_no_atomics(source):
+    """K3 and K4 sum in one fixed order in their registers (K4 sums the GQA
+    group inside), so equal inputs give equal bits: the bitwise crash ->
+    resume on the card relies on it.  No source of the backward's library
+    may use an atomic."""
+    assert set(re.findall(r'#include "([^"]+)"', _code("flash_bwd.cu"))) <= set(_BWD_SOURCES)
+    assert not _ATOMIC.findall(_code(source)), source
+
+
+def test_atomics_pattern_catches_reductions_and_spares_barriers():
+    for hit in ("atomicAdd(&x, 1.f);", "atomicCAS(p, a, b)", 'asm("red.global.add.f32 [%0], %1;")',
+                'asm("atom.shared.add.u32 %0, [%1], 1;")', "cuda::atomic_ref<float> r(x);",
+                'asm("cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.tile")'):
+        assert _ATOMIC.search(hit), hit
+    for miss in ('asm("bar.red.or.pred q, %2, %3, p;")', "no atomics: a fixed order",
+                 'asm("mbarrier.arrive.shared::cta.b64 _, [%0];")', "const int red = 1;"):
+        assert not _ATOMIC.search(miss), miss
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,7 @@ from repro.core.recipe import RecipeAdvisor as JAdvisor
 from repro.core.systems import TPU_V5E
 from repro.data import DataConfig as JDataConfig
 from repro.runtime.chaos import FaultPlan as JFaultPlan
+from repro.runtime.fleet import FleetConfig as JFleetConfig
 from repro.runtime.fleet import FleetController as JFleet
 from repro.runtime.resilience import ResilienceConfig as JResilience
 from repro.session.tracker import JsonlTracker as JJsonl
@@ -51,7 +52,7 @@ from repro_torch.core.tree import tree_leaves
 from repro_torch.data import DataConfig
 from repro_torch.launch import train as launch_train
 from repro_torch.runtime.chaos import ChaosError, FaultPlan
-from repro_torch.runtime.fleet import FleetController
+from repro_torch.runtime.fleet import FleetConfig, FleetController
 from repro_torch.runtime.resilience import ResilienceConfig
 from repro_torch.session import TrainSession
 from repro_torch.session.tracker import JsonlTracker
@@ -85,12 +86,13 @@ class Pkg:
     Resilience: type
     Retry: type
     Fleet: type
+    FleetConfig: type
 
 
 REF = Pkg("ref", RefTrainSession, jstepfn, JPlan, JDataConfig, JFaultPlan, JResilience,
-          JRetryPolicy, JFleet)
+          JRetryPolicy, JFleet, JFleetConfig)
 PORT = Pkg("port", TrainSession, stepfn, ParallelismConfig, DataConfig, FaultPlan,
-           ResilienceConfig, RetryPolicy, FleetController)
+           ResilienceConfig, RetryPolicy, FleetController, FleetConfig)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -153,9 +155,14 @@ def _scenario(pkg, name, init, d):
         sess = _session(pkg, init, 8, dict(consensus_replicas=2), dict(dp=2))
         out = sess.run(8, chaos=pkg.Faults(replica_nan={4: (1,)}, replicas=2), **run)
     elif name == "replica_loss_replan":
+        # the fleet's straggler arm re-plans on measured wall time (a step
+        # over 2x the fleet median, 3 in a row), which parallel test
+        # processes can trigger in one package and not the other: it is
+        # switched off in both, and the chaos-driven loss at step 7 decides
         sess = _session(pkg, init, 12, plan_kw=dict(dp=2))
+        fleet = pkg.Fleet(2, pkg.FleetConfig(straggler_factor=float("inf")))
         out = sess.run(12, ckpt_dir=d, ckpt_every=4, async_ckpt=False,
-                       chaos=pkg.Faults(lose_replica={7: 1}), fleet=pkg.Fleet(2), **run)
+                       chaos=pkg.Faults(lose_replica={7: 1}), fleet=fleet, **run)
     else:
         raise KeyError(name)
     return out, sess
