@@ -8,8 +8,10 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
 1. prints the environment: torch and CUDA versions, the card's name and
    power limit as ``nvidia-smi`` reports them;
 2. builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` and
-   prints the build's seconds and ptxas's register/spill report per entry
-   function (K1's bf16 wgmma instantiations named by padded head dim);
+   prints the build's seconds and ptxas's registers and spills per entry
+   function (K1, K3 and K4's bf16 wgmma instantiations named by padded head
+   dim, the others by their template arguments); a spill in the decode
+   kernels (K5, K6) or in K7 fails the run;
 3. holds K1 (flash forward) against its plain version on the card, O and lse,
    over head groupings (h2o-danube's 32/8 among them), head dims 16, 64, 96,
    120 and 128, lengths 128/200/500 (ragged to its 128-row tiles), masks and
@@ -19,11 +21,15 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    16, MHA and GQA 4/1, 8/2, 32/8), and two launches of K3 and of K4 on
    equal inputs must give equal bits; and the autograd ``FlashAttention``
    against autograd through K1's plain version;
-4. holds K5 (decode attention) against its plain version the same way;
+4. holds K5 (decode attention) against its plain version the same way, and
+   over long caches that span many of its splits (4096 and 4100 slots at
+   B 1 and 4; full, wrapped, and not full so that whole splits are empty;
+   a window that excludes whole splits; g 1 at D 128);
    then K6 (paged decode attention) against its plain version over page
    sizes 16/64/128, head groupings, head dims, windows and dtypes (pages
-   shuffled, a hole in one table, a position per row; and at B = 8, page
-   16, with 1024-token histories), and against K5 on the same K/V laid out
+   shuffled, a hole in one table, a position per row; at B = 8, page
+   16, with 1024-token histories; and at B = 1 with a 4096-token history
+   through pages of 16, 64 and 128), and against K5 on the same K/V laid out
    contiguously; shows that NaN in pages K6 must not read (the trash page,
    unmapped pages, pages before the window) changes nothing; and holds
    K5's per-row form (a (B,) tensor of positions) against its plain version;
@@ -78,23 +84,25 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    rollback, crash_restart, ckpt_retry, consensus_skip,
    replica_loss_replan) through ``TrainSession.run`` at full width, 1
    layer (the disk cap), bf16, with its fault plans, cadences, step counts
-   and data: every figure must equal ``BENCH_resilience.json``'s; then
-   times the in-step detection on vs off;
+   and data (the fleet's wall-time straggler arm off, so that the injected
+   loss alone re-plans): every figure must equal ``BENCH_resilience.json``'s;
+   then times the in-step detection on vs off;
 13. checks that, in f32 at granite's attention and MLP widths (1 layer, a
    4096-token vocabulary: the disk cap), the rollback and consensus drills
    give the same events, losses (1e-5 relative) and params (1e-4) with the
    kernels and with their plain versions;
 14. holds each kernel against its plain version at its slice's shapes (K1's
    O and lse at the prefill and at the training attention, K2-K4 at the
-   training attention, K5's O, K6 at the stream's decode, K7 at the training
-   activations; f32 and bf16), then times it there beside its plain
-   version (K1 against SDPA's forward in turns: kernel, SDPA, SDPA,
-   kernel, in CUDA events as the host issues the calls and in device time
-   with the calls queued behind a spinning kernel, which K1's row keeps;
-   K2-K4 against SDPA's backward alone the same way, at head dims 64, 128
-   and 120, their rows keeping device time), one PyTorch library call
-   (``scaled_dot_product_attention``, its backward for K3 and K4;
-   ``rms_norm`` for K7; none for K2 and K6; timed only here) and its bound;
+   training attention, K5's O, K6 at the stream's decode, K5 and K6 at a
+   4096-token cache, K7 at the training activations; f32 and bf16), then
+   times it there beside its plain version and one PyTorch library call
+   (``scaled_dot_product_attention``: its forward for K1, its backward
+   alone for K3 and K4, masked for K5; ``rms_norm`` for K7; none for K2
+   and K6, for which SDPA on the K/V laid out contiguously is timed for
+   scale; timed only here) in turns: kernel, library, library, kernel, in
+   device time with the calls queued behind a spinning kernel, which the
+   rows keep, and in CUDA events as the host issues the calls, printed
+   beside (K2-K4 also at head dims 128 and 120); and its bound;
 15. prints a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -108,6 +116,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -259,6 +268,23 @@ def device_ms(torch, fn, n: int = 20) -> float:
                        "longer than the card's spin")
 
 
+def in_turns(torch, kern, lib, n: int = 50):
+    """``kern`` and ``lib`` in turns (kernel, library, library, kernel), in
+    device time (``device_ms``, ``n`` calls a reading), then each in CUDA
+    events over 200 calls as the host issues them.  Returns (the kernel's
+    mean device time, the library's, the four device readings, the two
+    event times)."""
+    dev = [device_ms(torch, f, n=n) for f in (kern, lib, lib, kern)]
+    ev = [time_ms(torch, f, iters=200) for f in (kern, lib)]
+    return (dev[0] + dev[3]) / 2, (dev[1] + dev[2]) / 2, dev, ev
+
+
+def turns_text(what, lib_name, dev, ev) -> str:
+    return (f"device time {dev[0]:.4f} / {dev[3]:.4f} ms, {lib_name} {dev[1]:.4f} / "
+            f"{dev[2]:.4f} ms ({(dev[0] + dev[3]) / (dev[1] + dev[2]):.2f}x {lib_name}); "
+            f"CUDA events {what} {ev[0]:.4f} ms, {lib_name} {ev[1]:.4f} ms")
+
+
 def _ms(x) -> str:
     return "none" if x is None else f"{x:.4f} ms"
 
@@ -296,35 +322,69 @@ def profile_window(torch, fn, top: int = 8):
 # phases
 # ---------------------------------------------------------------------------
 
+def _demangle(names):
+    """C++ names of ptxas's mangled entry functions (``c++filt``, where the
+    machine has it), without the anonymous namespace and parameter lists."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60, check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return dict(zip(names, names))
+    short = [o.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+             for o in out]
+    return dict(zip(names, short)) if len(short) == len(names) else dict(zip(names, names))
+
+
 def phase_build(build):
     """Build every kernel; print ptxas's registers and spills per entry
     function (the bf16 wgmma instantiations of K1, K3 and K4 by their padded
-    head dim) and its notes that it serialized or fenced wgmma."""
+    head dim, the others by their template arguments) and its notes that it
+    serialized or fenced wgmma; fail on a spill in the decode kernels (K5,
+    K6) or in K7."""
     t0 = time.perf_counter()
     paths = build.build_all()
     secs = time.perf_counter() - t0
     log(f"[build] {len(paths)} kernels in {secs:.1f} s: "
         + ", ".join(p.name for p in paths.values()))
+    spilled = []
     for name, p in paths.items():
         log_path = Path(f"{p}.log")
         if not log_path.exists():
             continue
-        fn = "?"
+        entries, fn = {}, "?"
         for line in log_path.read_text().splitlines():
             if "Performance Loss" in line or "warpgroup.wait is injected" in line:
                 # ptxas serialized (or fenced) wgmma: the kernel runs ~2x slower
                 log(f"[build] {name}: ptxas note: {line.strip()[:240]}")
             if "Compiling entry function" in line:
                 fn = line.split("'")[1] if "'" in line else line.strip()
-            elif "registers" in line or "spill" in line:
-                label = fn
-                for pat, k in (("flash_fwd_wgmma", "K1"), ("flash_dq_wgmma", "K3"),
-                               ("flash_dkv_wgmma", "K4")):
-                    if pat in fn:
-                        label = (f"{k} bf16 wgmma, D padded to "
-                                 f"{'64' if 'ILi64E' in fn else '128'}, "
-                                 f"{'segment ids' if 'Lb1E' in fn else 'no segment ids'}")
-                log(f"[build] {name}: {label}: {line.strip()}")
+                entries[fn] = {}
+            elif "spill stores" in line and fn in entries:
+                nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+                entries[fn].update(stack=nums[0], stores=nums[1], loads=nums[2])
+            elif "Used" in line and "registers" in line and fn in entries:
+                entries[fn]["regs"] = int(line.split("Used")[1].split()[0])
+        names = _demangle(list(entries))
+        for fn, e in entries.items():
+            label = names[fn]
+            for pat, k in (("flash_fwd_wgmma", "K1"), ("flash_dq_wgmma", "K3"),
+                           ("flash_dkv_wgmma", "K4")):
+                if pat in fn:
+                    label = (f"{k} bf16 wgmma, D padded to "
+                             f"{'64' if 'ILi64E' in fn else '128'}, "
+                             f"{'segment ids' if 'Lb1E' in fn else 'no segment ids'}")
+            log(f"[build] {name}: {label}: {e.get('regs', '?')} registers, "
+                f"{e.get('stack', '?')} bytes stack, {e.get('stores', '?')} / "
+                f"{e.get('loads', '?')} bytes spill stores / loads")
+            if name in ("decode_attention", "paged_decode_attention", "rmsnorm") and (
+                    e.get("stores") or e.get("loads")):
+                spilled.append(f"{name}: {label}")
+        log(f"[build] {name}: {len(entries)} entry functions, at most "
+            f"{max((e.get('regs', 0) for e in entries.values()), default=0)} registers, "
+            f"{sum(1 for e in entries.values() if e.get('stores') or e.get('loads'))} "
+            f"with a spill")
+    require(not spilled, "ptxas spilled in the decode or RMSNorm kernels:\n  "
+            + "\n  ".join(spilled))
 
 
 def _segments(torch, B, S):
@@ -476,40 +536,51 @@ def _ring(torch, B, S, fill=None, t_wrap=None):
 
 
 def phase_decode_sweep(torch, da):
+    """K5 against its plain version: B 2, Hkv 2 rings of 532 and 544 slots
+    (ragged to 128; 532 also ends in a partial 32-key chunk) over fills,
+    a wrapped ring, windows, head groupings, head dims and dtypes; then long
+    caches that span many splits (``da.split_plan``): S 4096 and 4100 at B 1
+    and 4, Hkv 8, g 4 at D 64 and g 1 at D 128 (the GPT configs' MHA), full,
+    wrapped and not full (300 of S slots: whole splits empty), without a
+    window and with one of 1000 (which excludes whole splits)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     worst = {dt: 0.0 for dt in TOL}
     failures, n = [], 0
-    B, Hkv = 2, 2
-    # 544 is ragged to 128 only; 532 (the slice's cache) also ends in a
-    # partial 32-key chunk, the kernel's masked tail
+    cases = []
     for S in (532, 544):
-        cases = [dict(fill=f) for f in (0, 300, S - 1)] + [dict(t_wrap=2000)]
         for g in (1, 4):
             for D in HEAD_DIMS:
-                for case in cases:
+                for ring in [dict(fill=f) for f in (0, 300, S - 1)] + [dict(t_wrap=2000)]:
                     for window in (None, 128):
-                        for dtype in (torch.bfloat16, torch.float32):
-                            q = torch.randn((B, 1, g * Hkv, D), generator=gen,
-                                            device="cuda").to(dtype)
-                            k, v = (torch.randn((B, S, Hkv, D), generator=gen,
-                                                device="cuda").to(dtype) for _ in range(2))
-                            kpos, t = _ring(torch, B, S, **case)
-                            o = da.decode_attention(q, k, v, kpos, t=t, window=window)
-                            o_ref = da.decode_attention_plain(q, k, v, kpos, t=t, window=window)
-                            torch.cuda.synchronize()
-                            name = str(dtype).split(".")[-1]
-                            err, ok = close(o, o_ref, TOL[name])
-                            worst[name] = max(worst[name], err)
-                            n += 1
-                            if not ok:
-                                failures.append(f"S={S} g={g} D={D} {case} window={window} "
-                                                f"{name}: err {err:.3g}")
+                        cases.append((2, S, 2, g, D, ring, window))
+    for B in (1, 4):
+        for S in (4096, 4100):
+            for g, D in ((4, 64), (1, 128)):
+                for ring in (dict(fill=S - 1), dict(fill=300), dict(t_wrap=10000)):
+                    for window in (None, 1000):
+                        cases.append((B, S, 8, g, D, ring, window))
+    for B, S, Hkv, g, D, ring, window in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, 1, g * Hkv, D), generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            kpos, t = _ring(torch, B, S, **ring)
+            o = da.decode_attention(q, k, v, kpos, t=t, window=window)
+            o_ref = da.decode_attention_plain(q, k, v, kpos, t=t, window=window)
+            torch.cuda.synchronize()
+            name = str(dtype).split(".")[-1]
+            err, ok = close(o, o_ref, TOL[name])
+            worst[name] = max(worst[name], err)
+            n += 1
+            if not ok:
+                failures.append(f"B={B} S={S} Hkv={Hkv} g={g} D={D} {ring} window={window} "
+                                f"{name} (splits {da.split_plan(B, Hkv, S)}): err {err:.3g}")
     for name, err in worst.items():
         log(f"[K5 sweep] {name}: max |O - plain| {err:.3g} (tol {TOL[name]})")
     require(not failures, f"K5 disagrees with its plain version in {len(failures)} of "
             f"{n} cases:\n  " + "\n  ".join(failures[:20]))
-    log(f"[K5 sweep] {n} cases agree")
+    log(f"[K5 sweep] {n} cases agree, long caches of 4096 and 4100 slots among them")
 
 
 def _paged_case(torch, gen, *, B, ps, n_max, Hkv, g, D, dtype, ts, holes=()):
@@ -541,8 +612,9 @@ def _paged_case(torch, gen, *, B, ps, n_max, Hkv, g, D, dtype, ts, holes=()):
 def phase_paged_sweep(torch, da):
     """K6 against its plain version over page sizes, head groupings, head
     dims, windows and dtypes (rows mid-page, on a page boundary, at the
-    table's end, one with an unmapped hole; physical pages shuffled), and at
-    B = 8, page 16, with 1024-token histories.  Then: K6 never reads the
+    table's end, one with an unmapped hole; physical pages shuffled), at
+    B = 8, page 16, with 1024-token histories, and at B = 1 with a
+    4096-token history through pages of 16, 64 and 128.  Then: K6 never reads the
     trash page (NaN there changes nothing); K6 against K5 on the same K/V
     laid out contiguously; K5's per-row form against its plain version."""
     gen = torch.Generator(device="cuda")
@@ -571,6 +643,13 @@ def phase_paged_sweep(torch, da):
     for window in (None, 256):
         cases.append(dict(B=8, ps=16, n_max=64, Hkv=8, g=4, D=64, window=window,
                           ts=[1023] * 7 + [700], holes=[]))
+    # a 4096-token history at B = 1 over many splits, through several page
+    # sizes: the table full (one hole) or mapped to position 2500 only
+    for ps in (16, 64, 128):
+        for ts, holes in (([4095], [(0, 3)]), ([2500], [])):
+            for window in (None, 1000):
+                cases.append(dict(B=1, ps=ps, n_max=4096 // ps, Hkv=8, g=4, D=64,
+                                  window=window, ts=ts, holes=holes))
     same_as_k5, k5_f32 = True, 0.0
     for c in cases:
         window = c.pop("window")
@@ -1157,35 +1236,11 @@ def phase_timing(torch, fa, da, rn, smi):
     rows["flash_fwd (training shape)"] = k1[1024]
     _k1_shapes(torch, fa, gen, smi)
 
-    B, Hq, Hkv, D = 4, 32, 8, 64
-    # K5 at the slice's decode: B=4, S=532 (full ring; its last 32-key chunk
-    # holds 20 keys), Hq=32, Hkv=8, D=64; held in both dtypes, timed in bf16
-    S = 532
-    q32 = torch.randn((B, 1, Hq, D), generator=gen, device="cuda")
-    k32, v32 = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda") for _ in range(2))
-    kpos = torch.arange(S, dtype=torch.int32, device="cuda")[None].expand(B, S).contiguous()
-    t = S - 1
-    check("K5 O, slice shape, float32", da.decode_attention(q32, k32, v32, kpos, t=t),
-          da.decode_attention_plain(q32, k32, v32, kpos, t=t), TOL["float32"])
-    q, k, v = (x.to(bf) for x in (q32, k32, v32))
-    err_o = check("K5 O, slice shape, bfloat16", da.decode_attention(q, k, v, kpos, t=t),
-                  da.decode_attention_plain(q, k, v, kpos, t=t), TOL["bfloat16"])
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    mask = ((kpos >= 0) & (kpos <= t))[:, None, None, :]
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * kpos.numel()
-    flops = 4 * B * Hq * D * S                             # every slot is valid here
-    b_ms, b_by = bound(nbytes, flops)
-    rows["decode_attention"] = dict(
-        max_abs_err=err_o,
-        ms=time_ms(torch, lambda: da.decode_attention(q, k, v, kpos, t=t), iters=200),
-        plain_ms=time_ms(torch, lambda: da.decode_attention_plain(q, k, v, kpos, t=t)),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=200),
-        bound_ms=b_ms, bound_by=b_by,
-        shape="q (4,1,32,64), k/v (4,532,8,64) bf16, t=531, full ring")
-    rows.update(_time_paged(torch, da, gen, check))
+    rows["decode_attention"] = _time_decode(torch, da, gen, check, smi)
+    _time_long_cache(torch, da, gen, check, smi)
+    rows.update(_time_paged(torch, da, gen, check, smi))
     rows.update(_time_backward(torch, fa, gen, check))
-    rows.update(_time_rmsnorm(torch, rn, gen, check))
+    rows.update(_time_rmsnorm(torch, rn, gen, check, smi))
     for name, r in rows.items():
         log(f"[time] {name} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {_ms(r['library_ms'])}, bound "
@@ -1234,14 +1289,77 @@ def _k1_shapes(torch, fa, gen, smi):
         f"wrapper {host['K1']:.1f} us, SDPA {host['SDPA']:.1f} us")
 
 
-def _time_paged(torch, da, gen, check):
+def _time_decode(torch, da, gen, check, smi):
+    """K5 at the slice's decode: B=4, S=532 (a full ring; its last 32-key
+    chunk holds 20 keys), Hq=32, Hkv=8, D=64; held against its plain version
+    in both dtypes, timed in bf16 beside SDPA with the same mask, in turns in
+    device time (which the row keeps), the CUDA-event times beside."""
+    F = torch.nn.functional
+    B, S, Hq, Hkv, D = 4, 532, 32, 8, 64
+    q32 = torch.randn((B, 1, Hq, D), generator=gen, device="cuda")
+    k32, v32 = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda") for _ in range(2))
+    kpos = torch.arange(S, dtype=torch.int32, device="cuda")[None].expand(B, S).contiguous()
+    t = S - 1
+    check("K5 O, slice shape, float32", da.decode_attention(q32, k32, v32, kpos, t=t),
+          da.decode_attention_plain(q32, k32, v32, kpos, t=t), TOL["float32"])
+    q, k, v = (x.to(torch.bfloat16) for x in (q32, k32, v32))
+    err_o = check("K5 O, slice shape, bfloat16", da.decode_attention(q, k, v, kpos, t=t),
+                  da.decode_attention_plain(q, k, v, kpos, t=t), TOL["bfloat16"])
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = ((kpos >= 0) & (kpos <= t))[:, None, None, :]
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * kpos.numel()
+    flops = 4 * B * Hq * D * S                             # every slot is valid here
+    b_ms, b_by = bound(nbytes, flops)
+    ms, lib_ms, dev, ev = in_turns(
+        torch, lambda: da.decode_attention(q, k, v, kpos, t=t),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    row = dict(max_abs_err=err_o, ms=ms,
+               plain_ms=time_ms(torch, lambda: da.decode_attention_plain(q, k, v, kpos, t=t)),
+               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+               shape="q (4,1,32,64), k/v (4,532,8,64) bf16, t=531, full ring")
+    log(f"[time] K5 at {row['shape']}: {turns_text('K5', 'SDPA', dev, ev)}; bound "
+        f"{b_ms * 1e3:.2f} us ({b_by}), {b_ms / ms:.1%} of it; {smi}")
+    return row
+
+
+def _time_long_cache(torch, da, gen, check, smi):
+    """K5 and K6 at a long cache, granite's 4096-token context at B = 1
+    (Hq 32, Hkv 8, D 64, bf16; K6 through pages of 16, shuffled): held
+    against their plain versions, timed in device time beside SDPA over the
+    same K/V laid out contiguously, with the share of the bound reached
+    (printed only)."""
+    F = torch.nn.functional
+    B, S, Hkv, g, D, ps = 1, 4096, 8, 4, 64, 16
+    q, kp, vp, pt, ts, kc, vc, kpos = _paged_case(
+        torch, gen, B=B, ps=ps, n_max=S // ps, Hkv=Hkv, g=g, D=D, dtype=torch.bfloat16,
+        ts=[S - 1])
+    check("K5 O, long cache, bfloat16", da.decode_attention(q, kc, vc, kpos, t=S - 1),
+          da.decode_attention_plain(q, kc, vc, kpos, t=S - 1), TOL["bfloat16"])
+    check("K6 O, long cache, bfloat16", da.paged_decode_attention(q, kp, vp, pt, ts=ts),
+          da.paged_decode_attention_plain(q, kp, vp, pt, ts=ts), TOL["bfloat16"])
+    kv_bytes = 2 * S * Hkv * D * 2
+    flops = 4 * Hkv * g * D * S
+    k5_bound, by = bound(2 * 2 * q.numel() + kv_bytes + 4 * S, flops)
+    k6_bound, _ = bound(2 * 2 * q.numel() + kv_bytes + 4 * (pt.numel() + B), flops)
+    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)  # noqa: E731
+    for name, kern, b_ms in (
+            ("K5", lambda: da.decode_attention(q, kc, vc, kpos, t=S - 1), k5_bound),
+            ("K6", lambda: da.paged_decode_attention(q, kp, vp, pt, ts=ts), k6_bound)):
+        ms, _, dev, ev = in_turns(torch, kern, sdpa)
+        log(f"[time] {name} at a long cache, q (1,1,32,64), {S} keys of (8,64) bf16"
+            f"{', pages of 16' if name == 'K6' else ''}: {turns_text(name, 'SDPA', dev, ev)}; "
+            f"bound {b_ms * 1e3:.2f} us ({by}), {b_ms / ms:.1%} of it; {smi}")
+
+
+def _time_paged(torch, da, gen, check, smi):
     """K6 at the stream's decode: 8 rows at positions 320-432 (page 16,
     31-page tables, pages shuffled), Hq 32, Hkv 8, D 64; held against its
-    plain version in both dtypes, timed in bf16.  No single PyTorch call
-    gathers through a page table, so there is no library time; SDPA over
-    the same K/V laid out contiguously is printed for scale.  Then K5's
-    per-row form at the contiguous arm's decode (the same rows in 496-slot
-    ring caches)."""
+    plain version in both dtypes, timed in bf16 in device time.  No single
+    PyTorch call gathers through a page table, so there is no library time;
+    SDPA over the same K/V laid out contiguously, masked, is timed beside it
+    for scale.  Then K5's per-row form at the contiguous arm's decode (the
+    same rows in 496-slot ring caches), the same way."""
     F = torch.nn.functional
     B, ps, n_max, Hkv, g, D = 8, 16, 31, 8, 4, 64
     ts_list = [320 + 16 * b for b in range(B)]
@@ -1263,23 +1381,27 @@ def _time_paged(torch, da, gen, check):
     b_ms, b_by = bound(nbytes, flops)
     qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
     mask = ((kpos >= 0) & (kpos <= ts[:, None]))[:, None, None, :]
-    sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=200)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    ms, sdpa_ms, dev, ev = in_turns(
+        torch, lambda: da.paged_decode_attention(q, kp, vp, pt, ts=ts), sdpa)
     rows["paged_decode_attention"] = dict(
-        max_abs_err=errs["bfloat16"],
-        ms=time_ms(torch, lambda: da.paged_decode_attention(q, kp, vp, pt, ts=ts), iters=200),
+        max_abs_err=errs["bfloat16"], ms=ms,
         plain_ms=time_ms(torch, lambda: da.paged_decode_attention_plain(q, kp, vp, pt, ts=ts)),
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
         shape=f"q (8,1,32,64), pool ({kp.shape[0]},16,8,64) bf16, tables (8,31), ts 320-432")
-    k5_ms = time_ms(torch, lambda: da.decode_attention(q, kc, vc, kpos, t=ts), iters=200)
+    log(f"[time] K6 at {rows['paged_decode_attention']['shape']}: "
+        f"{turns_text('K6', 'SDPA on the K/V laid out contiguously', dev, ev)}; bound "
+        f"{b_ms * 1e3:.2f} us ({b_by}), {b_ms / ms:.1%} of it; {smi}")
+    k5_ms, _, dev5, ev5 = in_turns(torch, lambda: da.decode_attention(q, kc, vc, kpos, t=ts),
+                                   sdpa)
     k5_plain = time_ms(torch, lambda: da.decode_attention_plain(q, kc, vc, kpos, t=ts))
     # K5 reads every slot's position (no page table), and the K/V rows of
     # the valid ones
     k5_bound, _ = bound(nbytes - 4 * pt.numel() + 4 * kpos.numel(), flops)
-    log(f"[time] for scale only: SDPA over the same K/V laid out contiguously (B, S) = "
-        f"({B}, {n_max * ps}), masked: {sdpa_ms:.4f} ms; K5's per-row form on that layout: "
-        f"{k5_ms:.4f} ms, its plain version {k5_plain:.4f} ms, its bound "
-        f"{k5_bound * 1e3:.2f} us")
+    log(f"[time] K5's per-row form on that layout, (B, S) = ({B}, {n_max * ps}): "
+        f"{turns_text('K5', 'SDPA', dev5, ev5)}; its plain version {k5_plain:.4f} ms; bound "
+        f"{k5_bound * 1e3:.2f} us, {k5_bound / k5_ms:.1%} of it; {smi}")
     return rows
 
 
@@ -1415,11 +1537,12 @@ def phase_rmsnorm_sweep(torch, build, rn, ops, flags):
     require(counts == {False: 0, True: 1}, f"ops.rmsnorm dispatch counted {counts}")
 
 
-def _time_rmsnorm(torch, rn, gen, check):
+def _time_rmsnorm(torch, rn, gen, check, smi):
     """K7 at granite's training activations, x (8192, 2048) bf16, scale f32:
-    held against its plain version in both dtypes, timed in bf16 beside its
-    plain version and ``torch.nn.functional.rms_norm`` (with the scale cast
-    to bf16, the dtype its fused kernel needs; timed only here)."""
+    held against its plain version in both dtypes, timed in bf16 in device
+    time, in turns with ``torch.nn.functional.rms_norm`` (with the scale cast
+    to bf16, the dtype its fused kernel needs; timed only here), the
+    CUDA-event times beside; its plain version in CUDA events."""
     import warnings
     F = torch.nn.functional
     rows, d = 8192, 2048
@@ -1435,16 +1558,17 @@ def _time_rmsnorm(torch, rn, gen, check):
     t_ops = 4 * x.numel() / H100_F32_FLOP_PER_S * 1e3  # square, add, two multiplies (f32)
     b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     sb = scale.to(x.dtype)
+    ms, lib_ms, dev, ev = in_turns(torch, lambda: rn.rmsnorm(x, scale),
+                                   lambda: F.rms_norm(x, (d,), weight=sb, eps=1e-6), n=20)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")                # mixed dtypes: the unfused path
-        mixed = time_ms(torch, lambda: F.rms_norm(x, (d,), weight=scale, eps=1e-6))
-    row = dict(max_abs_err=err, ms=time_ms(torch, lambda: rn.rmsnorm(x, scale), iters=200),
-               plain_ms=time_ms(torch, lambda: rn.rmsnorm_plain(x, scale)),
-               library_ms=time_ms(torch, lambda: F.rms_norm(x, (d,), weight=sb, eps=1e-6),
-                                  iters=200),
-               bound_ms=b_ms, bound_by=b_by, shape="x (8192,2048) bf16, scale (2048,) f32")
-    log(f"[time] for scale only: F.rms_norm with the f32 scale as it is (mixed dtypes, "
-        f"unfused): {mixed:.4f} ms")
+        mixed = device_ms(torch, lambda: F.rms_norm(x, (d,), weight=scale, eps=1e-6))
+    row = dict(max_abs_err=err, ms=ms, plain_ms=time_ms(torch, lambda: rn.rmsnorm_plain(x, scale)),
+               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+               shape="x (8192,2048) bf16, scale (2048,) f32")
+    log(f"[time] K7 at {row['shape']}: {turns_text('K7', 'F.rms_norm', dev, ev)}; bound "
+        f"{b_ms * 1e3:.2f} us ({b_by}), {b_ms / ms:.1%} of it; for scale only, F.rms_norm "
+        f"with the f32 scale as it is (mixed dtypes, unfused): device time {mixed:.4f} ms; {smi}")
     return {"rmsnorm": row}
 
 
@@ -1807,7 +1931,7 @@ def main() -> int:
     from repro_torch.launch import train as launch_train
     from repro_torch.runtime import flags, train_loop
     from repro_torch.runtime.chaos import FaultPlan
-    from repro_torch.runtime.fleet import FleetController
+    from repro_torch.runtime.fleet import FleetConfig, FleetController
     from repro_torch.runtime.resilience import ResilienceConfig
     from repro_torch.session import InferenceSession, TrainSession, infer
     from repro_torch.session.tracker import InMemoryTracker
@@ -1840,8 +1964,12 @@ def main() -> int:
     cli_launches = phase_train_cli(torch, build, store, train_loop, launch_train, infer,
                                    TrainSession, InMemoryTracker, stepfn, ParallelismConfig,
                                    DataConfig, smi)
+    # the replica_loss_replan drill's fleet keeps its loss arm and loses the
+    # wall-time straggler arm (a step over 2x the fleet median, 3 in a row),
+    # as the CPU tests' fleets do: the chaos-driven loss at step 7 decides
+    fleet = functools.partial(FleetController, cfg=FleetConfig(straggler_factor=float("inf")))
     drill_args = (torch, get_config, TrainSession, stepfn, ParallelismConfig, DataConfig,
-                  ResilienceConfig, FaultPlan, RetryPolicy, FleetController)
+                  ResilienceConfig, FaultPlan, RetryPolicy, fleet)
     phase_drills(*drill_args, smi)
     phase_drills_f32_identity(*drill_args)
     timing = phase_timing(torch, fa, da, rn, smi)

@@ -17,16 +17,21 @@ position ``ts[b]`` per row.  Any page size launches the kernel (the
 reference fell back to its oracle unless the page size divided 128).
 
 Bound on the H100: the bytes of K and V read, ``2·Hkv·D·bytes`` per key the
-query can see.  One block per (KV head, batch row) loads each K/V row once
-for all ``g`` query heads of its group; see the sources for the design.  Any
-cache length launches K5 (the reference fell back to its oracle unless S
-divided 128).
+query can see.  Both kernels split the keys across blocks (flash-decoding):
+:func:`split_plan` picks the split length on the host from ``B``, ``Hkv``
+and ``S`` alone, so that (split, KV head, batch row) blocks fill the card's
+SMs, and a ring and a pool of the same length split at the same keys.  Each
+block loads each K/V row once for all ``g`` query heads of its group and
+writes its split's partial softmax state to an f32 workspace, which a second
+kernel combines in split order; see the sources for the design.  Any cache
+length launches K5 (the reference fell back to its oracle unless S divided
+128).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -35,15 +40,43 @@ from repro_torch.kernels import build, ref
 NEG_INF = -1e30
 MAX_GROUP = 8                      # query heads per KV head the kernel takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+CHUNK = 32                         # keys a warp takes at a time: splits are whole chunks
+SMS = 132                          # streaming multiprocessors of an H100 SXM
+BLOCKS_PER_SM = 6                  # split blocks the plan aims for on each
+
+
+def split_plan(B: int, Hkv: int, S: int) -> Tuple[int, int]:
+    """The decode kernels' split of the keys ``[0, S)``: (split_len,
+    n_splits), split ``s`` holding ``[s·split_len, (s+1)·split_len)``.
+    split_len is a multiple of ``CHUNK``, chosen so that
+    ``n_splits·B·Hkv`` blocks come near ``BLOCKS_PER_SM·SMS`` without passing
+    it (one wave) and without a split of fewer than ``CHUNK`` keys.  A
+    function of ``B``, ``Hkv`` and ``S`` only (no device value, so a decode
+    step stays free of host syncs), so K5 over a ring of S slots and K6 over
+    a pool table of ``n_max·ps = S`` keys split at the same absolute keys and
+    sum in the same order."""
+    if B <= 0 or Hkv <= 0 or S <= 0:
+        raise ValueError(f"split_plan: B, Hkv and S must be positive; got {B}, {Hkv}, {S}")
+    chunks = -(-S // CHUNK)
+    want = min(chunks, max(1, BLOCKS_PER_SM * SMS // (B * Hkv)))
+    split_len = CHUNK * -(-chunks // want)
+    return split_len, -(-S // split_len)
 
 
 def _entry(lib: str, fn: str):
     f = getattr(build.load(lib), fn)
     if f.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [P] * 6 + [I] * 8 + [ctypes.c_float, P]
+        f.argtypes = [P] * 7 + [I] * 10 + [ctypes.c_float, P]
         f.restype = I
     return f
+
+
+def _workspace(q: torch.Tensor, n_splits: int) -> torch.Tensor:
+    """The splits' partial (m, l) and acc in f32: B·Hq·n_splits·(D + 2)
+    floats from torch's allocator, on the current stream."""
+    B, _, Hq, D = q.shape
+    return torch.empty(B * Hq * n_splits * (D + 2), dtype=torch.float32, device=q.device)
 
 
 def _check_common(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -102,12 +135,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention: empty cache (S = 0)")
     if window is not None and window <= 0:
         raise ValueError(f"decode_attention: window must be positive, got {window}")
+    split_len, n_splits = split_plan(B, Hkv, S)
     o = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=q.device)
+    ws = _workspace(q, n_splits)
     rc = _entry("decode_attention", "repro_decode_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
-        t.data_ptr() if per_row else None, o.data_ptr(),
+        t.data_ptr() if per_row else None, o.data_ptr(), ws.data_ptr(),
         _DTYPE_CODE[q.dtype], B, S, Hq, Hkv, D, 0 if per_row else int(t), window or 0,
-        D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+        split_len, n_splits, D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "decode_attention")
     build.launch_counts["decode_attention"] += 1
     return o
@@ -162,11 +197,14 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
                          f"{ps}) or table width {n_max}")
     if window is not None and window <= 0:
         raise ValueError(f"paged_decode_attention: window must be positive, got {window}")
+    split_len, n_splits = split_plan(B, Hkv, n_max * ps)
     o = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=q.device)
+    ws = _workspace(q, n_splits)
     rc = _entry("paged_decode_attention", "repro_paged_decode_attention")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
-        ts.data_ptr(), o.data_ptr(), _DTYPE_CODE[q.dtype], B, n_max, ps, Hq, Hkv, D,
-        window or 0, D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+        ts.data_ptr(), o.data_ptr(), ws.data_ptr(), _DTYPE_CODE[q.dtype], B, n_max, ps, Hq,
+        Hkv, D, window or 0, split_len, n_splits, D ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "paged_decode_attention")
     build.launch_counts["paged_decode_attention"] += 1
     return o

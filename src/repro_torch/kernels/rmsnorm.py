@@ -9,8 +9,11 @@ the ``fused_rmsnorm`` flag on: the models' own norms (``models.layers``)
 compute inline.
 
 Bound on the H100: the bytes, x read and y written once, against 3.35
-TB/s.  One warp per row (any row count, any ``d``), 16-byte vectors where
-``d`` and the alignment allow; see the source for the design.
+TB/s.  Each row of x is read once: a warp holds a row of up to 4 KB in
+registers (16-byte vectors, where ``d`` and the alignment allow), a block
+stages a longer or unaligned row in shared memory; the scale is staged once
+per persistent block; any row count, any ``d``.  See the source for the
+design.
 """
 
 from __future__ import annotations

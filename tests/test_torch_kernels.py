@@ -20,7 +20,12 @@ attention config's head dim, and the wrappers refuse any other D.
 The CUDA kernels themselves run only on the card (``chip_smoke.py``); here
 their wrappers must refuse CPU tensors (and bf16 inputs that TMA cannot
 read) and the dispatch must take the plain versions without counting a
-launch; the flash backward's sources must use no atomics.
+launch; the flash backward's and the decode kernels' sources must use no
+atomics.  The decode wrappers' split of the keys (``split_plan``) is a pure
+function of B, Hkv and S: it covers the keys in whole 32-key chunks, fills
+the SMs at the slice's shapes, and splits a ring and a pool of one length at
+the same keys; the split-then-combine arithmetic equals the plain version
+where whole splits are empty.
 """
 
 import functools
@@ -187,6 +192,143 @@ def test_dispatch_takes_plain_versions_on_cpu_without_counting():
     dec = ops.decode_attention(q[:, :1], k, v, kpos, t=63)
     close(dec, da.decode_attention_plain(q[:, :1], k, v, kpos, t=63).numpy(), 0)
     ops.flash_attention(q, k, v, causal=False, window=16)
+    assert sum(build.launch_counts.values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# K5/K6: the split of the keys across blocks (flash-decoding), on the host
+# ---------------------------------------------------------------------------
+
+# (B, Hkv, S): the slice's decode shapes (generate, the stream's 496-slot
+# rings and 31-page tables of 16, a 4096-token cache) and edges
+_PLAN_SHAPES = [(4, 8, 532), (8, 8, 496), (1, 8, 4096), (1, 8, 4100), (4, 8, 4096),
+                (2, 2, 532), (2, 2, 544), (1, 1, 1), (1, 8, 31), (3, 5, 33), (64, 8, 100_000),
+                (512, 8, 2048), (1, 32, 131_072)]
+
+
+@pytest.mark.parametrize("B,Hkv,S", _PLAN_SHAPES)
+def test_split_plan_covers_the_keys_in_whole_chunks(B, Hkv, S):
+    split_len, n = da.split_plan(B, Hkv, S)
+    assert split_len > 0 and split_len % da.CHUNK == 0
+    assert (n - 1) * split_len < S <= n * split_len    # covers [0, S), no split past its end
+    assert 1 <= n <= -(-S // da.CHUNK)                 # never more splits than 32-key chunks
+    assert da.split_plan(B, Hkv, S) == (split_len, n)  # a function of B, Hkv and S alone
+
+
+@pytest.mark.parametrize("B,Hkv,S", [(4, 8, 532), (8, 8, 496), (1, 8, 4096), (1, 8, 4100)])
+def test_split_plan_fills_the_sms_at_the_slice_shapes(B, Hkv, S):
+    _, n = da.split_plan(B, Hkv, S)
+    assert da.SMS <= n * B * Hkv <= 2 * da.BLOCKS_PER_SM * da.SMS
+
+
+class _Launch:
+    """Stands in for a decode kernel's C entry: records its arguments."""
+
+    def __init__(self):
+        self.args = []
+
+    def __call__(self, *args):
+        self.args.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("ps,n_max", [(16, 256), (64, 64), (128, 32), (16, 31)])
+def test_ring_and_pool_of_one_length_split_at_the_same_keys(monkeypatch, ps, n_max):
+    """K5 over a ring of S slots and K6 over a table of n_max pages of ps
+    (n_max·ps = S) hand their kernels the same split plan, and a workspace
+    of B·Hq·n_splits·(D + 2) floats: so the two sum in the same order."""
+    B, Hq, Hkv, D, S = 1, 32, 8, 64, n_max * ps
+    entry = _Launch()
+    monkeypatch.setattr(da, "_entry", lambda lib, fn: entry)
+    monkeypatch.setattr(da, "_check_common", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("Stream", (), {"cuda_stream": 0})())
+    sizes = []
+    workspace = da._workspace
+    monkeypatch.setattr(da, "_workspace", lambda q, n: sizes.append(n) or workspace(q, n))
+    q = torch.zeros((B, 1, Hq, D))
+    k = torch.zeros((B, S, Hkv, D))
+    pool = torch.zeros((1 + n_max, ps, Hkv, D))
+    table = torch.arange(1, n_max + 1, dtype=torch.int32)[None]
+    ts = torch.tensor([S - 1], dtype=torch.int32)
+    build.launch_counts.clear()
+    da.decode_attention(q, k, k, torch.zeros((B, S), dtype=torch.int32), t=ts)
+    da.paged_decode_attention(q, pool, pool, table, ts=ts)
+    build.launch_counts.clear()
+    (ring_args, pool_args), plan = entry.args, da.split_plan(B, Hkv, S)
+    assert ring_args[-4:-2] == pool_args[-4:-2] == plan       # (split_len, n_splits)
+    assert sizes == [plan[1], plan[1]]
+
+
+def _split_then_combine(q, k, v, valid, split_len):
+    """The decode kernels' arithmetic, in plain PyTorch: each split's
+    (m, l, acc) over its valid keys, (-1e30, 0) where it has none; then the
+    splits combined in order, skipping those with l = 0."""
+    B, _, Hq, D = q.shape
+    Hkv = k.shape[2]
+    s = torch.einsum("bhgd,bkhd->bhgk", q.reshape(B, Hkv, Hq // Hkv, D) * D ** -0.5, k)
+    s = torch.where(valid[:, None, None, :], s, da.NEG_INF)
+    M = torch.full(s.shape[:3], da.NEG_INF)
+    parts = []
+    for s0 in range(0, k.shape[1], split_len):
+        ss, vs = s[..., s0:s0 + split_len], valid[:, None, None, s0:s0 + split_len]
+        m = ss.amax(-1)
+        p = torch.exp(ss - m[..., None]) * vs
+        l = p.sum(-1)
+        m = torch.where(l > 0, m, da.NEG_INF)
+        parts.append((m, l, torch.einsum("bhgk,bkhd->bhgd", p, v[:, s0:s0 + split_len])))
+        M = torch.maximum(M, m)
+    L, O = torch.zeros_like(M), torch.zeros(M.shape + (D,))
+    for m, l, acc in parts:
+        sc = torch.where(l > 0, torch.exp(m - M), 0.0)
+        L, O = L + l * sc, O + acc * sc[..., None]
+    return (O / L.clamp_min(1e-30)[..., None]).reshape(B, 1, Hq, D)
+
+
+@pytest.mark.parametrize("case", [dict(fill=4095), dict(fill=300), dict(fill=0),
+                                  dict(t_wrap=9000), dict(fill=4095, window=1000)])
+def test_split_decode_equals_plain_version_with_empty_splits(case):
+    """The split-then-combine arithmetic over ``split_plan``'s splits gives
+    K5's plain version, where whole splits are empty (a ring not full, a
+    window), and O = 0 for a row whose keys are all invalid."""
+    B, S, Hq, Hkv, D = 2, 4096, 8, 2, 16
+    case = dict(case)
+    window = case.pop("window", None)
+    (q, k, v), _ = _pair(_qkv(B, 1, S, Hq, Hkv, D, seed=9), "float32")
+    kpos, t = _ring(B, S, **case)
+    kpos[1] = -1                                      # row 1: no valid key
+    kpos = torch.from_numpy(kpos)
+    valid = (kpos >= 0) & (kpos <= t)
+    if window is not None:
+        valid &= kpos > t - window
+    split_len, n = da.split_plan(B, Hkv, S)
+    assert n > 1
+    got = _split_then_combine(q, k, v, valid, split_len)
+    want = da.decode_attention_plain(q, k, v, kpos, t=t, window=window)
+    close(got, want.numpy(), 2e-5)
+    assert float(got[1].abs().max()) == 0.0
+
+
+def test_decode_dispatch_on_cpu_takes_plain_versions_and_counts_no_launch():
+    """The decode wrappers now take a split plan and a workspace; on CPU
+    tensors ``ops`` still takes the plain versions and counts nothing, and
+    the kernel wrappers refuse the CPU tensors before planning."""
+    B, S, Hq, Hkv, D, ps = 2, 96, 8, 2, 16, 16
+    (q, k, v), _ = _pair(_qkv(B, 1, S, Hq, Hkv, D, seed=4), "float32")
+    kpos, t = _ring(B, S, fill=70)
+    kpos = torch.from_numpy(kpos)
+    ts = torch.tensor([70, 40], dtype=torch.int32)
+    pool = k.reshape(B * S // ps, ps, Hkv, D)
+    table = torch.arange(B * S // ps, dtype=torch.int32).reshape(B, S // ps)
+    build.launch_counts.clear()
+    close(ops.decode_attention(q, k, v, kpos, t=t, window=32),
+          da.decode_attention_plain(q, k, v, kpos, t=t, window=32).numpy(), 0)
+    close(ops.paged_decode_attention(q, pool, pool, table, ts=ts),
+          da.paged_decode_attention_plain(q, pool, pool, table, ts=ts).numpy(), 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        da.decode_attention(q, k, v, kpos, t=ts)
+    with pytest.raises(ValueError, match="CUDA"):
+        da.paged_decode_attention(q, pool, pool, table, ts=ts)
     assert sum(build.launch_counts.values()) == 0
 
 
@@ -485,6 +627,25 @@ _BWD_SOURCES = ("flash_bwd.cu", "common.cuh", "hopper.cuh")
 def _code(name):
     """A CUDA source of ``csrc/`` without its ``//`` comments."""
     return "\n".join(ln.split("//")[0] for ln in (build.CSRC / name).read_text().splitlines())
+
+
+# the decode kernels' sources (K5, K6 and their shared body) and the
+# headers of csrc/ they include
+_DECODE_SOURCES = ("decode_attention.cu", "paged_decode_attention.cu", "decode_attention.cuh",
+                   "common.cuh")
+
+
+@pytest.mark.parametrize("source", _DECODE_SOURCES)
+def test_decode_sources_use_no_atomics(source):
+    """K5 and K6 combine their splits in one fixed order in a second kernel,
+    so equal inputs give equal bits and K6 over a pool equals K5 over the
+    same K/V bit for bit.  No source of the decode libraries may use an
+    atomic."""
+    includes = set()
+    for name in _DECODE_SOURCES:
+        includes |= set(re.findall(r'#include "([^"]+)"', _code(name)))
+    assert includes <= set(_DECODE_SOURCES)
+    assert not _ATOMIC.findall(_code(source)), source
 
 
 @pytest.mark.parametrize("source", _BWD_SOURCES)

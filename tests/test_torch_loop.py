@@ -51,6 +51,7 @@ from repro_torch.core.systems import H100_SXM, System
 from repro_torch.core.tree import tree_leaves
 from repro_torch.data import DataConfig
 from repro_torch.launch import train as launch_train
+from repro_torch.runtime import fleet as fleet_module
 from repro_torch.runtime.chaos import ChaosError, FaultPlan
 from repro_torch.runtime.fleet import FleetConfig, FleetController
 from repro_torch.runtime.resilience import ResilienceConfig
@@ -485,7 +486,18 @@ def test_cli_crash_then_resume_on_cpu(tmp_path):
     assert "[train] done in" in text and store.list_steps(tmp_path) == [4, 8]
 
 
-def test_cli_chaos_flags_drive_skip_consensus_and_replan(tmp_path):
+def test_cli_chaos_flags_drive_skip_consensus_and_replan(tmp_path, monkeypatch):
+    # the fleet the CLI builds re-plans on measured wall time too (a step over
+    # 2x the fleet median, 3 in a row), which a loaded machine can trigger:
+    # its straggler arm is switched off, as in the replica_loss_replan
+    # scenario, so the chaos-driven loss at step 5 makes the one re-plan
+    fleets = []
+
+    def fleet(n_replicas):
+        fleets.append(FleetController(n_replicas, FleetConfig(straggler_factor=float("inf"))))
+        return fleets[-1]
+
+    monkeypatch.setattr(fleet_module, "FleetController", fleet)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         out = launch_train.main(CLI + ["--ckpt-dir", str(tmp_path), "--device", "cpu",
@@ -495,6 +507,8 @@ def test_cli_chaos_flags_drive_skip_consensus_and_replan(tmp_path):
     text = buf.getvalue()
     kinds = [e.kind for e in out["events"] if e.kind != "straggler"]
     assert kinds == ["replica_lost", "replan"] and out["plan"].dp == 1
+    assert len(fleets) == 1 and [(d.kind, d.step) for d in fleets[0].decisions] == [
+        ("replica_lost", 5)]
     assert "[fleet] step 5: replica_lost (replica 1)" in text and "re-plan(s)" in text
     assert out["skipped_steps"] == 0           # the divergent replica was masked
 
