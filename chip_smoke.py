@@ -18,9 +18,12 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    dtypes;
    then K2, K3 and K4 (flash backward: delta, dQ, dK and dV) the same way,
    over the edges of their tiles (lengths 200/500/1024, windows of 64 and
-   16, MHA and GQA 4/1, 8/2, 32/8), and two launches of K3 and of K4 on
-   equal inputs must give equal bits; and the autograd ``FlashAttention``
-   against autograd through K1's plain version;
+   16, MHA and GQA 4/1, 8/2, 32/8), and two launches of K2, of K3 and of K4
+   on equal inputs must give equal bits; K2 alone over a ragged length (1000)
+   at head dims 64, 96, 120 and 128, one position, 40 heads, h2o's training
+   shape, a long prompt and strided inputs, each launched twice for equal
+   bits; and the autograd ``FlashAttention`` against autograd through K1's
+   plain version;
 4. holds K5 (decode attention) against its plain version the same way, and
    over long caches that span many of its splits (4096 and 4100 slots at
    B 1 and 4; full, wrapped, and not full so that whole splits are empty;
@@ -65,7 +68,11 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    remat), K2, K3 and K4 once.  Losses must be finite and no step skipped;
    the last step is profiled; one batch is evaluated, and its per-token
    losses with the kernels and with the plain versions are held to 2x
-   bf16's own error, as the logits are in 5;
+   bf16's own error, as the logits are in 5; then ``EvalSession``
+   ``from_train_session`` (the weights shared, not copied) sweeps
+   ``perplexity`` over 2 batches, one with its ``loss_mask``, with the
+   kernels and with the plain versions, held to that rule (K1 once per
+   layer per batch, no K2-K4);
 10. checks that, in f32 at full width (2 layers), 3 training steps with the
    kernels and with the plain versions give the same losses (1e-5 relative)
    and params (1e-4);
@@ -97,13 +104,31 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    4096-token cache, K7 at the training activations; f32 and bf16), then
    times it there beside its plain version and one PyTorch library call
    (``scaled_dot_product_attention``: its forward for K1, its backward
-   alone for K3 and K4, masked for K5; ``rms_norm`` for K7; none for K2
-   and K6, for which SDPA on the K/V laid out contiguously is timed for
-   scale; timed only here) in turns: kernel, library, library, kernel, in
-   device time with the calls queued behind a spinning kernel, which the
-   rows keep, and in CUDA events as the host issues the calls, printed
-   beside (K2-K4 also at head dims 128 and 120); and its bound;
-15. prints a ``{"kernels": [...]}`` line and, last,
+   alone for K3 and K4, masked for K5; ``rms_norm`` for K7;
+   ``linalg.vecdot`` for K2; none for K6, for which SDPA on the K/V laid
+   out contiguously is timed for scale; timed only here) in turns: kernel,
+   library, library, kernel, in device time with the calls queued behind a
+   spinning kernel, which the rows keep, and in CUDA events as the host
+   issues the calls, printed beside (K2-K4 also at head dims 128 and 120,
+   K2 with the share of its bound); and its bound;
+15. (run before 14) the rest of the dense arm at published width, bf16
+   (``DENSE``): phi3-mini-3.8b (32 layers, D 96, MHA), h2o-danube-3-4b (24
+   layers, D 120, GQA 32/8, prompts of 4,200 past its 4096-token window)
+   and qwen1.5-32b (cut to 8 of 64 layers, D 128, 40 MHA heads, QKV bias),
+   each through ``InferenceSession.prefill`` (every position's logits, held
+   to phase 5's rule; the last position alone, (B, 1, V)) and greedy
+   ``generate``, launches exact (K1 once per layer per prefill, K5 once
+   per layer per decode step);
+16. (run before 14) h2o-danube-3-4b at full depth serves 4 requests of
+   4,100-4,300 tokens on both scheduler arms (K5 / K6 launches exact, the
+   arms' tokens compared as in 7);
+17. (run before 14) trains h2o-danube-3-4b at full width, 4 of 24 layers,
+   batch 2 x 4608 in 2 micro-batches (the window binds in K1-K4 at D 120),
+   as 9 trains granite (launches exact, per-token losses held to 2x bf16's
+   own error);
+18. (run before 14) the f32 identities of 6 and 10 for phi3 and h2o at 2
+   layers and qwen1.5 at 1 layer, full width;
+19. prints each phase's seconds, a ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  It also exits non-zero
@@ -150,6 +175,26 @@ STREAM = dict(arch="granite_3_2b", requests=16, system=256, suffix=(16, 112), sl
               page_size=16)
 STREAM_GENS = (128, 16, 16, 32)
 TRAIN = dict(arch="granite_3_2b", seq_len=1024, global_batch=8, gas=2, steps=4)
+# the rest of the dense arm, bf16, at published width, random weights:
+# prefill logits at every position (kernels vs plain versions), then greedy
+# generate.  phi3 and h2o at full depth; qwen1.5 cut to 8 of its 64 layers
+# (~5.8 B parameters: init_params builds f32 before the cast, and all 64
+# would take ~140 GB).  h2o's prompts pass its 4096-token window, so the
+# window binds in K1 and K5's ring wraps
+DENSE = (dict(arch="phi3_mini_38b", batch=2, prompt_len=512, new_tokens=16),
+         dict(arch="h2o_danube_3_4b", batch=2, prompt_len=4200, new_tokens=16),
+         dict(arch="qwen15_32b", n_layers=8, batch=2, prompt_len=512, new_tokens=16))
+# h2o's long-prompt stream on both scheduler arms: 4 requests of 4,100-4,300
+# tokens (K6 with the window binding), 4 slots, pages of 16
+H2O_STREAM = dict(arch="h2o_danube_3_4b", prompt_lens=(4100, 4300, 4166, 4233),
+                  gens=(16, 8, 12, 8), slots=4, page_size=16)
+# h2o trained at full width, 4 of its 24 layers (~0.87 B parameters), 2 x
+# 4608 tokens in 2 micro-batches: the window binds in K1-K4 at D 120
+TRAIN_H2O = dict(arch="h2o_danube_3_4b", n_layers=4, seq_len=4608, global_batch=2, gas=2,
+                 steps=3)
+# the f32 identities of phases 6 and 10 for the later dense configs at full
+# width: (arch, layers)
+F32_DENSE = (("phi3_mini_38b", 2), ("h2o_danube_3_4b", 2), ("qwen15_32b", 1))
 # K7: tolerances (the reference's kernel test's) and the sweep's shapes
 RMS_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 RMS_SHAPES = ((8, 128), (3, 7, 256), (64, 512), (1, 2048), (131, 2048), (131, 2047),
@@ -188,6 +233,11 @@ def close(got, want, tol):
     d = (got.detach().float() - want.detach().float()).abs()
     ok = bool((d <= tol + tol * want.float().abs()).all())
     return float(d.max()), ok
+
+
+def rule(tol) -> str:
+    """The rule ``close`` applies, as the logs state it."""
+    return f"tol {tol:g} abs + {tol:g} rel"
 
 
 KERNEL_NAMES = (("flash_fwd", "fa"), ("flash_delta", "fa"), ("flash_dq", "fa"),
@@ -428,7 +478,7 @@ def phase_flash_sweep(torch, fa):
                                             f"O err {eo:.3g}, lse err {el:.3g}")
     for name, (eo, el) in worst.items():
         log(f"[K1 sweep] {name}: max |O - plain| {eo:.3g}, max |lse - plain| {el:.3g} "
-            f"(tol {TOL[name]})")
+            f"({rule(TOL[name])})")
     require(not failures, f"K1 disagrees with its plain version in {len(failures)} of "
             f"{n} cases:\n  " + "\n  ".join(failures[:20]))
     log(f"[K1 sweep] {n} cases agree")
@@ -472,7 +522,7 @@ def phase_flash_bwd_sweep(torch, fa):
             delta_ref = fa.flash_delta_plain(o, do)
             got = (delta, fa.flash_dq(q, k, v, do, lse, delta_ref, **kw),
                    *fa.flash_dkv(q, k, v, do, lse, delta_ref, **kw))
-            again = (fa.flash_dq(q, k, v, do, lse, delta_ref, **kw),
+            again = (fa.flash_delta(o, do), fa.flash_dq(q, k, v, do, lse, delta_ref, **kw),
                      *fa.flash_dkv(q, k, v, do, lse, delta_ref, **kw))
             want = (delta_ref, fa.flash_dq_plain(q, k, v, do, lse, delta_ref, **kw),
                     *fa.flash_dkv_plain(q, k, v, do, lse, delta_ref, **kw))
@@ -488,17 +538,19 @@ def phase_flash_bwd_sweep(torch, fa):
             if not all(ok for _, ok in errs):
                 failures.append(f"{case}: errors delta/dQ/dK/dV "
                                 + " ".join(f"{e:.3g}" for e, _ in errs))
-            if not all(torch.equal(a, b) for a, b in zip(got[1:], again)):
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 unequal.append(case)
     for name, w in worst.items():
         log(f"[K2-K4 sweep] {name}: max |kernel - plain| delta {w[0]:.3g}, dQ {w[1]:.3g}, "
-            f"dK {w[2]:.3g}, dV {w[3]:.3g} (tol {TOL[name]})")
+            f"dK {w[2]:.3g}, dV {w[3]:.3g} ({rule(TOL[name])})")
     require(not failures, f"K2-K4 disagree with their plain versions in {len(failures)} of "
             f"{n} cases:\n  " + "\n  ".join(failures[:20]))
     log(f"[K2-K4 sweep] {n} cases agree")
-    require(not unequal, f"two launches of K3/K4 on equal inputs gave different bits in "
+    require(not unequal, f"two launches of K2/K3/K4 on equal inputs gave different bits in "
             f"{len(unequal)} of {n} cases:\n  " + "\n  ".join(unequal[:20]))
-    log(f"[K2-K4 sweep] K3 and K4 launched twice on equal inputs: equal bits in all {n} cases")
+    log(f"[K2-K4 sweep] K2, K3 and K4 launched twice on equal inputs: equal bits in all {n} "
+        f"cases")
+    phase_delta_sweep(torch, fa, gen)
 
     # the autograd Function (K1 forward, K2 -> K3 -> K4 backward) against
     # autograd through K1's plain version, f32, at the training slice's shape
@@ -516,8 +568,49 @@ def phase_flash_bwd_sweep(torch, fa):
         for name, a, b in zip(("dQ", "dK", "dV"), got, want):
             err, ok = close(a, b, TOL["float32"])
             log(f"[Function] {mask}, f32, (B, S, Hq, Hkv, D) = {(B, S, Hq, Hkv, D)}: "
-                f"{name} max |Function - autograd of plain| {err:.3g} (tol {TOL['float32']})")
+                f"{name} max |Function - autograd of plain| {err:.3g} ({rule(TOL['float32'])})")
             require(ok, f"FlashAttention's {name} disagrees with autograd ({mask})")
+
+
+def phase_delta_sweep(torch, fa, gen):
+    """K2 alone over what its runs (``fa.delta_split``: equal runs of
+    positions across all heads, crossing batch rows, taken in chunks of 32)
+    and its 16-byte vectors meet: a length of 1000 (ragged to every run and
+    chunk) at head dims 64, 96, 120 and 128, one position at qwen's 40
+    heads, h2o's training attention (2, 4608, 32, 120: runs of 18), a long
+    prompt (1, 4200, 40, 128) and O and dO strided (heads and positions
+    padded), in both dtypes; each case launched twice, which must give equal
+    bits."""
+    cases = [(4, 1000, 32, D) for D in (64, 96, 120, 128)]
+    cases += [(1, 1, 40, 128), (3, 77, 5, 16), (2, 4608, 32, 120), (1, 4200, 40, 128)]
+    worst, failures, n = {dt: 0.0 for dt in TOL}, [], 0
+    for i, (B, Sq, Hq, D) in enumerate(cases + [(2, 300, 8, 64), (2, 1000, 32, 120)]):
+        for dtype in (torch.bfloat16, torch.float32):
+            if i < len(cases):
+                o, do = (torch.randn((B, Sq, Hq, D), generator=gen, device="cuda").to(dtype)
+                         for _ in range(2))
+                how = "contiguous"
+            else:                              # heads and positions padded, offsets aligned
+                big = torch.randn((2, B, Sq + 8, Hq + 2, D), generator=gen,
+                                  device="cuda").to(dtype)
+                o, do = big[0, :, 8:, 1:Hq + 1], big[1, :, :Sq, 2:]
+                how = "strided"
+            got, again = fa.flash_delta(o, do), fa.flash_delta(o, do)
+            want = fa.flash_delta_plain(o, do)
+            torch.cuda.synchronize()
+            name = str(dtype).split(".")[-1]
+            err, ok = close(got, want, TOL[name])
+            worst[name] = max(worst[name], err)
+            n += 1
+            if not ok or not torch.equal(got, again):
+                failures.append(f"(B, Sq, Hq, D) = {(B, Sq, Hq, D)} {how} {name}, runs of "
+                                f"{fa.delta_split(B, Sq, Hq)}: err {err:.3g}, equal bits on two "
+                                f"launches {torch.equal(got, again)}")
+    log("[K2 sweep] ragged and long lengths, 40 heads, strided O and dO: max |delta - plain| "
+        + ", ".join(f"{k} {v:.3g} ({rule(TOL[k])})" for k, v in worst.items()))
+    require(not failures, f"K2 disagrees or repeats unequally in {len(failures)} of {n} "
+            f"cases:\n  " + "\n  ".join(failures))
+    log(f"[K2 sweep] {n} cases agree, each with equal bits on two launches")
 
 
 def _ring(torch, B, S, fill=None, t_wrap=None):
@@ -577,7 +670,7 @@ def phase_decode_sweep(torch, da):
                 failures.append(f"B={B} S={S} Hkv={Hkv} g={g} D={D} {ring} window={window} "
                                 f"{name} (splits {da.split_plan(B, Hkv, S)}): err {err:.3g}")
     for name, err in worst.items():
-        log(f"[K5 sweep] {name}: max |O - plain| {err:.3g} (tol {TOL[name]})")
+        log(f"[K5 sweep] {name}: max |O - plain| {err:.3g} ({rule(TOL[name])})")
     require(not failures, f"K5 disagrees with its plain version in {len(failures)} of "
             f"{n} cases:\n  " + "\n  ".join(failures[:20]))
     log(f"[K5 sweep] {n} cases agree, long caches of 4096 and 4100 slots among them")
@@ -683,7 +776,7 @@ def phase_paged_sweep(torch, da):
                 failures.append(f"{label}: NaN in pages it must not read changed the output")
         c["window"] = window
     for name, err in worst.items():
-        log(f"[K6 sweep] {name}: max |O - plain| and |K6 - K5| {err:.3g} (tol {TOL[name]})")
+        log(f"[K6 sweep] {name}: max |O - plain| and |K6 - K5| {err:.3g} ({rule(TOL[name])})")
     log(f"[K6 sweep] K6 equals K5 on the same K/V laid out contiguously bit for bit in "
         f"every case: {same_as_k5} (f32 max |K6 - K5| {k5_f32:.3g}, tol 1e-5); NaN in the "
         f"trash page, the unmapped pages and the pages before the window changed no output")
@@ -719,7 +812,7 @@ def phase_paged_sweep(torch, da):
                     if not ok:
                         fail5.append(f"g={g} D={D} window={window} {name}: err {err:.3g}")
     for name, err in worst5.items():
-        log(f"[K5 per-row] {name}: max |O - plain| {err:.3g} (tol {TOL[name]})")
+        log(f"[K5 per-row] {name}: max |O - plain| {err:.3g} ({rule(TOL[name])})")
     require(not fail5, f"K5's per-row form disagrees with its plain version in {len(fail5)} "
             f"of {n5} cases:\n  " + "\n  ".join(fail5))
     log(f"[K5 per-row] {n5} cases agree")
@@ -840,16 +933,19 @@ def phase_slice(torch, np, build, fa, da, InferenceSession, tree_map):
     return counts
 
 
-def phase_f32_identity(torch, np, fa, da, get_config, InferenceSession):
-    cfg = dataclasses.replace(get_config(SLICE["arch"]), n_layers=2, dtype="float32")
+def phase_f32_identity(torch, np, fa, da, get_config, InferenceSession, arch=SLICE["arch"],
+                       n_layers=2):
+    """``arch`` at full width, ``n_layers`` layers, f32: greedy tokens with
+    the kernels and with their plain versions must be equal."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype="float32")
     sess = InferenceSession.from_recipe(cfg, seed=1)
     prompts = np.random.RandomState(1).randint(0, cfg.vocab_size, size=(2, 200)).astype(np.int32)
     toks_k = sess.generate(prompts, 16)
     with plain_versions():
         toks_p = sess.generate(prompts, 16)
     same = bool(torch.equal(toks_k, toks_p))
-    log(f"[f32] {cfg.name} at full width, 2 layers, f32: greedy tokens kernel == plain: "
-        f"{same}")
+    log(f"[f32] {cfg.name} at full width, {n_layers} layer(s), f32: greedy tokens kernel == "
+        f"plain: {same}")
     require(same, f"f32 greedy tokens differ:\n{toks_k[:, 200:]}\n{toks_p[:, 200:]}")
     del sess
     torch.cuda.empty_cache()
@@ -1035,33 +1131,212 @@ def phase_stream_f32_identity(torch, np, fa, da, get_config, InferenceSession):
     torch.cuda.empty_cache()
 
 
-def phase_train(torch, build, fa, da, TrainSession, stepfn, ParallelismConfig, DataConfig,
-                smi):
-    """Full-width, full-depth granite-3-2b trains for TRAIN["steps"] steps:
-    bf16 compute, fp32 masters and AdamW, random weights from seed 0.  Every
-    step's launches are counted; the last step is profiled; then one batch
-    is evaluated (``evaluate()``), and its per-token losses are taken with
-    the kernels, with their plain versions, and with the plain versions on
-    an f32 copy of the model (bf16's own error)."""
+def phase_dense(torch, np, build, get_config, InferenceSession, tree_map, smi):
+    """The rest of the dense arm at published width, bf16, random weights
+    from seed 0 (``DENSE``): for each model ``InferenceSession.prefill``
+    (every position's logits) with the kernels, with their plain versions
+    and with the plain versions on an f32 copy, held to phase 5's rule; the
+    last position alone (``last_only``, (B, 1, V)); then a greedy
+    ``generate``.  Launches are counted per run: the prefill K1 once per
+    layer and nothing else; ``generate`` K1 once per layer and K5 once per
+    layer per decode step.  Returns {name: (prefill's, generate's)}."""
+    runs = {}
+    for spec in DENSE:
+        cfg, full = _dense_cfg(get_config, spec)
+        t0 = time.perf_counter()
+        sess = InferenceSession.from_recipe(cfg, seed=0)
+        torch.cuda.synchronize()
+        L, B, P, N = cfg.n_layers, spec["batch"], spec["prompt_len"], spec["new_tokens"]
+        V = cfg.vocab_size
+        log(f"[dense] {_describe(cfg, full)}, {cfg.dtype}; init {time.perf_counter() - t0:.1f} "
+            f"s; batch {B} x {P}, {N} new tokens")
+        prompts = np.random.RandomState(0).randint(0, V, size=(B, P)).astype(np.int32)
+        batch = {"tokens": prompts}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.launch_counts.clear()
+        t0 = time.perf_counter()
+        lk = sess.prefill(batch, last_only=False)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        pre = dict(build.launch_counts)
+        require(pre == {"flash_fwd": L}, f"{cfg.name} prefill launched {pre}, expected K1 {L}")
+        require(tuple(lk.shape) == (B, P, V) and lk.dtype == torch.float32,
+                f"{cfg.name} prefill gave {tuple(lk.shape)} {lk.dtype}")
+        last = sess.prefill(batch)
+        require(tuple(last.shape) == (B, 1, V) and last.dtype == torch.float32,
+                f"{cfg.name} prefill(last_only=True) gave {tuple(last.shape)} {last.dtype}")
+        with plain_versions():
+            lp = sess.prefill(batch, last_only=False)
+            sess32 = InferenceSession(dataclasses.replace(cfg, dtype="float32"),
+                                      tree_map(lambda x: x.float(), sess.params),
+                                      device=sess.device)
+            lf = sess32.prefill(batch, last_only=False)
+            del sess32
+        floor = hold_to_floor("dense", f"{cfg.name} prefill logits (B, S, V) = "
+                              f"{tuple(lk.shape)}", lk, lp, lf)
+        # the same hidden states; the f32 unembed of one row against S rows
+        # differs only in cuBLAS's summation order
+        d_last, ok = close(last, lk[:, -1:], TOL["float32"])
+        log(f"[dense] {cfg.name} prefill(last_only=True) (B, 1, V) = {tuple(last.shape)}: max "
+            f"|last_only - the full prefill's last position| {d_last:.4g} "
+            f"({rule(TOL['float32'])}); bf16 noise floor of the prefill {floor:.4g}")
+        require(ok, f"{cfg.name}: last_only differs from the full prefill by {d_last:.4g}")
+        first = lk[:, -1].argmax(-1).to(torch.int32)
+        del lp, lf, last
+        torch.cuda.empty_cache()
+        build.launch_counts.clear()
+        t0 = time.perf_counter()
+        toks = sess.generate(prompts, N)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        counts = dict(build.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        want = {"flash_fwd": L, "decode_attention": L * (N - 1)}
+        log(f"[dense] {cfg.name}: prefill {pre_s * 1e3:.1f} ms (first call, host clock), "
+            f"launches {pre}; generate {tuple(toks.shape)} in {gen_s:.2f} s (first call), "
+            f"launches {counts}, expected {want}; first generated token = the prefill's "
+            f"argmax in {float((toks[:, P] == first).float().mean()):.2f} of rows (bf16: the "
+            f"cache-filling prefill may round otherwise; reported); peak memory {peak} B "
+            f"({peak / 1e9:.2f} GB); {smi}")
+        require(counts == want, f"{cfg.name} generate launched {counts}, expected {want}")
+        out = toks.cpu().numpy()
+        require(out.shape == (B, P + N) and bool((out[:, :P] == prompts).all())
+                and bool(((out >= 0) & (out < V)).all()),
+                f"{cfg.name} generate returned {out.shape} tokens, altered or out of range")
+        runs[cfg.name] = (pre, counts)
+        del sess, lk, toks
+        torch.cuda.empty_cache()
+    return runs
+
+
+def phase_dense_stream(torch, np, build, InferenceSession, smi):
+    """h2o-danube-3-4b at published width and depth, bf16, serves
+    ``H2O_STREAM`` (prompts past its 4096-token window) through both
+    scheduler arms; launches per arm as phase 7 holds them (contiguous: K5
+    once per layer per decode step, K1 in whole layers, no K6; paged: K6
+    once per layer per decode step, no K1 or K5).  The arms' tokens are
+    compared as phase 7 compares them (reported): besides bf16's near-ties,
+    the contiguous arm keeps a ring of 4096 slots that a bucketed admission
+    prefill fills with pad positions over valid keys, as the reference's
+    contiguous arm does (``tests/test_torch_paged.py``)."""
+    spec = H2O_STREAM
     t0 = time.perf_counter()
-    sess = TrainSession.from_recipe(
-        TRAIN["arch"], seed=0,
-        plan=ParallelismConfig(gas=TRAIN["gas"], remat_policy="full"),
-        train_cfg=stepfn.TrainConfig(total_steps=TRAIN["steps"], warmup=2),
-        data_cfg=DataConfig(seq_len=TRAIN["seq_len"], global_batch=TRAIN["global_batch"]))
+    sess = InferenceSession.from_recipe(spec["arch"], seed=0)
     torch.cuda.synchronize()
-    cfg, L, G = sess.cfg, sess.cfg.n_layers, TRAIN["gas"]
-    log(f"[train] {cfg.name}: {L} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
-        f"{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-        f"{sess.n_params / 1e9:.3f} B params ({cfg.dtype} compute, f32 masters); gas {G}, "
-        f"remat full, batch {TRAIN['global_batch']} x {TRAIN['seq_len']}; init "
+    cfg, L = sess.cfg, sess.cfg.n_layers
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in spec["prompt_lens"]]
+    gens = list(spec["gens"])
+    log(f"[h2o stream] {cfg.name}: {L} layers, window {cfg.swa_window}, prompts "
+        f"{list(spec['prompt_lens'])}, replies {gens}, {spec['slots']} slots, page "
+        f"{spec['page_size']}; init {time.perf_counter() - t0:.1f} s")
+    outs, launches = {}, {}
+    for arm in ("contiguous", "paged"):
+        kw = dict(paged=True, page_size=spec["page_size"]) if arm == "paged" else {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.launch_counts.clear()
+        t0 = time.perf_counter()
+        outs[arm], st = sess.serve(prompts, gens, n_slots=spec["slots"], **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = launches[arm] = dict(build.launch_counts)
+        log(f"[h2o stream] {arm}: {st.requests} requests, {st.generated_tokens} tokens, "
+            f"{st.decode_steps} decode steps in {wall:.2f} s (host clock); prefilled "
+            f"{st.prefill_tokens} of {st.prompt_tokens} prompt tokens; launches {c}; peak "
+            f"memory {torch.cuda.max_memory_allocated()} B; {smi}")
+        require(st.requests == len(prompts) and st.generated_tokens == sum(gens),
+                f"h2o {arm}: served {st.requests} requests, {st.generated_tokens} tokens")
+        for pr, m, o in zip(prompts, gens, outs[arm]):
+            require(len(o) == len(pr) + m and bool((o[:len(pr)] == pr).all())
+                    and bool(((o >= 0) & (o < cfg.vocab_size)).all()),
+                    f"h2o {arm}: a request came back with {len(o)} tokens, altered or out of "
+                    f"range")
+        steps = st.decode_steps
+        if arm == "contiguous":
+            require(c.get("decode_attention", 0) == L * steps and c.get("flash_fwd", 0) > 0
+                    and c["flash_fwd"] % L == 0 and not c.get("paged_decode_attention"),
+                    f"h2o contiguous launches {c}, expected K5 {L} x {steps}, K1 in layers")
+        else:
+            require(c == {"paged_decode_attention": L * steps},
+                    f"h2o paged launches {c}, expected K6 {L} x {steps} only")
+    same, first, run = _agreement(np, prompts, outs["contiguous"], outs["paged"])
+    log(f"[h2o stream] requests whose tokens agree between the arms: {same} of {len(prompts)}; "
+        f"first token {first} of {len(prompts)}; tokens agreeing before the first difference "
+        f"{run} (of {gens}; reported, not required: bf16 near-ties, and the contiguous arm's "
+        f"4096-slot ring under a padded admission prefill, as in the reference)")
+    del sess
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hold_to_floor(tag: str, what: str, kern, plain, plain_f32) -> float:
+    """Phase 5's rule for bf16 outputs of a deep random model: max |kernel -
+    plain| at most ``LOGIT_FLOOR_FACTOR`` times bf16's own error, max |plain
+    - plain on an f32 copy of the same weights|.  Returns that floor."""
+    require(bool(kern.isfinite().all()), f"{what}: non-finite values")
+    diff = float((kern - plain).abs().max())
+    floor = float((plain - plain_f32).abs().max())
+    top1 = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    log(f"[{tag}] {what}: max |kernel - plain| {diff:.4g} ({diff / float(plain.abs().max()):.4g} "
+        f"of max |plain|), top-1 agreement {top1:.4f}; bf16 noise floor max |plain - plain "
+        f"f32| {floor:.4g} (tol: kernel - plain <= {LOGIT_FLOOR_FACTOR} x floor)")
+    require(diff <= LOGIT_FLOOR_FACTOR * floor,
+            f"{what}: kernel and plain differ by {diff:.4g}, more than {LOGIT_FLOOR_FACTOR} x "
+            f"bf16's own error {floor:.4g}")
+    return floor
+
+
+def _dense_cfg(get_config, spec):
+    """(the spec's config, cut in depth where the spec says so; the
+    published depth)."""
+    cfg = get_config(spec["arch"])
+    full = cfg.n_layers
+    if "n_layers" in spec:
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+    return cfg, full
+
+
+def _describe(cfg, full) -> str:
+    cut = (f"CUT to {cfg.n_layers} of its {full} layers" if cfg.n_layers < full
+           else f"{cfg.n_layers} layers (full depth)")
+    return (f"{cfg.name}: {cut}, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+            f"of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, window {cfg.swa_window}, "
+            f"QKV bias {cfg.qkv_bias}, tied head {cfg.tie_embeddings}, "
+            f"{cfg.n_params() / 1e9:.3f} B params")
+
+
+def phase_train(torch, build, get_config, TrainSession, stepfn, ParallelismConfig, DataConfig,
+                smi, spec=TRAIN, tag="train", after=None):
+    """``spec``'s model at full width (and full depth unless ``spec`` cuts
+    it) trains for ``spec["steps"]`` steps: bf16 compute, fp32 masters and
+    AdamW, random weights from seed 0.  Every step's launches are counted
+    (K1 twice per layer per micro-batch, forward and remat; K2, K3 and K4
+    once); the last step is profiled; then one batch is evaluated
+    (``evaluate()``), and its per-token losses are taken with the kernels,
+    with their plain versions, and with the plain versions on an f32 copy
+    of the model (bf16's own error).  ``after(sess, floor)`` runs on the
+    session before it is dropped.  Returns a step's launches."""
+    t0 = time.perf_counter()
+    cfg, full = _dense_cfg(get_config, spec)
+    sess = TrainSession.from_recipe(
+        cfg, seed=0,
+        plan=ParallelismConfig(gas=spec["gas"], remat_policy="full"),
+        train_cfg=stepfn.TrainConfig(total_steps=spec["steps"], warmup=2),
+        data_cfg=DataConfig(seq_len=spec["seq_len"], global_batch=spec["global_batch"]))
+    torch.cuda.synchronize()
+    L, G = cfg.n_layers, spec["gas"]
+    log(f"[{tag}] {_describe(cfg, full)} ({cfg.dtype} compute, f32 masters); gas {G}, "
+        f"remat full, batch {spec['global_batch']} x {spec['seq_len']}; init "
         f"{time.perf_counter() - t0:.1f} s")
     want = {"flash_fwd": 2 * L * G, "flash_delta": L * G, "flash_dq": L * G,
             "flash_dkv": L * G}
     torch.cuda.reset_peak_memory_stats()
     losses, walls, launches, metrics = [], [], None, {}
-    for i in range(TRAIN["steps"]):
-        last = i == TRAIN["steps"] - 1
+    for i in range(spec["steps"]):
+        last = i == spec["steps"] - 1
         sess.batches(i)                        # host data, outside the timed window
         torch.cuda.synchronize()
         build.launch_counts.clear()
@@ -1076,7 +1351,7 @@ def phase_train(torch, build, fa, da, TrainSession, stepfn, ParallelismConfig, D
         launches = counts if launches is None else launches
         loss, skipped = float(metrics["loss"]), float(metrics["skipped"])
         losses.append(loss)
-        log(f"[train] step {i}: loss {loss:.6f}, grad_norm {float(metrics['grad_norm']):.4f}, "
+        log(f"[{tag}] step {i}: loss {loss:.6f}, grad_norm {float(metrics['grad_norm']):.4f}, "
             f"lr {float(metrics['lr']):.3g}, skipped {skipped:.0f}, {walls[-1] * 1e3:.1f} ms"
             f"{' (profiled)' if last else ''}; launches {counts}")
         require(all(counts.get(k, 0) == n for k, n in want.items()),
@@ -1085,24 +1360,24 @@ def phase_train(torch, build, fa, da, TrainSession, stepfn, ParallelismConfig, D
     peak = torch.cuda.max_memory_allocated()
     timed = walls[1:-1] or walls[:1]           # the first step also warms up
     step_s = sum(timed) / len(timed)
-    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
-    log(f"[train] losses {losses}; {step_s * 1e3:.1f} ms per step (mean of steps "
-        f"1-{len(walls) - 2}, host clock), {tokens / step_s:.1f} tokens/s; first step "
+    tokens = spec["global_batch"] * spec["seq_len"]
+    log(f"[{tag}] losses {losses}; {step_s * 1e3:.1f} ms per step (mean of steps "
+        f"1-{max(len(walls) - 2, 1)}, host clock), {tokens / step_s:.1f} tokens/s; first step "
         f"{walls[0] * 1e3:.1f} ms; max_memory_allocated {peak} B ({peak / 1e9:.2f} GB); {smi}")
     require(peak < 80e9, f"peak memory {peak} B does not fit the card's 80 GB")
     if prof["device_ms"] == 0:
-        log("[profile] train step: device time not measured (no device events)")
+        log(f"[profile] {tag} step: device time not measured (no device events)")
     else:
-        log(f"[profile] train step: device busy {prof['device_ms']:.2f} ms of "
+        log(f"[profile] {tag} step: device busy {prof['device_ms']:.2f} ms of "
             f"{step_s * 1e3:.2f} ms unprofiled wall ({prof['device_ms'] / (step_s * 1e3):.1%}); "
             f"profiled wall {prof['wall_ms']:.2f} ms")
         for ms, count, key in prof["top"]:
-            log(f"[profile] train step:   {ms:8.3f} ms  {count:5d}x  {key}")
+            log(f"[profile] {tag} step:   {ms:8.3f} ms  {count:5d}x  {key}")
         for label, pat in (("K1", "flash_fwd"), ("K2", "flash_delta"), ("K3", "flash_dq"),
                            ("K4", "flash_dkv")):
             rs = [(ms, count) for ms, count, key in prof["all"] if pat in key]
             k_ms, k_n = sum(r[0] for r in rs), sum(r[1] for r in rs)
-            log(f"[profile] train step: {label} ({pat}) {k_ms:.3f} ms of device time over "
+            log(f"[profile] {tag} step: {label} ({pat}) {k_ms:.3f} ms of device time over "
                 f"{k_n} launches ({k_ms / max(k_n, 1):.4f} ms a launch), "
                 f"{k_ms / prof['device_ms']:.1%} of the step's device time; {smi}")
 
@@ -1111,7 +1386,7 @@ def phase_train(torch, build, fa, da, TrainSession, stepfn, ParallelismConfig, D
     # either difference is a draw of the same small size, so a scalar floor
     # can be near 0 by chance.
     from repro_torch.models import layers, transformer
-    host_batch = sess.batches(TRAIN["steps"])
+    host_batch = sess.batches(spec["steps"])
     batch = sess._to_device(host_batch)
     mask = batch["loss_mask"].float()
 
@@ -1128,9 +1403,9 @@ def phase_train(torch, build, fa, da, TrainSession, stepfn, ParallelismConfig, D
             for n, x in (("kernel", nll_k), ("plain", nll_p), ("plain f32", nll_f))}
     diff = float((nll_k - nll_p).abs().max())
     floor = float((nll_p - nll_f).abs().max())
-    log(f"[train] evaluate() xent {xent_eval:.6f}; masked mean of per-token losses: "
+    log(f"[{tag}] evaluate() xent {xent_eval:.6f}; masked mean of per-token losses: "
         + ", ".join(f"{n} {x:.6f}" for n, x in xent.items()))
-    log(f"[train] per-token loss, (B, S) = {tuple(nll_k.shape)}: max |kernel - plain| "
+    log(f"[{tag}] per-token loss, (B, S) = {tuple(nll_k.shape)}: max |kernel - plain| "
         f"{diff:.4g}, bf16 noise floor max |plain - plain f32| {floor:.4g} (tol: kernel - "
         f"plain <= {LOGIT_FLOOR_FACTOR} x floor); std of the differences "
         f"{float((nll_k - nll_p).std()):.3g} and {float((nll_p - nll_f).std()):.3g}")
@@ -1139,17 +1414,61 @@ def phase_train(torch, build, fa, da, TrainSession, stepfn, ParallelismConfig, D
     require(diff <= LOGIT_FLOOR_FACTOR * floor,
             f"per-token losses differ from the plain path by {diff:.4g}, more than "
             f"{LOGIT_FLOOR_FACTOR} x bf16's own error {floor:.4g}")
-    del sess, metrics, batch, nll_k, nll_p, nll_f
+    del metrics, batch, nll_k, nll_p, nll_f
+    torch.cuda.empty_cache()
+    if after is not None:
+        after(sess, floor)
+    del sess
     torch.cuda.empty_cache()
     return launches
 
 
-def phase_train_f32_identity(torch, fa, da, get_config, TrainSession, stepfn,
-                             ParallelismConfig, DataConfig):
-    """granite-3-2b at full width, 2 layers, f32: the kernels and the plain
-    versions each take 3 steps from the same state (the same seed)."""
+def phase_eval(torch, build, EvalSession, sess, floor):
+    """On phase 9's session: ``EvalSession.from_train_session`` (the
+    training weights in place, no copy), ``perplexity`` over 2 batches (the
+    first with the pipeline's ``loss_mask``, the second without it: every
+    token bears loss) with the kernels and with their plain versions.  Each
+    side's xent is a mean of per-token losses that phase 9 holds to
+    ``LOGIT_FLOOR_FACTOR`` x its floor, so the two may differ by at most
+    that.  Launches: K1 once per layer per batch, no K2-K4."""
     from repro_torch.core.tree import tree_leaves
-    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=2, dtype="float32")
+    ev = EvalSession.from_train_session(sess)
+    shared = all(a.data_ptr() == b.data_ptr() for (_, a), (_, b) in
+                 zip(tree_leaves(ev.params), tree_leaves(sess.state["params"])))
+    require(shared, "EvalSession.from_train_session copied the training weights")
+    masked = dict(sess.batches(TRAIN["steps"] + 1))
+    whole = {k: v for k, v in sess.batches(TRAIN["steps"] + 2).items() if k != "loss_mask"}
+    require("loss_mask" in masked, "the pipeline's batch has no loss_mask")
+    L = sess.cfg.n_layers
+    build.launch_counts.clear()
+    rep_k = ev.perplexity([masked, whole])
+    torch.cuda.synchronize()
+    counts = dict(build.launch_counts)
+    with plain_versions():
+        rep_p = ev.perplexity([masked, whole])
+    diff = abs(rep_k["xent"] - rep_p["xent"])
+    n_want = float(masked["loss_mask"].sum()) + float(whole["tokens"].size)
+    log(f"[eval] EvalSession.from_train_session on {sess.cfg.name} (weights shared: {shared}): "
+        f"perplexity over 2 batches of {TRAIN['global_batch']} x {TRAIN['seq_len']} (one with "
+        f"its loss_mask; {rep_k['n_tokens']:.0f} tokens): kernels xent {rep_k['xent']:.6f} "
+        f"(perplexity {rep_k['perplexity']:.2f}), plain {rep_p['xent']:.6f} (perplexity "
+        f"{rep_p['perplexity']:.2f}); |diff| {diff:.3g} (tol {LOGIT_FLOOR_FACTOR} x phase 9's "
+        f"per-token floor {floor:.4g}); launches {counts}")
+    require(rep_k["n_batches"] == rep_p["n_batches"] == 2
+            and rep_k["n_tokens"] == rep_p["n_tokens"] == n_want
+            and math.isfinite(rep_k["perplexity"]), f"perplexity sweeps gave {rep_k}, {rep_p}")
+    require(diff <= LOGIT_FLOOR_FACTOR * floor, f"eval xent differs by {diff:.3g}")
+    require(counts == {"flash_fwd": 2 * L}, f"eval launched {counts}, expected K1 {2 * L}")
+    del ev
+    return counts
+
+
+def phase_train_f32_identity(torch, fa, da, get_config, TrainSession, stepfn,
+                             ParallelismConfig, DataConfig, arch=TRAIN["arch"], n_layers=2):
+    """``arch`` at full width, ``n_layers`` layers, f32: the kernels and the
+    plain versions each take 3 steps from the same state (the same seed)."""
+    from repro_torch.core.tree import tree_leaves
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype="float32")
 
     def run(plain):
         sess = TrainSession.from_recipe(
@@ -1167,9 +1486,9 @@ def phase_train_f32_identity(torch, fa, da, get_config, TrainSession, stepfn,
     errs = [close(a, b, 1e-4) for (_, a), (_, b) in zip(tree_leaves(params_k),
                                                        tree_leaves(params_p))]
     worst = max(e for e, _ in errs)
-    log(f"[f32 train] {cfg.name} at full width, 2 layers, f32, 3 steps: losses kernel "
+    log(f"[f32 train] {cfg.name} at full width, {n_layers} layer(s), f32, 3 steps: losses kernel "
         f"{losses_k}, plain {losses_p} (max rel diff {rel:.3g}, tol 1e-5); params max "
-        f"|kernel - plain| {worst:.3g} (tol 1e-4)")
+        f"|kernel - plain| {worst:.3g} ({rule(1e-4)})")
     require(rel <= 1e-5, f"f32 losses differ by {rel:.3g} relative")
     require(all(ok for _, ok in errs), f"f32 params differ by up to {worst:.3g}")
     del params_k, params_p
@@ -1185,7 +1504,7 @@ def phase_timing(torch, fa, da, rn, smi):
 
     def check(name, got, want, tol):
         err, ok = close(got, want, tol)
-        log(f"[check] {name}: max |kernel - plain| {err:.3g} (tol {tol})")
+        log(f"[check] {name}: max |kernel - plain| {err:.3g} ({rule(tol)})")
         require(ok, f"{name}: kernel disagrees with its plain version at the slice's shape")
         return err
 
@@ -1409,10 +1728,14 @@ def _time_backward(torch, fa, gen, check):
     """K2, K3 and K4 at the training slice's attention: q (4,1024,32,64),
     k/v (4,1024,8,64), causal; held against their plain versions in f32 and
     bf16, timed in bf16 in device time (``device_ms``), their CUDA-event
-    times printed beside.  The library yardstick is the backward of
-    ``scaled_dot_product_attention`` alone, which computes dQ, dK and dV
-    together: one forward, then ``autograd.grad`` with ``retain_graph`` per
-    call, in device time.  The same at head dims 128 and 120 (printed only)."""
+    times printed beside.  The library yardstick of K3 and K4 is the
+    backward of ``scaled_dot_product_attention`` alone, which computes dQ,
+    dK and dV together: one forward, then ``autograd.grad`` with
+    ``retain_graph`` per call, in device time.  K2's is
+    ``torch.linalg.vecdot(o, do, dim=-1)``, one pass over the same bytes
+    (its output is bf16 and (B, Sq, Hq): a yardstick of time only), in
+    turns with K2, with the share of K2's bound reached.  The same at head
+    dims 128 and 120 (printed only)."""
     F = torch.nn.functional
     B, S, Hq, Hkv = 4, 1024, 32, 8
     rows = {}
@@ -1465,6 +1788,13 @@ def _time_backward(torch, fa, gen, check):
             dev[n].append(device_ms(torch, kern))
         ev = {n: time_ms(torch, kern) for n, (kern, _) in calls.items()}
         ev_lib = time_ms(torch, sdpa_bwd)
+        k2_ms, vecdot_ms, dev2, ev2 = in_turns(torch, calls["flash_delta"][0],
+                                               lambda: torch.linalg.vecdot(o, do, dim=-1))
+        b2_ms = bounds["flash_delta"][0]
+        log(f"[time] K2 at O/dO (4,1024,32,{D}) bf16, runs of {fa.delta_split(4, 1024, 32)}: "
+            f"{turns_text('K2', 'vecdot', dev2, ev2)}; bound {b2_ms * 1e3:.2f} us (bytes), "
+            f"{b2_ms / k2_ms:.1%} of it")
+        dev["flash_delta"] = [dev2[0], dev2[3]]
         sdpa_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, is_causal=True, enable_gqa=True).detach()
         ev_old = (time_ms(torch, lambda: torch.autograd.grad(
@@ -1482,7 +1812,7 @@ def _time_backward(torch, fa, gen, check):
             if D == 64:
                 rows[n] = dict(max_abs_err=errs[n], ms=ms[n],
                                plain_ms=time_ms(torch, plain, iters=10),
-                               library_ms=None if n == "flash_delta" else lib_ms,
+                               library_ms=vecdot_ms if n == "flash_delta" else lib_ms,
                                bound_ms=b_ms, bound_by=b_by, shape=here)
         log(f"[time] flash backward as a whole (K2 + K3 + K4) at {here}: device time "
             f"{whole:.4f} ms; SDPA's backward alone {lib[0]:.4f} / {lib[1]:.4f} ms "
@@ -1518,7 +1848,7 @@ def phase_rmsnorm_sweep(torch, build, rn, ops, flags):
                     failures.append(f"{shape} eps={eps} {name}: err {err:.3g}, {y.dtype} "
                                     f"{tuple(y.shape)}")
     for name, err in worst.items():
-        log(f"[K7 sweep] {name}: max |y - plain| {err:.3g} (tol {RMS_TOL[name]})")
+        log(f"[K7 sweep] {name}: max |y - plain| {err:.3g} ({rule(RMS_TOL[name])})")
     require(not failures, f"K7 disagrees with its plain version in {len(failures)} of {n} "
             f"cases:\n  " + "\n  ".join(failures[:20]))
     log(f"[K7 sweep] {n} cases agree (shapes {list(RMS_SHAPES)})")
@@ -1890,7 +2220,7 @@ def phase_drills_f32_identity(torch, get_config, TrainSession, stepfn, Paralleli
         log(f"[f32 drill] {name}, {cfg.name}, {cfg.n_layers} layer(s), vocab {cfg.vocab_size}, "
             f"f32: events kernel "
             f"{_events(ok_)}, plain {_events(op)}; losses max rel diff {rel:.3g} (tol 1e-5); "
-            f"params max |kernel - plain| {worst:.3g} (tol 1e-4)")
+            f"params max |kernel - plain| {worst:.3g} ({rule(1e-4)})")
         require(_events(ok_) == _events(op), f"f32 drill {name}: events differ")
         require(same_nan and rel <= 1e-5, f"f32 drill {name}: losses differ by {rel:.3g}")
         require(all(ok for _, ok in errs), f"f32 drill {name}: params differ by {worst:.3g}")
@@ -1933,7 +2263,7 @@ def main() -> int:
     from repro_torch.runtime.chaos import FaultPlan
     from repro_torch.runtime.fleet import FleetConfig, FleetController
     from repro_torch.runtime.resilience import ResilienceConfig
-    from repro_torch.session import InferenceSession, TrainSession, infer
+    from repro_torch.session import EvalSession, InferenceSession, TrainSession, infer
     from repro_torch.session.tracker import InMemoryTracker
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1947,32 +2277,64 @@ def main() -> int:
     require(torch.cuda.get_device_capability(0) == (9, 0),
             "the kernels are built for sm_90a (Hopper)")
 
-    phase_build(build)
-    phase_flash_sweep(torch, fa)
-    phase_flash_bwd_sweep(torch, fa)
-    phase_decode_sweep(torch, da)
-    phase_paged_sweep(torch, da)
-    phase_rmsnorm_sweep(torch, build, rn, ops, flags)
-    serve_launches = phase_slice(torch, np, build, fa, da, InferenceSession, tree_map)
-    phase_f32_identity(torch, np, fa, da, get_config, InferenceSession)
-    stream_launches = phase_stream(torch, np, build, InferenceSession, tree_map, smi)
-    phase_stream_f32_identity(torch, np, fa, da, get_config, InferenceSession)
-    train_launches = phase_train(torch, build, fa, da, TrainSession, stepfn,
-                                 ParallelismConfig, DataConfig, smi)
-    phase_train_f32_identity(torch, fa, da, get_config, TrainSession, stepfn,
-                             ParallelismConfig, DataConfig)
-    cli_launches = phase_train_cli(torch, build, store, train_loop, launch_train, infer,
-                                   TrainSession, InMemoryTracker, stepfn, ParallelismConfig,
-                                   DataConfig, smi)
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):
+        """Run a phase and log its seconds (host clock, synchronized)."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        log(f"[phase] {name}: {seconds[name]:.1f} s")
+        return out
+
+    timed("2 build", phase_build, build)
+    timed("3 K1 sweep", phase_flash_sweep, torch, fa)
+    timed("3 K2-K4 sweep", phase_flash_bwd_sweep, torch, fa)
+    timed("4 K5 sweep", phase_decode_sweep, torch, da)
+    timed("4 K6 sweep", phase_paged_sweep, torch, da)
+    timed("4 K7 sweep", phase_rmsnorm_sweep, torch, build, rn, ops, flags)
+    serve_launches = timed("5 generate", phase_slice, torch, np, build, fa, da,
+                           InferenceSession, tree_map)
+    timed("6 f32 generate", phase_f32_identity, torch, np, fa, da, get_config, InferenceSession)
+    stream_launches = timed("7 stream", phase_stream, torch, np, build, InferenceSession,
+                            tree_map, smi)
+    timed("8 f32 stream", phase_stream_f32_identity, torch, np, fa, da, get_config,
+          InferenceSession)
+    eval_launches = {}
+    train_launches = timed(
+        "9 train + eval", phase_train, torch, build, get_config, TrainSession, stepfn,
+        ParallelismConfig, DataConfig, smi,
+        after=lambda sess, floor: eval_launches.update(
+            phase_eval(torch, build, EvalSession, sess, floor)))
+    timed("10 f32 train", phase_train_f32_identity, torch, fa, da, get_config, TrainSession,
+          stepfn, ParallelismConfig, DataConfig)
+    cli_launches = timed("11 training CLI", phase_train_cli, torch, build, store, train_loop,
+                         launch_train, infer, TrainSession, InMemoryTracker, stepfn,
+                         ParallelismConfig, DataConfig, smi)
     # the replica_loss_replan drill's fleet keeps its loss arm and loses the
     # wall-time straggler arm (a step over 2x the fleet median, 3 in a row),
     # as the CPU tests' fleets do: the chaos-driven loss at step 7 decides
     fleet = functools.partial(FleetController, cfg=FleetConfig(straggler_factor=float("inf")))
     drill_args = (torch, get_config, TrainSession, stepfn, ParallelismConfig, DataConfig,
                   ResilienceConfig, FaultPlan, RetryPolicy, fleet)
-    phase_drills(*drill_args, smi)
-    phase_drills_f32_identity(*drill_args)
-    timing = phase_timing(torch, fa, da, rn, smi)
+    timed("12 drills", phase_drills, *drill_args, smi)
+    timed("13 f32 drills", phase_drills_f32_identity, *drill_args)
+    dense_launches = timed("15 dense arm", phase_dense, torch, np, build, get_config,
+                           InferenceSession, tree_map, smi)
+    h2o_stream_launches = timed("16 h2o stream", phase_dense_stream, torch, np, build,
+                                InferenceSession, smi)
+    h2o_train_launches = timed("17 h2o train", phase_train, torch, build, get_config,
+                               TrainSession, stepfn, ParallelismConfig, DataConfig, smi,
+                               spec=TRAIN_H2O, tag="h2o train")
+    for arch, n_layers in F32_DENSE:
+        timed(f"18 f32 generate {arch}", phase_f32_identity, torch, np, fa, da, get_config,
+              InferenceSession, arch, n_layers)
+        timed(f"18 f32 train {arch}", phase_train_f32_identity, torch, fa, da, get_config,
+              TrainSession, stepfn, ParallelismConfig, DataConfig, arch, n_layers)
+    timing = timed("14 timing", phase_timing, torch, fa, da, rn, smi)
+    log(f"[phase] all phases {sum(seconds.values()):.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
     fa_src, bwd_src = "src/repro_torch/csrc/flash_fwd.cu", "src/repro_torch/csrc/flash_bwd.cu"
     ref_fa = "src/repro/kernels/flash_attention.py"
@@ -1991,12 +2353,18 @@ def main() -> int:
              replaces="src/repro/kernels/rmsnorm.py:17"),
     ]
     # launches: the counted main-path runs: the served generate, one train
-    # step, the stream on each arm, and the training CLI's crashed and
-    # resumed runs.  K7 is reached only through ops.rmsnorm under the
-    # fused_rmsnorm flag, as in the reference, so no main path launches it
-    runs = [serve_launches, train_launches, *stream_launches.values(), *cli_launches]
+    # step, the stream on each arm, the training CLI's crashed and resumed
+    # runs, the eval sweep, and the dense arm's: each model's prefill and
+    # generate, h2o's stream on each arm and one h2o train step.  K7 is
+    # reached only through ops.rmsnorm under the fused_rmsnorm flag, as in
+    # the reference, so no main path launches it
+    runs = [serve_launches, train_launches, *stream_launches.values(), *cli_launches,
+            eval_launches, *(c for pair in dense_launches.values() for c in pair),
+            *h2o_stream_launches.values(), h2o_train_launches]
     log(f"[launches] generate {serve_launches}; train step {train_launches}; stream "
-        f"{stream_launches}; training CLI (crashed, resumed) {cli_launches}")
+        f"{stream_launches}; training CLI (crashed, resumed) {cli_launches}; eval sweep "
+        f"{eval_launches}; dense arm (prefill, generate) {dense_launches}; h2o stream "
+        f"{h2o_stream_launches}; h2o train step {h2o_train_launches}")
     for kr in kernels:
         r = timing[kr["name"]]
         n = sum(c.get(kr["name"], 0) for c in runs)

@@ -44,7 +44,8 @@ ALIASES: Dict[str, str] = {
     "gpt-175b": "gpt_175b",
 }
 
-PORTED: List[str] = ["granite_3_2b", "gpt_36b", "gpt_20b", "gpt_175b"]
+PORTED: List[str] = ["granite_3_2b", "phi3_mini_38b", "qwen15_32b", "h2o_danube_3_4b",
+                     "gpt_36b", "gpt_20b", "gpt_175b"]
 
 
 def get_config(name: str) -> ModelConfig:
@@ -55,6 +56,6 @@ def get_config(name: str) -> ModelConfig:
         raise NotImplementedError(
             f"{mod_name} is not ported yet: this slice serves the dense "
             f"decoders {', '.join(PORTED)}; the other model families come "
-            "with a later PR (ROADMAP queue 1, item 8)")
+            "with a later PR (ROADMAP Queue 1, item 4: other families)")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG

@@ -15,7 +15,8 @@ names, and the step reads nothing back to the host.
 
 The serving steps (``make_serve_step``, ``make_prefill_cache``, the slot
 steps and the paged steps) and the slot and page operations update their
-caches and pools in place, where the reference donates them.
+caches and pools in place, where the reference donates them;
+``make_prefill`` keeps no cache.
 """
 
 from __future__ import annotations
@@ -364,6 +365,21 @@ def make_serve_step(cfg: ModelConfig):
         return logits.argmax(dim=-1).to(torch.int32), caches
 
     return serve_step
+
+
+def make_prefill(cfg: ModelConfig, *, last_only: bool = False):
+    """Teacher-forced full-sequence forward, the prefill phase without a
+    cache: (params, batch) → fp32 logits (B, S, V), or (B, 1, V) for the
+    last position alone when ``last_only`` (the hidden states are sliced
+    before the unembed, so the (S, V) product is never formed).  No remat
+    (``model_api.forward`` runs with ``remat_policy="none"``) and no
+    autograd graph, as the reference's ``make_prefill``."""
+
+    def prefill(params, batch):
+        with torch.no_grad():
+            return model_api.forward(cfg, params, batch, last_only=last_only)
+
+    return prefill
 
 
 def make_prefill_cache(cfg: ModelConfig):

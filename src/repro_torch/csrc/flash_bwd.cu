@@ -12,11 +12,11 @@
 // lse = -1e30 + log(1e-30), so exp(s - lse) would not be 0).
 //
 // What bounds them on this card: K2 is a streaming reduction, bound by bytes
-// (O and dO read once, delta written once).  K3 does three products and K4
-// four, each 2*B*Hq*D*(causal pairs) operations (S = Q K^T and dP = dO V^T
-// in both; dQ = dS K in K3; dV = P^T dO and dK = dS^T Q in K4), so both are
-// bound by tensor-core operations against 989 TFLOP/s in bf16; their bytes
-// are ~D/S as many.
+// (O and dO read once, delta written once; its design is noted beside it).
+// K3 does three products and K4 four, each 2*B*Hq*D*(causal pairs)
+// operations (S = Q K^T and dP = dO V^T in both; dQ = dS K in K3; dV = P^T dO
+// and dK = dS^T Q in K4), so both are bound by tensor-core operations against
+// 989 TFLOP/s in bf16; their bytes are ~D/S as many.
 //
 // bf16, what the design does about it: every product runs on wgmma from
 // tiles that TMA brings into shared memory, warp-specialised as K1 is (one
@@ -74,7 +74,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 namespace hp = repro::hopper;
 
-constexpr int DELTA_WARPS = 8;
 constexpr size_t SMEM_LIMIT = 232448;  // bytes a block may use on an H100
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -98,26 +97,150 @@ struct Params {
 // ---------------------------------------------------------------------------
 // K2: delta = rowsum(dO * O)
 // ---------------------------------------------------------------------------
+//
+// Bound by bytes: O and dO read once, delta written once,
+// 2·B·Sq·Hq·D·elt + 4·B·Hq·Sq bytes over 3.35 TB/s (33.6 MB, 10.0 us, at the
+// training shape (4, 1024, 32, 64) in bf16); 2 operations an element.
+//
+// What the design does about it:
+//   - The B·Sq query positions, in (b, s) order, are dealt out in equal
+//     contiguous runs of `per_block` (the wrapper's delta_split), one run to
+//     a block, at most four blocks an SM: the whole grid is resident at once
+//     and every block has the same work, so no SM idles through a tail
+//     (tiles of a fixed size left part of the grid for a second wave).
+//     A block takes its run in chunks of up to
+//     DELTA_CHUNK positions across all Hq heads: chunk·Hq rows r = s·Hq + h,
+//     one contiguous slab of each tensor in the layout the model makes.
+//   - Every load is 16 bytes (8 bf16 or 4 f32): a row is V = D·elt/16 of them
+//     (D is a multiple of 8).  A row belongs to an aligned group of G lanes,
+//     V rounded up to a power of two (15 of 16 lanes at D 120 in bf16); each
+//     thread issues the loads of DELTA_ROWS rows before it uses the first.
+//     O is read with an evict-first hint (no kernel reads it after K2); dO
+//     with the default policy, since K3 and K4 read it next.
+//   - A lane's partial is its vector's dot product in a fixed order; the
+//     group sums its lanes by xor shuffles, and the group's first lane keeps
+//     the result.  No atomics, and the order depends on D alone, not on the
+//     run or the grid: equal inputs give equal bits (the bitwise crash ->
+//     resume relies on it).
+//   - A chunk's sums wait in shared memory, transposed (head-major, padded
+//     against bank conflicts), and leave as runs delta[b, h, s0 : s0 + n]
+//     of the chunk's positions, consecutive threads on consecutive floats.
+//   - One instantiation per dtype; D, V and G are runtime values.
+
+constexpr int DELTA_THREADS = 256;
+constexpr int DELTA_ROWS = 4;    // rows a thread has in flight
+constexpr int DELTA_CHUNK = 32;  // positions a block reduces before it stores
+constexpr int DELTA_MAX_HEADS = 256;  // the chunk's row sums: at most 33 KB of shared memory
+
+// the dot product of two 16-byte vectors of T, in f32, in one fixed order
+template <typename T>
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b);
+
+template <>
+__device__ __forceinline__ float dot16<float>(const uint4& a, const uint4& b) {
+  float acc = __uint_as_float(a.x) * __uint_as_float(b.x);
+  acc = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), acc);
+  acc = fmaf(__uint_as_float(a.z), __uint_as_float(b.z), acc);
+  return fmaf(__uint_as_float(a.w), __uint_as_float(b.w), acc);
+}
+
+template <>
+__device__ __forceinline__ float dot16<bf16>(const uint4& a, const uint4& b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 xf = __bfloat1622float2(x[i]);
+    const float2 yf = __bfloat1622float2(y[i]);
+    acc = fmaf(xf.x, yf.x, acc);
+    acc = fmaf(xf.y, yf.y, acc);
+  }
+  return acc;
+}
+
+// (b, s) of position pos = b·Sq + s, stepped from (b, s) of an earlier one:
+// no division on the loads' path (Sq may be below a chunk's 32 positions)
+__device__ __forceinline__ void step_pos(int& b, int& s, int by, int Sq) {
+  s += by;
+  while (s >= Sq) {
+    s -= Sq;
+    ++b;
+  }
+}
+
+// strides in elements; V vectors a row, G = V rounded up to a power of two;
+// block k owns positions [k·per_block, (k + 1)·per_block) of the B·Sq
+template <typename T>
+__global__ void __launch_bounds__(DELTA_THREADS)
+    flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, int B, int Sq, int Hq, int V, int G,
+                       int per_block, long long o_sb, long long o_ss, long long o_sh,
+                       long long do_sb, long long do_ss, long long do_sh) {
+  extern __shared__ float sums[];               // [Hq][DELTA_CHUNK + 1]
+  constexpr int pitch = DELTA_CHUNK + 1;
+  const int p_begin = blockIdx.x * per_block;   // B·Sq < 2^31: the wrapper's check
+  const int p_end = min(B * Sq, p_begin + per_block);
+  const int lane_g = threadIdx.x & (G - 1);     // this lane's vector of its row
+  const int per_pass = DELTA_THREADS / G;       // rows the block covers at once
+  const int my_row = threadIdx.x / G;
+  int b0 = p_begin / Sq, s0 = p_begin - b0 * Sq;  // (b, s) of the chunk's first position
+  for (int c0 = p_begin; c0 < p_end; c0 += DELTA_CHUNK) {
+    const int n_c = min(DELTA_CHUNK, p_end - c0);
+    const int rows = n_c * Hq;
+    // the round's bound is block-uniform, so every lane reaches the shuffles
+    for (int r0 = 0; r0 < rows; r0 += DELTA_ROWS * per_pass) {
+      uint4 x[DELTA_ROWS], y[DELTA_ROWS];
+#pragma unroll
+      for (int u = 0; u < DELTA_ROWS; ++u) {
+        const int r = r0 + u * per_pass + my_row;
+        x[u] = y[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (r < rows && lane_g < V) {
+          const int j = r / Hq, h = r - j * Hq;
+          int b = b0, s = s0;
+          step_pos(b, s, j, Sq);
+          x[u] = __ldcs(reinterpret_cast<const uint4*>(o + b * o_sb + s * o_ss + h * o_sh) +
+                        lane_g);
+          y[u] = __ldg(reinterpret_cast<const uint4*>(dout + b * do_sb + s * do_ss +
+                                                      h * do_sh) + lane_g);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < DELTA_ROWS; ++u) {
+        float p = dot16<T>(x[u], y[u]);
+        for (int off = G >> 1; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
+        const int r = r0 + u * per_pass + my_row;
+        if (lane_g == 0 && r < rows) {
+          const int j = r / Hq;
+          sums[(r - j * Hq) * pitch + j] = p;
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < Hq * n_c; i += DELTA_THREADS) {
+      const int h = i / n_c, j = i - h * n_c;
+      int b = b0, s = s0;
+      step_pos(b, s, j, Sq);
+      delta[((long long)b * Hq + h) * Sq + s] = sums[h * pitch + j];
+    }
+    step_pos(b0, s0, n_c, Sq);
+    __syncthreads();                             // the sums are free for the next chunk
+  }
+}
 
 template <typename T>
-__global__ void __launch_bounds__(DELTA_WARPS * 32)
-    flash_delta_kernel(const T* o, const T* dout, float* delta, int B, int Sq, int Hq, int D,
-                       long long o_sb, long long o_ss, long long o_sh, long long do_sb,
-                       long long do_ss, long long do_sh) {
-  const long long row = (long long)blockIdx.x * DELTA_WARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= (long long)B * Sq * Hq) return;  // the whole warp leaves together
-  const int h = (int)(row % Hq);
-  const long long bs = row / Hq;
-  const int s = (int)(bs % Sq);
-  const int b = (int)(bs / Sq);
-  const T* orow = o + b * o_sb + s * o_ss + h * o_sh;
-  const T* drow = dout + b * do_sb + s * do_ss + h * do_sh;
-  float acc = 0.f;
-  for (int d = lane; d < D; d += 32)
-    acc = fmaf(repro::to_f(orow[d]), repro::to_f(drow[d]), acc);
-  acc = repro::warp_sum(acc);
-  if (lane == 0) delta[((long long)b * Hq + h) * Sq + s] = acc;
+int launch_delta(const void* o, const void* dout, float* delta, int B, int Sq, int Hq, int D,
+                 int per_block, const long long* st, cudaStream_t s) {
+  const int V = D * (int)sizeof(T) / 16;
+  int G = 1;
+  while (G < V) G <<= 1;
+  if (G > 32) return (int)cudaErrorInvalidValue;
+  const int blocks = (B * Sq + per_block - 1) / per_block;
+  const size_t smem = (size_t)Hq * (DELTA_CHUNK + 1) * sizeof(float);
+  flash_delta_kernel<T><<<(unsigned)blocks, DELTA_THREADS, smem, s>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, B, Sq, Hq, V, G, per_block,
+      st[0], st[1], st[2], st[3], st[4], st[5]);
+  return (int)cudaGetLastError();
 }
 
 // ===========================================================================
@@ -1109,26 +1232,23 @@ bool bad_shape(int B, int Sq, int Hq, int Hkv, int D) {
 
 }  // namespace
 
+// strides: O (b, s, h), dO (b, s, h), in elements; per_block: the wrapper's
+// delta_split
 extern "C" int repro_flash_delta(const void* o, const void* dout, void* delta, int dtype, int B,
-                                 int Sq, int Hq, int D, long long o_sb, long long o_ss,
-                                 long long o_sh, long long do_sb, long long do_ss,
-                                 long long do_sh, void* stream) {
-  const long long rows = (long long)B * Sq * Hq;
-  const unsigned blocks = (unsigned)((rows + DELTA_WARPS - 1) / DELTA_WARPS);
+                                 int Sq, int Hq, int D, int per_block, long long o_sb,
+                                 long long o_ss, long long o_sh, long long do_sb,
+                                 long long do_ss, long long do_sh, void* stream) {
+  if (B <= 0 || Sq <= 0 || Hq <= 0 || per_block <= 0 || D < 8 || D % 8 != 0 ||
+      Hq > DELTA_MAX_HEADS || (long long)B * Sq + per_block > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const long long st[6] = {o_sb, o_ss, o_sh, do_sb, do_ss, do_sh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(delta);
-  if (dtype == repro::DTYPE_F32) {
-    flash_delta_kernel<float><<<blocks, DELTA_WARPS * 32, 0, s>>>(
-        static_cast<const float*>(o), static_cast<const float*>(dout), out, B, Sq, Hq, D,
-        o_sb, o_ss, o_sh, do_sb, do_ss, do_sh);
-  } else if (dtype == repro::DTYPE_BF16) {
-    flash_delta_kernel<bf16><<<blocks, DELTA_WARPS * 32, 0, s>>>(
-        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), out, B, Sq, Hq, D,
-        o_sb, o_ss, o_sh, do_sb, do_ss, do_sh);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == repro::DTYPE_F32)
+    return launch_delta<float>(o, dout, out, B, Sq, Hq, D, per_block, st, s);
+  if (dtype == repro::DTYPE_BF16)
+    return launch_delta<bf16>(o, dout, out, B, Sq, Hq, D, per_block, st, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // strides: q (b, s, h), k (b, s, h), v (b, s, h), dO (b, s, h), in elements

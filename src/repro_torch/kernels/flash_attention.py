@@ -20,9 +20,9 @@ sources for the design.  Unlike the reference's ``flash_supported``, any
 sequence length launches them: they mask the ragged tails themselves.  Any
 head dim ``build.supported_head_dim`` admits (a multiple of 8 from 16 to
 128) launches them; the kernels pad it inside.  K1, K3 and K4 in bf16 read
-q/k/v (and dO) through TMA tensor maps, so their base addresses and
-(b, s, h) strides must be 16-byte aligned; the wrappers check that and
-raise otherwise.
+q/k/v (and dO) through TMA tensor maps, and K2 reads O and dO in 16-byte
+vectors in both dtypes, so their base addresses and (b, s, h) strides must
+be 16-byte aligned; the wrappers check that and raise otherwise.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import SMS
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -42,7 +43,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _PLL = ctypes.POINTER(ctypes.c_longlong)
 _ARGTYPES = {
     ("flash_fwd", "repro_flash_fwd"): [_P] * 6 + [_I] * 7 + [_LL] * 9 + [_I, _I, _F, _P],
-    ("flash_bwd", "repro_flash_delta"): [_P] * 3 + [_I] * 5 + [_LL] * 6 + [_P],
+    ("flash_bwd", "repro_flash_delta"): [_P] * 3 + [_I] * 6 + [_LL] * 6 + [_P],
     ("flash_bwd", "repro_flash_dq"): [_P] * 8 + [_I] * 7 + [_PLL, _I, _I, _F, _P],
     ("flash_bwd", "repro_flash_dkv"): [_P] * 9 + [_I] * 7 + [_PLL, _I, _I, _F, _P],
 }
@@ -71,13 +72,23 @@ def _check_inputs(q, k, v, segment_ids, window):
         raise ValueError(f"flash_fwd: window must be positive, got {window}")
 
 
+def _check_aligned(name: str, ts, what: str, why: str) -> None:
+    """16-byte aligned base addresses and (b, s, h) strides, or raise."""
+    if any(t.data_ptr() % 16 or any((t.element_size() * st) % 16 for st in t.stride()[:3])
+           for t in ts):
+        raise ValueError(f"{name}: {what} need 16-byte aligned base addresses and "
+                         f"(b, s, h) strides ({why})")
+
+
 def _check_tma_aligned(name: str, ts) -> None:
-    """bf16 inputs that a kernel reads through TMA tensor maps: 16-byte
-    aligned base addresses and (b, s, h) strides, or raise."""
-    if ts[0].dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 or any((2 * st) % 16 for st in t.stride()[:3]) for t in ts):
-        raise ValueError(f"{name}: bf16 inputs need 16-byte aligned base addresses and "
-                         f"(b, s, h) strides (TMA tensor maps)")
+    """bf16 inputs that a kernel reads through TMA tensor maps."""
+    if ts[0].dtype == torch.bfloat16:
+        _check_aligned(name, ts, "bf16 inputs", "TMA tensor maps")
+
+
+def _check_vector_aligned(name: str, ts) -> None:
+    """Inputs that a kernel reads in 16-byte vectors, in either dtype."""
+    _check_aligned(name, ts, "inputs", "16-byte vector loads")
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -181,18 +192,42 @@ def _check_card(name: str, ts) -> None:
         raise ValueError(f"{name}: the head dim of every input must be contiguous")
 
 
+DELTA_BLOCKS_PER_SM = 4      # K2 blocks an SM holds at once (256 threads, 56 registers)
+DELTA_MAX_HEADS = 256        # heads whose row sums a K2 block holds for a chunk
+
+
+def delta_split(B: int, Sq: int, Hq: int) -> int:
+    """K2's ``per_block``: the query positions of the ``B·Sq`` (in (b, s)
+    order) that one block owns, one contiguous run each, dealt out equally
+    over at most ``DELTA_BLOCKS_PER_SM·SMS`` blocks, so that the whole grid
+    is resident at once with equal work.  A function of the shapes only."""
+    if Hq > DELTA_MAX_HEADS:
+        raise ValueError(f"flash_delta: Hq={Hq} heads; the kernel takes at most "
+                         f"{DELTA_MAX_HEADS}")
+    per_block = -(-B * Sq // (DELTA_BLOCKS_PER_SM * SMS))
+    if B * Sq + per_block >= 2 ** 31:
+        raise ValueError(f"flash_delta: B·Sq = {B * Sq} positions; the kernel indexes "
+                         f"them in 32 bits")
+    return per_block
+
+
 def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """Launch K2.  O, dO: (B, Sq, Hq, D), bf16 or f32 on one CUDA device, last
-    dim contiguous → delta = rowsum(dO * O), (B, Hq, Sq) f32."""
+    dim contiguous, base addresses and (b, s, h) strides 16-byte aligned (the
+    kernel loads 16-byte vectors) → delta = rowsum(dO * O), (B, Hq, Sq) f32."""
     if o.dim() != 4 or tuple(o.shape) != tuple(do.shape) or o.shape[1] == 0:
         raise ValueError(f"flash_delta: O and dO (B, Sq, Hq, D) of one shape expected; "
                          f"got {tuple(o.shape)}, {tuple(do.shape)}")
-    _check_card("flash_delta", (o, do))
     B, Sq, Hq, D = o.shape
+    build.require_head_dim("flash_delta", D)
+    _check_card("flash_delta", (o, do))
+    _check_vector_aligned("flash_delta", (o, do))
+    per_block = delta_split(B, Sq, Hq)
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=o.device)
     rc = _entry("flash_bwd", "repro_flash_delta")(
         o.data_ptr(), do.data_ptr(), delta.data_ptr(), _DTYPE_CODE[o.dtype], B, Sq, Hq, D,
-        *o.stride()[:3], *do.stride()[:3], torch.cuda.current_stream(o.device).cuda_stream)
+        per_block, *o.stride()[:3], *do.stride()[:3],
+        torch.cuda.current_stream(o.device).cuda_stream)
     build.check(rc, "flash_delta")
     build.launch_counts["flash_delta"] += 1
     return delta

@@ -2,7 +2,8 @@
 mirroring ``repro.session.infer`` on one device.
 
 It owns the compute-dtype parameters on its device, the cache init, the
-prefill and decode steps, the continuous-batching slot operations
+prefill (``prefill``, without a cache, and the cache-populating
+``prefill_cache_step``) and decode steps, the continuous-batching slot operations
 (``slot_step``, ``insert_slot``, ``take_slot``, ``zero_slot``), the
 block-paged pool's steps (``init_paged_pool``, ``paged_prefill_step``,
 ``paged_slot_step``, ``pool_copy_page``), a batched greedy ``generate()``
@@ -16,7 +17,7 @@ a mesh) wait for the parallel recipe's port.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Union
+from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -39,6 +40,17 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
         raise RuntimeError("CUDA is not available: this session runs on the card "
                            "unless device='cpu' is asked for")
     return device
+
+
+def to_device(batch, device: torch.device) -> Dict[str, torch.Tensor]:
+    """A batch of numpy arrays or tensors as tensors on ``device``; host
+    arrays go to the card through pinned memory."""
+    def one(x):
+        t = torch.as_tensor(x)
+        if device.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
+    return {k: one(x) for k, x in batch.items()}
 
 
 class InferenceSession:
@@ -84,6 +96,15 @@ class InferenceSession:
     # ------------------------------------------------------------------
     # serving
     # ------------------------------------------------------------------
+    def prefill(self, batch, *, last_only: bool = True) -> torch.Tensor:
+        """Teacher-forced full-sequence forward (the prefill phase), without
+        a cache: fp32 logits (B, 1, V) for the last position when
+        ``last_only``, else (B, S, V).  ``batch`` holds ``tokens`` (B, S)
+        (and optionally ``segment_ids``), numpy or tensors, moved to the
+        session's device."""
+        step = stepfn.make_prefill(self.cfg, last_only=last_only)
+        return step(self.params, to_device(batch, self.device))
+
     def init_cache(self, batch_size: int, max_len: int) -> Any:
         return model_api.init_cache(self.cfg, self.params, batch_size, max_len)
 

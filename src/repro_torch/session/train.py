@@ -35,7 +35,8 @@ from repro_torch.data import DataConfig, make_dataset
 from repro_torch.data.pipeline import add_modality_inputs, estimate_mean_doc_len
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.train_loop import LoopConfig, run_training
-from repro_torch.session.infer import InferenceSession, resolve_config, resolve_device
+from repro_torch.session.infer import (InferenceSession, resolve_config, resolve_device,
+                                       to_device)
 
 
 class TrainSession:
@@ -107,12 +108,7 @@ class TrainSession:
         return lambda state, batch: train_step(state, self._to_device(batch))
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
-        def one(x):
-            t = torch.as_tensor(x)
-            if self.device.type == "cuda" and t.device.type == "cpu":
-                return t.pin_memory().to(self.device, non_blocking=True)
-            return t.to(self.device)
-        return {k: one(x) for k, x in batch.items()}
+        return to_device(batch, self.device)
 
     # ------------------------------------------------------------------
     # stepping

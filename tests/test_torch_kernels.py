@@ -17,11 +17,15 @@ At D = 120 (h2o-danube-3-4b's head dim), with GQA 4:1 and a window, the
 plain versions of K1-K6 are held against the Pallas kernels in interpret
 mode at the same tolerances.  ``build.supported_head_dim`` admits every
 attention config's head dim, and the wrappers refuse any other D.
+K2's plain version alone is held against the reference's ``_delta_kernel``
+in interpret mode at D = 120 and 128, and K2's split of the positions
+(``delta_split``) deals them out in equal runs to a grid the card holds at
+once.
 The CUDA kernels themselves run only on the card (``chip_smoke.py``); here
 their wrappers must refuse CPU tensors (and bf16 inputs that TMA cannot
-read) and the dispatch must take the plain versions without counting a
-launch; the flash backward's and the decode kernels' sources must use no
-atomics.  The decode wrappers' split of the keys (``split_plan``) is a pure
+read, and inputs K2 cannot read in 16-byte vectors) and the dispatch must
+take the plain versions without counting a launch; the flash backward's
+and the decode kernels' sources must use no atomics.  The decode wrappers' split of the keys (``split_plan``) is a pure
 function of B, Hkv and S: it covers the keys in whole 32-key chunks, fills
 the SMs at the slice's shapes, and splits a ring and a pool of one length at
 the same keys; the split-then-combine arithmetic equals the plain version
@@ -387,6 +391,49 @@ def test_flash_backward_plain_matches_pallas_kernels(dtype, causal, window, Hq, 
           .transpose(0, 2, 1), 1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [120, 128])
+def test_delta_plain_matches_pallas_delta_kernel(dtype, D):
+    """K2's plain version alone against the reference's ``_delta_kernel`` in
+    interpret mode, launched as ``_backward`` launches it (heads first, D
+    padded, 64-row blocks), at h2o's and qwen's head dims."""
+    from jax.experimental import pallas as pl
+    from repro.kernels import flash_attention as jfa
+    B, S, Hq = 2, 128, 8
+    rs = np.random.RandomState(21)
+    (o, do), (jo, jdo) = _pair([rs.standard_normal((B, S, Hq, D)).astype(np.float32)
+                                for _ in range(2)], dtype)
+    ot, dot = (jfa._pad_head_dim(x.transpose(0, 2, 1, 3)) for x in (jo, jdo))
+    bq, Dp = 64, ot.shape[-1]
+    want = pl.pallas_call(
+        jfa._delta_kernel, grid=(B, Hq, S // bq),
+        in_specs=[pl.BlockSpec((1, 1, bq, Dp), lambda b, h, iq: (b, h, iq, 0))] * 2,
+        out_specs=pl.BlockSpec((1, 1, bq), lambda b, h, iq: (b, h, iq)),
+        out_shape=jax.ShapeDtypeStruct((B, Hq, S), jnp.float32), interpret=True)(ot, dot)
+    got = fa.flash_delta_plain(o, do)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, Hq, S)
+    close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("B,Sq,Hq,per_block,blocks", [
+    (4, 1024, 32, 8, 512),        # granite's training attention
+    (2, 4608, 32, 18, 512),       # h2o's
+    (1, 4608, 32, 9, 512),        # h2o's micro-batch
+    (4, 1000, 32, 8, 500),        # a ragged length
+    (1, 1, 40, 1, 1),             # one position
+    (3, 77, 5, 1, 231)])          # fewer positions than the card holds blocks
+def test_delta_split_deals_positions_out_evenly(B, Sq, Hq, per_block, blocks):
+    """K2's runs: equal, contiguous, covering the B·Sq positions once, in at
+    most four blocks an SM; heads past what a block holds raise."""
+    assert fa.delta_split(B, Sq, Hq) == per_block
+    assert -(-B * Sq // per_block) == blocks <= fa.DELTA_BLOCKS_PER_SM * fa.SMS
+    assert (blocks - 1) * per_block < B * Sq <= blocks * per_block
+    with pytest.raises(ValueError, match="Hq=257"):
+        fa.delta_split(1, 8, 257)
+    with pytest.raises(ValueError, match="32 bits"):
+        fa.delta_split(2 ** 16, 2 ** 15, 8)
+
+
 @pytest.mark.parametrize("mask", ["causal", "window", "none", "segments"])
 def test_flash_backward_plain_ragged_lengths_match_oracle_autodiff(mask):
     """S = 200, which the Pallas kernels do not tile: the plain backward
@@ -558,7 +605,8 @@ def test_supported_head_dim_admits_every_attention_config():
 
 @pytest.mark.parametrize("D", [12, 20, 136])
 def test_wrappers_refuse_an_unsupported_head_dim(D):
-    """Every wrapper of K1-K6 names the head dim it refuses (before it looks
+    """Every wrapper of K1-K6 (K2 too: it loads 16-byte vectors of whole
+    rows) names the head dim it refuses (before it looks
     at the device: nothing falls back), and counts nothing."""
     q, k, v = (torch.zeros(s) for s in ((1, 8, 4, D), (1, 8, 2, D), (1, 8, 2, D)))
     lse = delta = torch.zeros((1, 4, 8))
@@ -570,6 +618,8 @@ def test_wrappers_refuse_an_unsupported_head_dim(D):
         fa.flash_dq(q, k, v, q, lse, delta)
     with pytest.raises(ValueError, match=msg):
         fa.flash_dkv(q, k, v, q, lse, delta)
+    with pytest.raises(ValueError, match=msg):
+        fa.flash_delta(q, q)
     with pytest.raises(ValueError, match=msg):
         da.decode_attention(q[:, :1], k, v, torch.zeros((1, 8), dtype=torch.int32), t=3)
     with pytest.raises(ValueError, match=msg):
@@ -610,6 +660,23 @@ def test_tma_kernels_refuse_misaligned_bf16_inputs():
     with pytest.raises(ValueError, match="flash_dq: bf16 inputs need 16-byte aligned"):
         fa._check_tma_aligned("flash_dq", (x, shifted))
     fa._check_tma_aligned("flash_dkv", (torch.zeros(n + 1)[1:].view(shape),))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_delta_refuses_inputs_it_cannot_read_in_vectors(dtype):
+    """K2 reads O and dO in 16-byte vectors in both dtypes: a base address
+    or a (b, s, h) stride off 16 bytes is refused, a padded but aligned
+    layout is taken."""
+    shape, n = (2, 8, 4, 16), 2 * 8 * 4 * 16
+    dt = getattr(torch, dtype)
+    x = torch.zeros(shape, dtype=dt)
+    fa._check_vector_aligned("flash_delta", (x, x))
+    fa._check_vector_aligned("flash_delta", (x, torch.zeros((2, 8, 6, 16), dtype=dt)[:, :, 1:5]))
+    shifted = torch.zeros(n + 1, dtype=dt)[1:].view(shape)
+    odd_heads = torch.zeros((2, 8, 4, 17), dtype=dt)[..., :16]
+    for bad in (shifted, odd_heads):
+        with pytest.raises(ValueError, match="flash_delta: inputs need 16-byte aligned"):
+            fa._check_vector_aligned("flash_delta", (x, bad))
 
 
 # ---------------------------------------------------------------------------

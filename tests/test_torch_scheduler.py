@@ -115,7 +115,7 @@ def close(got, want, tol=2e-5):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch,bucket", [("granite_3_2b", True), ("gpt_20b", True),
-                                         ("granite_3_2b", False)])
+                                         ("h2o_danube_3_4b", True), ("granite_3_2b", False)])
 def test_stream_tokens_and_stats_equal_reference(arch, bucket):
     ref, port = _pair(arch)
     prompts, gens = chat_stream(ref.cfg.vocab_size)

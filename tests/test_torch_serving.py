@@ -33,6 +33,9 @@ from repro_torch.session import InferenceSession
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["granite_3_2b", "gpt_20b"]
+# the rest of the dense arm, reduced: MHA with an untied head (phi3), QKV
+# bias (qwen1.5), GQA under a sliding window of 32 (h2o-danube)
+DENSE_ARM = ["phi3_mini_38b", "qwen15_32b", "h2o_danube_3_4b"]
 
 
 def _sessions(arch, seed=0):
@@ -109,7 +112,7 @@ def test_forward_prefill_and_decode_match_reference(arch):
     check_caches()
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + DENSE_ARM)
 @pytest.mark.parametrize("path", ["default", "pallas"])
 def test_generate_token_identical_to_reference(arch, path):
     """``default``: the reference's einsum path, a ragged prompt of 20.
@@ -126,6 +129,17 @@ def test_generate_token_identical_to_reference(arch, path):
     got = port.generate(prompts, N)
     assert got.dtype == torch.int32 and got.shape == (3, P + N)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_generate_past_the_window_matches_reference():
+    """h2o-danube reduced (window 32) on the reference's default path: a
+    40-token prompt, so the window binds in the prefill, and 24 new tokens,
+    so the decode ring of 32 slots wraps."""
+    ref, port = _sessions("h2o_danube_3_4b", seed=7)
+    assert ref.cfg.swa_window == port.cfg.swa_window == 32
+    prompts = _tokens(2, 40, ref.cfg.vocab_size, seed=8)
+    want = np.asarray(ref.generate(prompts, 24))
+    np.testing.assert_array_equal(port.generate(prompts, 24).numpy(), want)
 
 
 def test_generate_stop_token_matches_reference():

@@ -49,6 +49,10 @@ from repro_torch.session import TrainSession
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["granite_3_2b", "gpt_36b"]
+# the rest of the dense arm, reduced: MHA with an untied head (phi3), QKV
+# bias (qwen1.5), GQA under a sliding window of 32 (h2o-danube, binding at
+# SEQ 64)
+DENSE_ARM = ["phi3_mini_38b", "qwen15_32b", "h2o_danube_3_4b"]
 SEQ, BATCH = 64, 4
 
 
@@ -88,6 +92,21 @@ def _path_ctx(path):
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("remat", ["none", "full", "dots", "stage"])
 def test_lm_loss_and_grads_match_reference(arch, path, packed, remat):
+    _check_loss_and_grads(arch, path, packed, remat)
+
+
+@pytest.mark.parametrize("arch", DENSE_ARM)
+@pytest.mark.parametrize("path", ["default", "pallas"])
+@pytest.mark.parametrize("packed", [False, True])
+def test_dense_arm_loss_and_grads_match_reference(arch, path, packed):
+    """The later dense configs under the default remat policy ("full"):
+    what is new for them is the architecture, not the policy."""
+    _check_loss_and_grads(arch, path, packed, "full")
+
+
+def _check_loss_and_grads(arch, path, packed, remat):
+    """Loss (1e-5 relative) and every gradient (5e-4) against ``jax.grad``
+    of the reference's ``lm_loss`` on the same weights and batch."""
     cfg = get_config(arch).reduced()
     jcfg = jget_config(arch).reduced()
     params = jtf.lm_init(jax.random.PRNGKey(3), jcfg)
@@ -209,6 +228,20 @@ def test_three_steps_match_reference(gas, compression):
     assert n_ties <= 1e-4 * n, (n_ties, n)
     for (path, d), tie in zip(params, ties):
         assert float(torch.where(tie, 0.0, d).max()) <= 1e-5, path
+
+
+@pytest.mark.parametrize("arch", DENSE_ARM)
+def test_dense_arm_three_steps_match_reference(arch):
+    """The later dense configs: three steps at gas 2, losses and metrics
+    (1e-5) and the params after them (1e-5)."""
+    ref, port = _sessions(arch, gas=2)
+    for mr, mp in _step_both(ref, port, 3):
+        np.testing.assert_allclose(mp["loss"], mr["loss"], rtol=1e-5)
+        for k in ("xent", "grad_norm", "lr"):
+            np.testing.assert_allclose(mp[k], mr[k], rtol=1e-5, atol=1e-6, err_msg=k)
+        assert mp["skipped"] == mr["skipped"] == 0.0
+    assert int(port.state["step"]) == 3
+    _close_trees(port.state["params"], _flat(ref.state), 1e-5)
 
 
 @pytest.mark.parametrize("remat,fwd_per_layer", [("full", 2), ("none", 1), ("dots", 2),
