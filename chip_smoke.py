@@ -128,8 +128,17 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    own error);
 18. (run before 14) the f32 identities of 6 and 10 for phi3 and h2o at 2
    layers and qwen1.5 at 1 layer, full width;
-19. prints each phase's seconds, a ``{"kernels": [...]}`` line and, last,
-   ``{"ok": true, "device": {...}}``.
+19. (run after 17) the planning models beside the card: a GEMM sweep,
+   bf16 ``torch.matmul`` of (M x 2048) by (2048 x 8192) for M from 16 to
+   16384, in device time, gives the fraction of the bf16 peak that big
+   GEMMs reach and the M at which it halves (``System.gemm_eff`` and
+   ``eff_knee_m``), printed beside ``H100_SXM``'s constants; then
+   ``estimate_step`` and ``per_device_bytes`` on ``H100_SXM`` for the
+   training cells of 9 and 17, beside their step's measured device time
+   and peak memory, with the ratios (no fit, no band: finite, positive,
+   feasible);
+20. prints each phase's seconds, a ``{"planning": {...}}`` line, a
+   ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  It also exits non-zero
 when CUDA is not available, or when it does not stand in a checkout of the
@@ -192,6 +201,9 @@ H2O_STREAM = dict(arch="h2o_danube_3_4b", prompt_lens=(4100, 4300, 4166, 4233),
 # 4608 tokens in 2 micro-batches: the window binds in K1-K4 at D 120
 TRAIN_H2O = dict(arch="h2o_danube_3_4b", n_layers=4, seq_len=4608, global_batch=2, gas=2,
                  steps=3)
+# the GEMM sweep of the planning phase: bf16 (M x K) @ (K x N), granite's
+# MLP up-projection, M from 16 to 16384 in powers of two
+GEMM = dict(k=2048, n=8192, ms=tuple(2**i for i in range(4, 15)))
 # the f32 identities of phases 6 and 10 for the later dense configs at full
 # width: (arch, layers)
 F32_DENSE = (("phi3_mini_38b", 2), ("h2o_danube_3_4b", 2), ("qwen15_32b", 1))
@@ -1318,7 +1330,8 @@ def phase_train(torch, build, get_config, TrainSession, stepfn, ParallelismConfi
     (``evaluate()``), and its per-token losses are taken with the kernels,
     with their plain versions, and with the plain versions on an f32 copy
     of the model (bf16's own error).  ``after(sess, floor)`` runs on the
-    session before it is dropped.  Returns a step's launches."""
+    session before it is dropped.  Returns a step's launches and the
+    profiled step's device time and the steps' peak memory."""
     t0 = time.perf_counter()
     cfg, full = _dense_cfg(get_config, spec)
     sess = TrainSession.from_recipe(
@@ -1420,7 +1433,7 @@ def phase_train(torch, build, get_config, TrainSession, stepfn, ParallelismConfi
         after(sess, floor)
     del sess
     torch.cuda.empty_cache()
-    return launches
+    return launches, dict(device_ms=prof["device_ms"], peak_bytes=peak)
 
 
 def phase_eval(torch, build, EvalSession, sess, floor):
@@ -1493,6 +1506,94 @@ def phase_train_f32_identity(torch, fa, da, get_config, TrainSession, stepfn,
     require(all(ok for _, ok in errs), f"f32 params differ by up to {worst:.3g}")
     del params_k, params_p
     torch.cuda.empty_cache()
+
+
+def gemm_profile(ms_by_m):
+    """(efficiency by M, gemm_eff, eff_knee_m) from the sweep's device times:
+    efficiency is 2·M·K·N over the time at the bf16 peak; ``gemm_eff`` is the
+    mean efficiency at the two largest M, and ``eff_knee_m`` the M at which
+    the efficiency first crosses ``gemm_eff / 2``, interpolated in log M
+    (``repro_torch.core.systems.System``'s two fields)."""
+    k, n = GEMM["k"], GEMM["n"]
+    effs = {m: 2.0 * m * k * n / (t * 1e-3 * H100_BF16_FLOP_PER_S)
+            for m, t in sorted(ms_by_m.items())}
+    ms = sorted(effs)
+    gemm_eff = (effs[ms[-1]] + effs[ms[-2]]) / 2
+    half = gemm_eff / 2
+    for m0, m1 in zip(ms, ms[1:]):
+        e0, e1 = effs[m0], effs[m1]
+        if e0 < half <= e1:
+            frac = (half - e0) / (e1 - e0)
+            knee = math.exp(math.log(m0) + frac * (math.log(m1) - math.log(m0)))
+            return effs, gemm_eff, knee
+    raise SmokeFailure(f"the GEMM efficiency never crosses gemm_eff / 2 = {half:.4f}: {effs}")
+
+
+def phase_planning(torch, get_config, ParallelismConfig, smi, measured):
+    """The planning models beside the card.  First the GEMM sweep that
+    ``System.gemm_eff`` and ``eff_knee_m`` stand for: ``torch.matmul`` of
+    bf16 (M x 2048) by (2048 x 8192) in device time (``device_ms``), the
+    pair derived from it and ``H100_SXM``'s constants.  Then, for the two
+    training cells of phases 9 and 17 (``measured``: their step's device
+    time and peak memory), ``estimate_step``'s ``t_compute`` and ``t_step``
+    and ``per_device_bytes``'s total beside the measurement, with their
+    ratios.  No fit and no band: every figure must be finite and positive,
+    each efficiency at most 1.05 (above the peak is impossible), and both
+    cells feasible.  Returns the ``planning`` JSON object."""
+    from repro_torch.core.cost_model import estimate_step
+    from repro_torch.core.memory import per_device_bytes
+    from repro_torch.core.systems import H100_SXM
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    b = torch.randn(GEMM["k"], GEMM["n"], device="cuda", dtype=torch.bfloat16, generator=gen)
+    ms_by_m = {}
+    for m in GEMM["ms"]:
+        a = torch.randn(m, GEMM["k"], device="cuda", dtype=torch.bfloat16, generator=gen)
+        ms_by_m[m] = device_ms(torch, lambda: torch.matmul(a, b))
+    del a, b
+    effs, gemm_eff, knee = gemm_profile(ms_by_m)
+    log(f"[planning] GEMM sweep, bf16 (M x {GEMM['k']}) @ ({GEMM['k']} x {GEMM['n']}), device "
+        "time, efficiency against 989 TFLOP/s: " + "; ".join(
+            f"M {m}: {ms_by_m[m]:.4f} ms, {effs[m]:.4f}" for m in GEMM["ms"]) + f"; {smi}")
+    log(f"[planning] derived from the sweep: gemm_eff {gemm_eff:.4f}, eff_knee_m {knee:.1f}")
+    log(f"[planning] H100_SXM's constants: gemm_eff {H100_SXM.gemm_eff}, eff_knee_m "
+        f"{H100_SXM.eff_knee_m}")
+    require(all(math.isfinite(e) and 0.0 < e <= 1.05 for e in effs.values()),
+            f"GEMM efficiencies out of (0, 1.05]: {effs}")
+    cells = {}
+    for spec, tag in ((TRAIN, "train"), (TRAIN_H2O, "h2o train")):
+        cfg, _ = _dense_cfg(get_config, spec)
+        mbs = spec["global_batch"] // spec["gas"]
+        plan = ParallelismConfig(mbs=mbs, gas=spec["gas"], remat_policy="full")
+        cost = estimate_step(cfg, plan, system=H100_SXM, seq=spec["seq_len"],
+                             flash_backward=True)
+        mem = per_device_bytes(cfg, dp=1, tp=1, pp=1, mbs=mbs, gas=spec["gas"],
+                               seq=spec["seq_len"], remat="full")["total"]
+        got = measured[tag]
+        cell = dict(arch=cfg.name, n_layers=cfg.n_layers, mbs=mbs, gas=spec["gas"],
+                    seq=spec["seq_len"], est_t_compute_ms=cost.t_compute * 1e3,
+                    est_t_step_ms=cost.t_step * 1e3, measured_device_ms=got["device_ms"],
+                    time_ratio=got["device_ms"] / (cost.t_step * 1e3), est_mem_bytes=mem,
+                    measured_peak_bytes=got["peak_bytes"], mem_ratio=got["peak_bytes"] / mem,
+                    feasible=cost.feasible)
+        cells[tag] = cell
+        log(f"[planning] {tag}: {cfg.name} at {cfg.n_layers} layers, mbs {mbs} x gas "
+            f"{spec['gas']} x seq {spec['seq_len']}, remat full, flash backward: estimate "
+            f"t_compute {cell['est_t_compute_ms']:.2f} ms, t_step {cell['est_t_step_ms']:.2f} ms "
+            f"vs measured step device time {got['device_ms']:.2f} ms (x{cell['time_ratio']:.3f}); "
+            f"estimate memory {mem / 1e9:.3f} GB vs measured peak {got['peak_bytes'] / 1e9:.3f} GB "
+            f"(x{cell['mem_ratio']:.3f}); feasible {cost.feasible}; {smi}")
+        figures = [cell[k] for k in ("est_t_compute_ms", "est_t_step_ms", "measured_device_ms",
+                                     "time_ratio", "est_mem_bytes", "measured_peak_bytes",
+                                     "mem_ratio")]
+        require(all(math.isfinite(v) and v > 0 for v in figures), f"{tag}: figures {cell}")
+        require(cost.feasible, f"{tag}: estimate_step calls the cell the card ran infeasible")
+    return dict(card=smi, gemm=dict(k=GEMM["k"], n=GEMM["n"],
+                                    sweep=[dict(m=m, ms=ms_by_m[m], eff=effs[m])
+                                           for m in GEMM["ms"]]),
+                derived=dict(gemm_eff=gemm_eff, eff_knee_m=knee),
+                h100_sxm=dict(gemm_eff=H100_SXM.gemm_eff, eff_knee_m=H100_SXM.eff_knee_m),
+                cells=cells)
 
 
 def phase_timing(torch, fa, da, rn, smi):
@@ -2302,7 +2403,7 @@ def main() -> int:
     timed("8 f32 stream", phase_stream_f32_identity, torch, np, fa, da, get_config,
           InferenceSession)
     eval_launches = {}
-    train_launches = timed(
+    train_launches, train_measured = timed(
         "9 train + eval", phase_train, torch, build, get_config, TrainSession, stepfn,
         ParallelismConfig, DataConfig, smi,
         after=lambda sess, floor: eval_launches.update(
@@ -2324,9 +2425,11 @@ def main() -> int:
                            InferenceSession, tree_map, smi)
     h2o_stream_launches = timed("16 h2o stream", phase_dense_stream, torch, np, build,
                                 InferenceSession, smi)
-    h2o_train_launches = timed("17 h2o train", phase_train, torch, build, get_config,
-                               TrainSession, stepfn, ParallelismConfig, DataConfig, smi,
-                               spec=TRAIN_H2O, tag="h2o train")
+    h2o_train_launches, h2o_measured = timed(
+        "17 h2o train", phase_train, torch, build, get_config, TrainSession, stepfn,
+        ParallelismConfig, DataConfig, smi, spec=TRAIN_H2O, tag="h2o train")
+    planning = timed("19 planning", phase_planning, torch, get_config, ParallelismConfig, smi,
+                     {"train": train_measured, "h2o train": h2o_measured})
     for arch, n_layers in F32_DENSE:
         timed(f"18 f32 generate {arch}", phase_f32_identity, torch, np, fa, da, get_config,
               InferenceSession, arch, n_layers)
@@ -2372,6 +2475,7 @@ def main() -> int:
                   ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                   bound_by=r["bound_by"], library_ms=r["library_ms"])
     log(f"[env] card: {smi}")
+    print(json.dumps({"planning": planning}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

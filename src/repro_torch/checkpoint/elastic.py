@@ -5,7 +5,7 @@ Checkpoints are mesh-independent: the port's state is always canonical (a
 list of per-layer blocks, restacked to the reference's (L, ...) leaves only
 in the files), so for ``pp == 1`` every conversion is the identity and a dp
 re-plan needs none.  Pipeline stacking (``pp > 1``) comes with the parallel
-recipe over ``torch.distributed`` (ROADMAP queue 1, item 7).
+recipe (ROADMAP Queue 1, item 3: the parallel recipe over torch.distributed).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ def _no_pipeline(plan: ParallelismConfig) -> None:
     if plan.pp > 1:
         raise NotImplementedError(
             f"pp={plan.pp}: pipeline-stacked states come with the parallel recipe "
-            "over torch.distributed (ROADMAP queue 1, item 7)")
+            "(ROADMAP Queue 1, item 3: the parallel recipe over torch.distributed)")
 
 
 def canonicalize_state(state: Dict[str, Any], plan: ParallelismConfig) -> Dict[str, Any]:

@@ -51,8 +51,8 @@ def check_single_device(plan: ParallelismConfig) -> None:
     for axis in ("tp", "pp"):
         if getattr(plan, axis) > 1:
             raise NotImplementedError(
-                f"{axis}={getattr(plan, axis)}: the parallel recipe over "
-                "torch.distributed is not ported yet (ROADMAP queue 1, item 7); "
+                f"{axis}={getattr(plan, axis)}: the parallel recipe is not ported yet "
+                "(ROADMAP Queue 1, item 3: the parallel recipe over torch.distributed); "
                 "this step runs on one device")
 
 

@@ -89,7 +89,7 @@ class ModelConfig:
             # the reference counts these blocks in its model code
             raise NotImplementedError(
                 f"n_params of family {self.family!r} comes with the port of "
-                "that family's blocks (ROADMAP queue 1, item 8)")
+                "that family's blocks (ROADMAP Queue 1, item 4: other families)")
         elif self.family == "encdec":
             ff = (3 if self.gated_mlp else 2) * d * self.d_ff
             enc_layer = att + ff + 2 * d

@@ -21,4 +21,4 @@ def family_of(cfg: ModelConfig):
     except KeyError:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet (registered: "
-            f"{', '.join(sorted(_REGISTRY))}; ROADMAP queue 1, item 8)") from None
+            f"{', '.join(sorted(_REGISTRY))}; ROADMAP Queue 1, item 4: other families)") from None

@@ -37,7 +37,7 @@ def layer_plan(cfg: ModelConfig):
     reference; only the dense plan is ported."""
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, item 8)")
+            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1, item 4: other families)")
     return "dense", cfg.n_layers, []
 
 
