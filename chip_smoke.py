@@ -137,8 +137,26 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    training cells of 9 and 17, beside their step's measured device time
    and peak memory, with the ratios (no fit, no band: finite, positive,
    feasible);
-20. prints each phase's seconds, a ``{"planning": {...}}`` line, a
-   ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
+20. (run after 19) tensor parallelism at tp = 2 as two processes on the
+   one card (``torch.multiprocessing`` spawn, gloo over localhost, both on
+   ``cuda:0``; NCCL takes one rank per card), each result held to tp = 1
+   on the same card and seed, computed first in this process: granite-3-2b
+   (GQA 32/8 heads, 16/4 a rank; its 49155-token table left whole) and
+   gpt-3.6b (MHA; a vocab-parallel tied table) at published width and depth
+   through ``InferenceSession.generate`` (bf16: the first token equal, the
+   agreement by step printed) and gpt-3.6b's ``prefill`` (phase 5's rule);
+   both at 2 layers in f32 (tokens over 16 steps equal, prefill logits
+   within 1e-4 of the largest); gpt-3.6b training at 4 of 30 layers (2 x
+   1024 a micro-batch, gas 2, remat full) one step in f32 without and with
+   sequence parallel (loss 1e-5 relative, every parameter 1e-5 but for
+   Adam's noise-floor entries), then one bf16 step.  Each run's K1-K5
+   launches and the head counts they ran at (16/4 and 16/16), and its
+   collectives by kind (``core/tp.py``'s counter) are exact, beside the
+   cost model's 4 all-reduces a layer; the compute mode must not be
+   ``Exclusive_Process``; times are labelled as two time-sliced ranks;
+21. prints each phase's seconds, a ``{"planning": {...}}`` line, a
+   ``{"tp": {...}}`` line, a ``{"kernels": [...]}`` line and, last,
+   ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  It also exits non-zero
 when CUDA is not available, or when it does not stand in a checkout of the
@@ -153,6 +171,7 @@ import dataclasses
 import functools
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -225,6 +244,18 @@ DRILL = dict(arch="granite_3_2b", n_layers=1, seq=128, batch=8, lr=1e-3)
 F32_DRILL = dict(n_layers=1, vocab_size=4096, dtype="float32")
 DRILLS = ("skip", "rollback", "crash_restart", "ckpt_retry", "consensus_skip",
           "replica_loss_replan")
+
+
+# phase 20: tensor parallelism as two ranks on the one card over gloo (NCCL
+# takes one rank per card).  granite (GQA 32/8, its 49155-token tied table
+# left whole: 2 does not divide it) and gpt-3.6b (MHA, a vocab-parallel tied
+# table) at published width and depth serve greedy tokens; both at 2 layers
+# in f32 for the identities; gpt-3.6b trains at 4 of its 30 layers, 2 x 1024
+# tokens a micro-batch, 2 micro-batches, remat full
+TP = dict(ranks=2, batch=2, prompt_len=128, new_tokens=16, prefill=(2, 256), f32_layers=2,
+          train=dict(arch="gpt_36b", n_layers=4, seq_len=1024, global_batch=4, gas=2))
+TP_DIR = ROOT / "build" / "chip_smoke_tp"
+TP_LABEL = "two ranks time-sliced on one card over gloo"
 
 
 class SmokeFailure(Exception):
@@ -2332,6 +2363,440 @@ def phase_drills_f32_identity(torch, get_config, TrainSession, stepfn, Paralleli
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 20: tensor parallelism, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+def expected_collectives(L: int, G: int, *, remat: str, sp: bool, vocab_parallel: bool):
+    """The collectives one train step at tp > 1 calls, by kind, as the code
+    implies them (``core/tp.py``'s regions), at L layers and G micro-batches.
+
+    Per micro-batch without sequence parallel: all-reduces for the
+    vocab-parallel embedding, two a block forward (the row-parallel exits),
+    two a block backward (the column-parallel entries), one a block again
+    under remat "full"/"dots" (the recomputed attention exit: the replay
+    stops once the MLP's saved input is rebuilt, before the MLP's exit), the
+    unembed entry's backward and the cross-entropy's sums (with a vocab-
+    parallel table; its max is ``all_reduce_max``) and the finite check.
+    Under sequence parallel the block's entries are all-gathers and its
+    exits reduce-scatters (their backwards the other way round), the
+    recompute replays the attention's two and the MLP's entry, the last
+    hidden states are gathered (a reduce-scatter backward with a
+    vocab-parallel table), the embedded sequence split (an all-gather
+    backward), and one all-reduce sums the norms' gradients.  Per step the
+    skip gate's and AdamW's gradient norms add an all-reduce each."""
+    vp, rec = int(vocab_parallel), 0 if remat == "none" else 1
+    if sp:
+        per = {"all_reduce": 2 * vp + 2, "all_reduce_max": vp,
+               "all_gather": 2 * L + 1 + rec * 2 * L + 2 * L + 1,
+               "reduce_scatter": 2 * L + rec * L + 2 * L + vp}
+    else:
+        per = {"all_reduce": 3 * vp + (4 + rec) * L + 1, "all_reduce_max": vp}
+    out = {k: G * v for k, v in per.items() if v}
+    out["all_reduce"] += 2
+    return out
+
+
+def expected_serving_collectives(L: int, decode_steps: int, *, vocab_parallel: bool,
+                                 sp: bool = False):
+    """The collectives of a prefill and ``decode_steps`` decode steps at
+    tp > 1: a block's two row-parallel exits (all-reduces; under sequence
+    parallel, in the prefill, reduce-scatters, with its entries
+    all-gathers and the last hidden states gathered), and with a
+    vocab-parallel table the embedding's and the gathered logits'
+    all-reduces each pass.  Decode steps run without sequence parallel."""
+    vp = int(vocab_parallel)
+    out = {"all_reduce": 2 * vp + (0 if sp else 2 * L) + decode_steps * (2 * L + 2 * vp)}
+    if sp:
+        out.update(all_gather=2 * L + 1, reduce_scatter=2 * L)
+    return {k: v for k, v in out.items() if v}
+
+
+@contextlib.contextmanager
+def recording_heads(heads):
+    """Inside this block every launch of K1-K5 also adds one to
+    ``heads[(kernel, Hq, Hkv)]``: the head counts the kernel ran at."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    wrapped = [(fa, "flash_fwd", 0, 1), (fa, "flash_delta", 0, 0), (fa, "flash_dq", 0, 1),
+               (fa, "flash_dkv", 0, 1), (da, "decode_attention", 0, 1)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _, _ in wrapped]
+
+    def wrap(name, fn, iq, ik):
+        def rec(*a, **k):
+            heads[(name, a[iq].shape[2], a[ik].shape[2])] += 1
+            return fn(*a, **k)
+        return rec
+
+    for (mod, name, iq, ik), (_, _, fn) in zip(wrapped, saved):
+        setattr(mod, name, wrap(name, fn, iq, ik))
+    try:
+        yield heads
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _tp_prompts(np, vocab, shape, seed):
+    return np.random.RandomState(seed).randint(0, vocab, size=shape).astype(np.int32)
+
+
+def _adam_close(got, want, m_want, lr):
+    """(worst |got - want| off the floor, entries on it, entries) for params
+    after one AdamW step: its first update is lr·g/(|g| + eps), so an entry
+    whose gradient is at the f32 noise floor (|g| <= 1e-6 of its leaf's
+    largest: ~1e-9, the order of eps) can move by up to 2·lr when the sums
+    are reordered; every other entry is held to 1e-5 (abs + rel)."""
+    d = (got.float() - want.float()).abs()
+    ok = d <= 1e-5 + 1e-5 * want.float().abs()
+    g = m_want.float().abs()
+    floor = (~ok) & (g <= 1e-6 * g.max()) & (d <= 2 * lr)
+    if not bool((ok | floor).all()):
+        return float("inf"), int(floor.sum()), d.numel()
+    return float((d * ok).max()), int(floor.sum()), d.numel()
+
+
+def _tp_train_session(get_config, TrainSession, stepfn, ParallelismConfig, DataConfig,
+                      dtype, *, plan_kw=None, mesh=None):
+    spec = TP["train"]
+    cfg, full = _dense_cfg(get_config, spec)
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    plan = ParallelismConfig(gas=spec["gas"], remat_policy="full", **(plan_kw or {}))
+    sess = TrainSession.from_recipe(
+        cfg, seed=0, plan=plan, mesh=mesh,
+        train_cfg=stepfn.TrainConfig(total_steps=4, warmup=2),
+        data_cfg=DataConfig(seq_len=spec["seq_len"], global_batch=spec["global_batch"]))
+    return sess, cfg, full
+
+
+def _timed_step(torch, sess):
+    """One step: (metrics as floats, host seconds, CUDA-event ms on this
+    process's stream)."""
+    sess.batches(sess._next_step)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    m = sess.step()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ({k: float(v) for k, v in m.items()}, time.perf_counter() - t0,
+            ev[0].elapsed_time(ev[1]))
+
+
+def phase_tp(torch, np, get_config, InferenceSession, TrainSession, stepfn, ParallelismConfig,
+             DataConfig, tree_map, smi):
+    """Tensor parallelism at tp = 2 as two processes on the one card over
+    gloo, each result held to tp = 1 on the same card and seed: the tp = 1
+    references first (this process, kept on the host, the card freed), then
+    the ranks (``_tp_rank``)."""
+    import torch.multiprocessing as mp
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+    log(f"[tp] compute mode {mode}; {smi}")
+    require(mode != "Exclusive_Process",
+            "the card's compute mode is Exclusive_Process: two ranks cannot share it")
+    TP_DIR.mkdir(parents=True, exist_ok=True)
+    B, P, N = TP["batch"], TP["prompt_len"], TP["new_tokens"]
+    ref = {}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for arch in ("granite_3_2b", "gpt_36b"):
+            sess = InferenceSession.from_recipe(arch, seed=0)
+            prompts = _tp_prompts(np, sess.cfg.vocab_size, (B, P), 2)
+            ts = time.perf_counter()
+            ref[f"{arch}/tokens"] = sess.generate(prompts, N).cpu()
+            torch.cuda.synchronize()
+            ref[f"{arch}/generate_s"] = time.perf_counter() - ts
+            if arch == "gpt_36b":
+                pt = _tp_prompts(np, sess.cfg.vocab_size, TP["prefill"], 3)
+                ref["gpt_36b/prefill"] = sess.prefill({"tokens": pt}, last_only=False).cpu()
+                cfg32 = dataclasses.replace(sess.cfg, dtype="float32")
+                params32 = tree_map(lambda x: x.float(), sess.params)
+                device = sess.device
+                del sess
+                s32 = InferenceSession(cfg32, params32, device=device)
+                ref["gpt_36b/prefill_f32"] = s32.prefill({"tokens": pt}, last_only=False).cpu()
+                del s32, params32
+            else:
+                del sess
+            torch.cuda.empty_cache()
+        for arch in ("granite_3_2b", "gpt_36b"):
+            cfg = dataclasses.replace(get_config(arch), n_layers=TP["f32_layers"],
+                                      dtype="float32")
+            sess = InferenceSession.from_recipe(cfg, seed=1)
+            prompts = _tp_prompts(np, cfg.vocab_size, (B, P), 4)
+            ref[f"{arch}/f32_tokens"] = sess.generate(prompts, N).cpu()
+            ref[f"{arch}/f32_prefill"] = sess.prefill({"tokens": prompts}, last_only=False).cpu()
+            del sess
+            torch.cuda.empty_cache()
+    sess, cfg, full = _tp_train_session(get_config, TrainSession, stepfn, ParallelismConfig,
+                                        DataConfig, "float32")
+    m, _, _ = _timed_step(torch, sess)
+    torch.save({"params": tree_map(lambda x: x.detach().cpu(), sess.state["params"]),
+                "m": tree_map(lambda x: x.detach().cpu(), sess.state["opt"]["m"])},
+               TP_DIR / "train_f32.pt")
+    _, host_s, ev_ms = _timed_step(torch, sess)          # warm: the time of a step
+    ref["train_f32"] = dict(metrics=m, s=host_s, event_ms=ev_ms)
+    del sess
+    torch.cuda.empty_cache()
+    sess, _, _ = _tp_train_session(get_config, TrainSession, stepfn, ParallelismConfig,
+                                   DataConfig, None)
+    m, _, _ = _timed_step(torch, sess)
+    _, host_s, ev_ms = _timed_step(torch, sess)
+    ref["train_bf16"] = dict(metrics=m, s=host_s, event_ms=ev_ms)
+    del sess
+    torch.cuda.empty_cache()
+    log(f"[tp] tp = 1 references on the card in {time.perf_counter() - t0:.1f} s: "
+        f"train ({_describe(cfg, full)}) f32 loss {ref['train_f32']['metrics']['loss']:.6f}, "
+        f"bf16 loss {ref['train_bf16']['metrics']['loss']:.6f}")
+    torch.save(ref, TP_DIR / "ref.pt")
+
+    # the ranks: two processes on cuda:0, gloo over localhost
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    mp.start_processes(_tp_rank, args=(TP["ranks"], port), nprocs=TP["ranks"], join=True,
+                       start_method="spawn")
+    ranks_s = time.perf_counter() - t0
+    outs = [torch.load(TP_DIR / f"rank{r}.pt", weights_only=False) for r in range(TP["ranks"])]
+    shutil.rmtree(TP_DIR)
+    return _tp_check(torch, get_config, ref, outs, ranks_s, mode, smi)
+
+
+def _tp_rank(rank: int, world: int, port: int) -> None:
+    """One rank of phase 20 (a spawned process): every tp = 2 run, its
+    results and checks to ``TP_DIR/rank<r>.pt``."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        out = _tp_rank_runs(torch, np, world)
+        torch.save(out, TP_DIR / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_rank_runs(torch, np, world):
+    import collections
+    from repro_torch.configs import get_config
+    from repro_torch.core import sharding, stepfn, tp
+    from repro_torch.core.recipe import ParallelismConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import describe, make_recipe_mesh
+    from repro_torch.session import InferenceSession, TrainSession
+    mesh = make_recipe_mesh(tp=world, device_type="cuda")
+    B, P, N = TP["batch"], TP["prompt_len"], TP["new_tokens"]
+    out = {"mesh": describe(mesh)}
+
+    def counted(key, fn):
+        """``fn()`` with the launch, head and collective counts zeroed just
+        before and read just after, timed on the host."""
+        heads = collections.Counter()
+        build.launch_counts.clear()
+        tp.counts.clear()
+        tp.nbytes.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recording_heads(heads):
+            res = fn()
+        torch.cuda.synchronize()
+        out[key] = dict(s=time.perf_counter() - t0, launches=dict(build.launch_counts),
+                        heads=dict(heads), collectives=dict(tp.counts), bytes=dict(tp.nbytes))
+        return res
+
+    plan = ParallelismConfig(tp=world)
+    with torch.inference_mode():
+        for arch in ("granite_3_2b", "gpt_36b"):
+            sess = InferenceSession.from_recipe(arch, seed=0, plan=plan, mesh=mesh)
+            prompts = _tp_prompts(np, sess.cfg.vocab_size, (B, P), 2)
+            out[f"{arch}/tokens"] = counted(f"{arch}/generate",
+                                            lambda: sess.generate(prompts, N)).cpu()
+            if arch == "gpt_36b":
+                pt = _tp_prompts(np, sess.cfg.vocab_size, TP["prefill"], 3)
+                out["gpt_36b/prefill"] = counted(
+                    "gpt_36b/prefill_run",
+                    lambda: sess.prefill({"tokens": pt}, last_only=False)).cpu()
+            out[f"{arch}/peak_bytes"] = torch.cuda.max_memory_allocated()
+            del sess
+            torch.cuda.empty_cache()
+        for arch in ("granite_3_2b", "gpt_36b"):
+            cfg = dataclasses.replace(get_config(arch), n_layers=TP["f32_layers"],
+                                      dtype="float32")
+            sess = InferenceSession.from_recipe(cfg, seed=1, plan=plan, mesh=mesh)
+            prompts = _tp_prompts(np, cfg.vocab_size, (B, P), 4)
+            out[f"{arch}/f32_tokens"] = sess.generate(prompts, N).cpu()
+            out[f"{arch}/f32_prefill"] = sess.prefill({"tokens": prompts},
+                                                      last_only=False).cpu()
+            del sess
+            torch.cuda.empty_cache()
+
+    ref = torch.load(TP_DIR / "train_f32.pt", mmap=True, weights_only=False)
+    for sp in (False, True):
+        tag = "train_f32_sp" if sp else "train_f32"
+        sess, cfg, _ = _tp_train_session(
+            get_config, TrainSession, stepfn, ParallelismConfig, DataConfig, "float32",
+            plan_kw=dict(tp=world, sequence_parallel=sp), mesh=mesh)
+        m, _, _ = counted(tag, lambda: _timed_step(torch, sess))
+        want = sharding.shard_params(ref["params"], mesh, sess.plan)
+        m_want = sharding.shard_params(ref["m"], mesh, sess.plan)
+        worst, on_floor, n = 0.0, 0, 0
+        for (path, got), (_, w), (_, mw) in zip(tree_leaves(sess.state["params"]),
+                                                 tree_leaves(want), tree_leaves(m_want)):
+            e, f, k = _adam_close(got.detach().cpu(), w, mw, m["lr"])
+            worst, on_floor, n = max(worst, e), on_floor + f, n + k
+        _, host_s, ev_ms = _timed_step(torch, sess)      # warm: the time of a step
+        out[tag].update(metrics=m, step_s=host_s, event_ms=ev_ms, params_worst=worst,
+                        params_on_floor=on_floor, params_n=n)
+        del sess, want, m_want
+        torch.cuda.empty_cache()
+    del ref
+    sess, _, _ = _tp_train_session(get_config, TrainSession, stepfn, ParallelismConfig,
+                                   DataConfig, None, plan_kw=dict(tp=world), mesh=mesh)
+    m, _, _ = counted("train_bf16", lambda: _timed_step(torch, sess))
+    _, host_s, ev_ms = _timed_step(torch, sess)
+    out["train_bf16"].update(metrics=m, step_s=host_s, event_ms=ev_ms,
+                             peak_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def _tp_check(torch, get_config, ref, outs, ranks_s, mode, smi):
+    """Phase 20's checks on the ranks' results; returns (the ``{"tp": ...}``
+    summary, rank 0's counted main-path launches)."""
+    out, B, P, N = outs[0], TP["batch"], TP["prompt_len"], TP["new_tokens"]
+    log(f"[tp] {TP['ranks']} ranks ({out['mesh']}) ran in {ranks_s:.1f} s")
+    for r, o in enumerate(outs[1:], 1):
+        for key in ("granite_3_2b/tokens", "gpt_36b/tokens", "granite_3_2b/f32_tokens",
+                    "gpt_36b/f32_tokens"):
+            require(torch.equal(o[key], out[key]), f"rank {r}'s {key} differ from rank 0's")
+        require(o["train_f32"]["metrics"]["loss"] == out["train_f32"]["metrics"]["loss"],
+                f"rank {r}'s loss differs from rank 0's")
+    summary = {"compute_mode": mode, "card": smi, "ranks": TP["ranks"],
+               "gloo_cuda_collectives": sorted({k for o in outs for run in o.values()
+                                                if isinstance(run, dict)
+                                                for k in run.get("collectives", {})}),
+               "times_label": TP_LABEL, "times": {}, "collectives": {}}
+    launch_runs = []
+    n = TP["ranks"]
+    for arch in ("granite_3_2b", "gpt_36b"):
+        cfg = get_config(arch)
+        L, hq, hkv = cfg.n_layers, cfg.n_heads // n, cfg.n_kv_heads // n
+        got, want = out[f"{arch}/tokens"], ref[f"{arch}/tokens"]
+        agree = (got[:, P:] == want[:, P:]).float().mean(0).tolist()
+        log(f"[tp] {arch} bf16 generate {B} x {P} + {N} at tp 2 vs tp 1: first token equal "
+            f"{bool(torch.equal(got[:, P], want[:, P]))}; agreement by step "
+            f"{[round(a, 2) for a in agree]} (bf16 near-ties may part later)")
+        require(torch.equal(got[:, :P + 1], want[:, :P + 1]),
+                f"{arch}: tp 2's first generated token differs from tp 1's")
+        run = out[f"{arch}/generate"]
+        vp = cfg.vocab_size % n == 0
+        want_c = expected_serving_collectives(L, N - 1, vocab_parallel=vp)
+        want_l = {"flash_fwd": L, "decode_attention": L * (N - 1)}
+        want_h = {("flash_fwd", hq, hkv): L, ("decode_attention", hq, hkv): L * (N - 1)}
+        log(f"[tp] {arch} generate: launches {run['launches']} (expected {want_l}), heads "
+            f"{run['heads']}, collectives {run['collectives']} (expected {want_c}), bytes "
+            f"{run['bytes']}; {run['s']:.2f} s at tp 2 ({TP_LABEL}), "
+            f"{ref[f'{arch}/generate_s']:.2f} s at tp 1; peak {out[f'{arch}/peak_bytes']} B")
+        require(run["launches"] == want_l, f"{arch} generate launches {run['launches']}")
+        require(run["heads"] == want_h, f"{arch} generate ran K1/K5 at {run['heads']}")
+        require(run["collectives"] == want_c, f"{arch} generate collectives {run['collectives']}")
+        launch_runs.append(run["launches"])
+        summary["times"][f"{arch} generate s"] = [run["s"], ref[f"{arch}/generate_s"]]
+
+    # gpt-3.6b prefill logits at every position, bf16: held to phase 5's rule
+    run = out["gpt_36b/prefill_run"]
+    gpt = get_config("gpt_36b")
+    L, hq = gpt.n_layers, gpt.n_heads // n
+    tp2, tp1, f32 = out["gpt_36b/prefill"], ref["gpt_36b/prefill"], ref["gpt_36b/prefill_f32"]
+    require(bool(tp2.isfinite().all()), "gpt-3.6b prefill at tp 2: non-finite logits")
+    diff, floor = float((tp2 - tp1).abs().max()), float((tp1 - f32).abs().max())
+    log(f"[tp] gpt_36b bf16 prefill {TP['prefill']} logits: max |tp 2 - tp 1| {diff:.4g}, bf16 "
+        f"noise floor max |tp 1 - tp 1 f32| {floor:.4g} (tol: <= {LOGIT_FLOOR_FACTOR} x "
+        f"floor); top-1 agreement {float((tp2.argmax(-1) == tp1.argmax(-1)).float().mean()):.4f}"
+        f"; launches {run['launches']}, collectives {run['collectives']}")
+    require(diff <= LOGIT_FLOOR_FACTOR * floor,
+            f"gpt-3.6b prefill: tp 2 and tp 1 differ by {diff:.4g}, more than "
+            f"{LOGIT_FLOOR_FACTOR} x bf16's own error {floor:.4g}")
+    require(run["launches"] == {"flash_fwd": L} and run["heads"] == {("flash_fwd", hq, hq): L},
+            f"gpt-3.6b prefill launches {run['launches']}, heads {run['heads']}")
+    require(run["collectives"] == expected_serving_collectives(L, 0, vocab_parallel=True),
+            f"gpt-3.6b prefill collectives {run['collectives']}")
+    launch_runs.append(run["launches"])
+
+    # the f32 identities at 2 layers, full width
+    for arch in ("granite_3_2b", "gpt_36b"):
+        got, want = out[f"{arch}/f32_tokens"], ref[f"{arch}/f32_tokens"]
+        lg, lw = out[f"{arch}/f32_prefill"], ref[f"{arch}/f32_prefill"]
+        d, top = float((lg - lw).abs().max()), float(lw.abs().max())
+        log(f"[tp] {arch} f32, {TP['f32_layers']} layers, full width: greedy tokens tp 2 == tp 1 "
+            f"over {N} steps: {bool(torch.equal(got, want))}; prefill logits max |tp 2 - tp 1| "
+            f"{d:.4g} ({d / top:.3g} of max |logit|, tol 1e-4)")
+        require(torch.equal(got, want), f"{arch} f32: tp 2's tokens differ from tp 1's")
+        require(d <= 1e-4 * top, f"{arch} f32: prefill logits differ by {d:.4g}")
+
+    # gpt-3.6b training, 4 of 30 layers
+    spec = TP["train"]
+    L, G = spec["n_layers"], spec["gas"]
+    mbs = spec["global_batch"] // G
+    cm_bytes = mbs * spec["seq_len"] * gpt.d_model * 2
+    want_l = {"flash_fwd": 2 * L * G, "flash_delta": L * G, "flash_dq": L * G, "flash_dkv": L * G}
+    want_h = {(k, hq, hq): c for k, c in want_l.items()}
+    rm = ref["train_f32"]["metrics"]
+    for tag, sp in (("train_f32", False), ("train_f32_sp", True), ("train_bf16", False)):
+        run = out[tag]
+        m = run["metrics"]
+        want_c = expected_collectives(L, G, remat="full", sp=sp, vocab_parallel=True)
+        base = ref["train_bf16"] if tag == "train_bf16" else ref["train_f32"]
+        log(f"[tp] gpt_36b {tag} at tp 2 (sp {sp}): loss {m['loss']:.6f} (tp 1 "
+            f"{base['metrics']['loss']:.6f}), grad_norm {m['grad_norm']:.6f} (tp 1 "
+            f"{base['metrics']['grad_norm']:.6f}), skipped {m['skipped']:.0f}; the second "
+            f"step {run['step_s'] * 1e3:.1f} ms host, {run['event_ms']:.1f} ms CUDA events at tp "
+            f"2 ({TP_LABEL}); tp 1 {base['s'] * 1e3:.1f} ms host, {base['event_ms']:.1f} ms "
+            "events")
+        log(f"[tp] gpt_36b {tag}: launches {run['launches']}, heads {run['heads']}; collectives "
+            f"{run['collectives']} (expected {want_c}), bytes {run['bytes']}; the cost model "
+            f"assumes {4 * L * G} all-reduces of {cm_bytes} B ({4 * L * G * cm_bytes} B) a step")
+        require(run["launches"] == want_l and run["heads"] == want_h,
+                f"{tag}: launches {run['launches']}, heads {run['heads']}")
+        require(run["collectives"] == want_c, f"{tag}: collectives {run['collectives']}")
+        require(math.isfinite(m["loss"]) and m["skipped"] == 0.0, f"{tag}: {m}")
+        summary["times"][f"{tag} step ms (host, events)"] = [run["step_s"] * 1e3,
+                                                             run["event_ms"]]
+        summary["collectives"][tag] = {"calls": run["collectives"], "bytes": run["bytes"],
+                                       "cost_model_all_reduces": 4 * L * G,
+                                       "cost_model_bytes": 4 * L * G * cm_bytes}
+        launch_runs.append(run["launches"])
+        if tag == "train_bf16":
+            continue
+        rel = abs(m["loss"] - rm["loss"]) / abs(rm["loss"])
+        log(f"[tp] gpt_36b {tag}: loss rel diff {rel:.3g} (tol 1e-5); params after the step "
+            f"max |tp 2 - tp 1| {run['params_worst']:.3g} ({rule(1e-5)}), "
+            f"{run['params_on_floor']} of {run['params_n']} entries at Adam's noise floor "
+            f"(|g| <= 1e-6 of the leaf's max; held to 2 x lr)")
+        require(rel <= 1e-5, f"{tag}: loss differs by {rel:.3g} relative")
+        require(math.isfinite(run["params_worst"]), f"{tag}: params differ beyond the rule")
+        require(run["params_on_floor"] <= 1e-4 * run["params_n"],
+                f"{tag}: {run['params_on_floor']} entries at the noise floor")
+    summary["times"]["tp 1 train_f32 step ms (host, events)"] = [
+        ref["train_f32"]["s"] * 1e3, ref["train_f32"]["event_ms"]]
+    summary["times"]["tp 1 train_bf16 step ms (host, events)"] = [
+        ref["train_bf16"]["s"] * 1e3, ref["train_bf16"]["event_ms"]]
+    summary["sequence_parallel_on_card"] = True
+    return summary, launch_runs
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a checkout of "
@@ -2435,6 +2900,9 @@ def main() -> int:
               InferenceSession, arch, n_layers)
         timed(f"18 f32 train {arch}", phase_train_f32_identity, torch, fa, da, get_config,
               TrainSession, stepfn, ParallelismConfig, DataConfig, arch, n_layers)
+    tp_summary, tp_launches = timed("20 tensor parallel", phase_tp, torch, np, get_config,
+                                    InferenceSession, TrainSession, stepfn, ParallelismConfig,
+                                    DataConfig, tree_map, smi)
     timing = timed("14 timing", phase_timing, torch, fa, da, rn, smi)
     log(f"[phase] all phases {sum(seconds.values()):.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
@@ -2463,11 +2931,12 @@ def main() -> int:
     # the reference, so no main path launches it
     runs = [serve_launches, train_launches, *stream_launches.values(), *cli_launches,
             eval_launches, *(c for pair in dense_launches.values() for c in pair),
-            *h2o_stream_launches.values(), h2o_train_launches]
+            *h2o_stream_launches.values(), h2o_train_launches, *tp_launches]
     log(f"[launches] generate {serve_launches}; train step {train_launches}; stream "
         f"{stream_launches}; training CLI (crashed, resumed) {cli_launches}; eval sweep "
         f"{eval_launches}; dense arm (prefill, generate) {dense_launches}; h2o stream "
-        f"{h2o_stream_launches}; h2o train step {h2o_train_launches}")
+        f"{h2o_stream_launches}; h2o train step {h2o_train_launches}; tp = 2 rank 0 "
+        f"(granite and gpt-3.6b generate, gpt-3.6b prefill, three train steps) {tp_launches}")
     for kr in kernels:
         r = timing[kr["name"]]
         n = sum(c.get(kr["name"], 0) for c in runs)
@@ -2476,6 +2945,7 @@ def main() -> int:
                   bound_by=r["bound_by"], library_ms=r["library_ms"])
     log(f"[env] card: {smi}")
     print(json.dumps({"planning": planning}), flush=True)
+    print(json.dumps({"tp": tp_summary}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

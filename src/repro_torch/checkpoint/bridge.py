@@ -16,6 +16,10 @@ the port's per-layer ``blocks`` lists restack into (L, ...) leaves under the
 reference's paths, in the reference's leaf order (dict keys sorted), every
 leaf a host copy that the live state can no longer change; bf16 leaves
 become 2-byte void records, as numpy stores the reference's.
+
+Under tensor parallelism every rank bridges the whole parameters and keeps
+its slices with ``core.sharding.shard_params`` (``InferenceSession.
+from_params`` with ``mesh=`` does both).
 """
 
 from __future__ import annotations

@@ -1,12 +1,15 @@
-"""The paper's parallelism recipe: ``ParallelismConfig`` and the
-``RecipeAdvisor`` (the paper's §7 checklist), copies of
-``repro.core.recipe``'s, without the mesh functions, which come with the
-parallel recipe's port.
+"""The paper's parallelism recipe: ``ParallelismConfig``, the mesh
+functions (``factorize_production_mesh``, ``axis_mapping``, ``fsdp_axes``)
+and the ``RecipeAdvisor`` (the paper's §7 checklist), copies of
+``repro.core.recipe``'s.  ``factorize_production_mesh`` reshapes a grid of
+process ranks (``launch/mesh.py``) where the reference reshapes a grid of
+devices.
 
-On one device the train step takes ``tp = pp = 1``; ``dp`` and ``pods``
-are accepted without a mesh, as the reference accepts them (one replica
-group computes; the consensus drills simulate replicas with
-``ResilienceConfig.consensus_replicas``).  ``zero_stage``,
+Without a mesh the train step computes ``tp``, ``dp`` and ``pods`` as one
+device, as the reference does (one replica group computes; the consensus
+drills simulate replicas with ``ResilienceConfig.consensus_replicas``); on
+a mesh it runs ``tp`` over ``torch.distributed`` (``core/tp.py``), and
+``core.stepfn.check_plan`` says what else waits.  ``zero_stage``,
 ``overlap_zero`` and ``gather_params_once`` change nothing without a mesh,
 exactly as in the reference.  ``flash_bq``/``flash_bk`` are accepted and
 ignored: the port's flash kernels choose their own tiles.  The advisor's
@@ -17,7 +20,9 @@ of 8).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
+
+import numpy as np
 
 from repro_torch.core.systems import H100_SXM, System
 
@@ -66,6 +71,50 @@ class ParallelismConfig:
                 f"(gas={self.gas}, pp={self.pp})")
         if devices is not None and self.world != devices:
             raise ValueError(f"world={self.world} != devices={devices}")
+
+
+def factorize_production_mesh(grid: np.ndarray, plan: ParallelismConfig) -> np.ndarray:
+    """Reshape a production grid of ranks, ``(data, model)`` or ``(pod,
+    data, model)``, into the logical ``(pod, data, pp, tp)`` recipe grid.
+
+    The TP axis is innermost (consecutive ranks share a TP group, the
+    paper's "TP inside the node" rule); PP is the next axis out; DP and pod
+    outermost."""
+    grid = np.asarray(grid)
+    if grid.ndim == 2:           # (data, model)
+        pods = 1
+        data, model = grid.shape
+    else:                        # (pod, data, model)
+        pods, data, model = grid.shape
+    if plan.pods != pods or plan.dp != data or plan.tp * plan.pp != model:
+        raise ValueError(
+            f"plan (pods={plan.pods}, dp={plan.dp}, pp*tp={plan.pp * plan.tp}) "
+            f"does not factorize mesh {grid.shape}")
+    return grid.reshape(pods, data, plan.pp, plan.tp)
+
+
+def axis_mapping(plan: ParallelismConfig) -> Dict[str, object]:
+    """Logical axis → mesh axis mapping for `repro_torch.core.sharding`."""
+    mapping: Dict[str, object] = {
+        "tp": "tp",
+        "stage": "pp",
+        "chunks": None,            # virtual-stage axis: chunks co-reside on
+        # their physical stage's devices, so the leading VPP axis of
+        # interleaved-stacked block params is never sharded
+        "batch": ("pod", "data"),
+        "expert": "tp",            # EP rides the model axis (beyond-paper)
+        "layers": None,
+        "embed": None,
+        "seq": "tp" if plan.sequence_parallel else None,
+    }
+    if plan.zero_stage >= 3:
+        mapping["embed"] = "data"  # FSDP params over the intra-pod data axis
+    return mapping
+
+
+def fsdp_axes(plan: ParallelismConfig) -> Tuple[str, ...]:
+    """Mesh axes the ZeRO optimizer-state shard spreads over."""
+    return ("pod", "data") if plan.zero_stage >= 1 else ()
 
 
 # ---------------------------------------------------------------------------

@@ -17,16 +17,28 @@ The serving steps (``make_serve_step``, ``make_prefill_cache``, the slot
 steps and the paged steps) and the slot and page operations update their
 caches and pools in place, where the reference donates them;
 ``make_prefill`` keeps no cache.
+
+``mesh`` (a ``launch.mesh.RecipeMesh``, as the reference's ``mesh=``) runs
+a step tensor-parallel: each step installs the recipe's axis rules
+(``core.sharding.axis_rules``) around its body, the state holds this
+rank's slices (``core.sharding.shard_params``), the gradient norm and the
+int8 scale are taken over the tp group, and under sequence parallel the
+replicated norms' gradients (partial sums over this rank's positions) are
+all-reduced before anything reads them.  The serving steps gather the
+vocabulary-sharded logits before the argmax.  :func:`check_plan` says
+which plans wait for later parts of the recipe.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch.core.recipe import ParallelismConfig
+from repro_torch.core import sharding, tp
+from repro_torch.core.recipe import ParallelismConfig, axis_mapping
 from repro_torch.core.tree import tree_leaves
 from repro_torch.models import api as model_api
 from repro_torch.models.config import ModelConfig
@@ -45,15 +57,49 @@ class TrainConfig:
     resilience: ResilienceConfig = dataclasses.field(default_factory=ResilienceConfig)
 
 
-def check_single_device(plan: ParallelismConfig) -> None:
-    """tp and pp need the parallel recipe; dp and pods are accepted without a
-    mesh, as the reference accepts them (one replica group computes)."""
-    for axis in ("tp", "pp"):
-        if getattr(plan, axis) > 1:
+PARALLEL = "(ROADMAP Queue 1, item 3: the parallel recipe over torch.distributed)"
+
+
+def check_plan(plan: ParallelismConfig, mesh=None, cfg: Optional[ModelConfig] = None) -> None:
+    """The plan against the mesh.  Without a mesh tp, dp and pods compute as
+    one device, as the reference computes them; pp needs the pipeline.  On
+    a mesh tp runs over it, and what needs ZeRO's sharded states or real
+    replicas raises; tp must divide ``cfg``'s heads, KV heads and d_ff (the
+    port shards whole heads)."""
+    if plan.pp > 1:
+        raise NotImplementedError(f"pp={plan.pp}: the pipeline is not ported yet {PARALLEL}")
+    if mesh is None:
+        return
+    waiting = {"dp": plan.dp > 1, "pods": plan.pods > 1,
+               "zero_stage": plan.zero_stage >= 2, "overlap_zero": plan.overlap_zero,
+               "gather_params_once": plan.gather_params_once}
+    for name, on in waiting.items():
+        if on:
             raise NotImplementedError(
-                f"{axis}={getattr(plan, axis)}: the parallel recipe is not ported yet "
-                "(ROADMAP Queue 1, item 3: the parallel recipe over torch.distributed); "
-                "this step runs on one device")
+                f"{name}={getattr(plan, name)} on a mesh: data parallelism and ZeRO's "
+                f"sharded states are not ported yet {PARALLEL}")
+    if mesh.shape["tp"] != plan.tp:
+        raise ValueError(f"plan tp={plan.tp} but the mesh's tp axis is {mesh.shape['tp']} "
+                         "ranks wide")
+    if cfg is not None:
+        for what in ("n_heads", "n_kv_heads", "d_ff"):
+            if getattr(cfg, what) % plan.tp:
+                raise ValueError(f"{cfg.name}: tp={plan.tp} does not divide {what}="
+                                 f"{getattr(cfg, what)} (the port shards whole heads and "
+                                 "d_ff columns)")
+
+
+def _rules(plan: ParallelismConfig, mesh, **override):
+    """The recipe's axis rules on ``mesh`` (``override`` replacing entries of
+    the mapping), or nothing without a mesh."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    return sharding.axis_rules(mesh, dict(axis_mapping(plan), **override))
+
+
+def _whole_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Logits over the whole vocabulary (a sampler's, a caller's)."""
+    return tp.gather_vocab(logits) if logits.shape[-1] != cfg.vocab_size else logits
 
 
 def _micro_bits(bad: torch.Tensor) -> torch.Tensor:
@@ -76,10 +122,14 @@ def init_rstat(device) -> Dict[str, torch.Tensor]:
 
 
 def init_state(cfg: ModelConfig, plan: ParallelismConfig, gen: torch.Generator,
-               train_cfg: TrainConfig = TrainConfig()) -> Dict[str, Any]:
-    """fp32 parameters from ``gen`` on its device, AdamW moments, step 0."""
-    check_single_device(plan)
+               train_cfg: TrainConfig = TrainConfig(), mesh=None) -> Dict[str, Any]:
+    """fp32 parameters from ``gen`` on its device, AdamW moments, step 0.  On
+    a mesh every rank draws the whole model from ``gen`` and keeps its
+    slices, so tp = k starts from the bits of tp = 1."""
+    check_plan(plan, mesh, cfg)
     params = model_api.init_params(cfg, gen)
+    if mesh is not None:
+        params = sharding.shard_params(params, mesh, plan)
     state = {"params": params, "opt": adamw.init_opt_state(params),
              "step": torch.zeros((), dtype=torch.int32, device=gen.device),
              "rstat": init_rstat(gen.device)}
@@ -96,21 +146,50 @@ def _scale_(grads: List[torch.Tensor], s: torch.Tensor) -> None:
 
 
 def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
-                    train_cfg: TrainConfig = TrainConfig()):
+                    train_cfg: TrainConfig = TrainConfig(), mesh=None):
     """Returns train_step(state, batch) → (state, metrics); ``batch`` holds
     tensors on the state's device, optionally ``_chaos_grad_scale`` (the
-    fault-injection harness' gradient multiplier, per micro-batch)."""
-    check_single_device(plan)
+    fault-injection harness' gradient multiplier, per micro-batch).  On a
+    mesh every tp rank takes the whole batch."""
+    check_plan(plan, mesh, cfg)
     rs = train_cfg.resilience
+    if mesh is not None and (rs.consensus_replicas or 1) > 1:
+        raise NotImplementedError(
+            f"consensus_replicas={rs.consensus_replicas} on a mesh: the consensus vote "
+            f"over real replicas is not ported yet {PARALLEL}")
     # replica groups that vote on a skip: without a mesh only a simulated
     # fleet (``consensus_replicas``) has more than one
     n_rep = (rs.consensus_replicas or 1) if rs.enabled and rs.consensus else 1
+    # per leaf (in ``tree_leaves`` order): tp-sharded; under sequence
+    # parallel, a replicated norm leaf whose gradient is a partial sum
+    layout: Dict[str, list] = {}
+
+    def leaf_layout(params):
+        """Fill ``layout`` on a mesh's first step (under its rules)."""
+        if mesh is None or layout:
+            return
+        paths = [p for p, _ in tree_leaves(params)]
+        dims = sharding.tp_dims(sharding.whole_shapes(params, mesh, plan, cfg.vocab_size),
+                                mesh, plan)
+        layout["sharded"] = [dims[p] is not None for p in paths]
+        layout["sp_partial"] = [i for i, p in enumerate(paths)
+                                if tp.sequence_parallel() and dims[p] is None
+                                and any("norm" in str(k) for k in p[:-1])]
+
+    def norm(grads):
+        return adamw.global_norm(grads, layout.get("sharded"))
 
     def value_and_grad(leaves, params, batch):
         loss, metrics = model_api.loss_fn(cfg, params, batch,
                                           remat_policy=plan.remat_policy)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        sp_partial = layout.get("sp_partial")
+        if sp_partial:
+            # one all-reduce for every norm's partial sums over the positions
+            flat = tp.all_reduce(torch.cat([grads[i].reshape(-1) for i in sp_partial]))
+            for i, g in zip(sp_partial, flat.split([grads[i].numel() for i in sp_partial])):
+                grads[i] = g.view_as(grads[i])
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def token_weights(batch, n: int) -> torch.Tensor:
@@ -133,7 +212,7 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
             loss, metrics, g = value_and_grad(leaves, params, mb)
             if scale is not None:
                 _scale_(g, scale[i])
-            fin = torch.isfinite(adamw.global_norm(g))
+            fin = torch.isfinite(norm(g))
             with torch.no_grad():
                 for a, gi in zip(acc, g):
                     a.add_(torch.where(fin, (gi * wn[i]).to(a.dtype), zero))
@@ -156,7 +235,7 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
             loss, metrics, grads = value_and_grad(leaves, params, batch)
             if chaos_scale is not None:
                 _scale_(grads, torch.prod(chaos_scale.to(torch.float32)))
-            usable = torch.isfinite(adamw.global_norm(grads))
+            usable = torch.isfinite(norm(grads))
             aux = {"usable": usable,
                    "nonfinite_micros": (~usable).to(torch.int32),
                    "bad_replicas": torch.zeros((), dtype=torch.int32, device=usable.device),
@@ -280,15 +359,20 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
         return loss, metrics, total, aux
 
     def train_step(state, batch):
+        with _rules(plan, mesh):
+            return _train_step(state, batch)
+
+    def _train_step(state, batch):
         batch = dict(batch)
         chaos_scale = batch.pop("_chaos_grad_scale", None)
         rstat = state["rstat"]
+        leaf_layout(state["params"])
         loss, metrics, grads, aux = grads_and_metrics(state["params"], batch, chaos_scale,
                                                       rstat)
         device = loss.device
 
         # in-step anomaly signals, all on the device
-        gnorm = adamw.global_norm(grads)
+        gnorm = norm(grads)
         finite = aux["usable"] & torch.isfinite(gnorm)
         armed = rstat["n"] >= rs.warmup_steps
         std = torch.sqrt(torch.clamp_min(rstat["var"], 1e-12))
@@ -319,12 +403,14 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
         # skip → zero-update: params, m, v, Adam's step and ef stay as they
         # were (applied leaf by leaf, in place); the step count advances
         keep = skip if rs.enabled else None
-        grads = apply_compression(grads, train_cfg.compression, state.get("ef"), skip=keep)
+        sharded = layout.get("sharded")
+        grads = apply_compression(grads, train_cfg.compression, state.get("ef"), skip=keep,
+                                  sharded=sharded)
         lr = schedule.lr_schedule(state["step"], peak=train_cfg.peak_lr,
                                   warmup=train_cfg.warmup, total=train_cfg.total_steps)
         lr = lr * schedule.rewarm_factor(rstat["rewarm"], rs.rewarm_steps)
         om = adamw.adamw_update(grads, state["opt"], state["params"], lr, train_cfg.adam,
-                                skip=keep)
+                                skip=keep, sharded=sharded)
         del grads
         new_state = dict(state, step=state["step"] + 1, rstat=new_rstat)
         metrics = dict(metrics, loss=loss, **om)
@@ -343,56 +429,77 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
     return train_step
 
 
-def make_eval_step(cfg: ModelConfig, plan: ParallelismConfig):
+def make_eval_step(cfg: ModelConfig, plan: ParallelismConfig, mesh=None):
     """(params, batch) → the loss metrics {"xent", "aux"}, without gradients."""
+    check_plan(plan, mesh, cfg)
 
     def eval_step(params, batch):
-        with torch.no_grad():
+        with torch.no_grad(), _rules(plan, mesh):
             _, metrics = model_api.loss_fn(cfg, params, batch, remat_policy="none")
         return metrics
 
     return eval_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, plan: Optional[ParallelismConfig] = None, mesh=None):
     """One greedy decode step: (params, token (B,), t, caches) →
     (next token (B,) int32, caches); ``t`` is an int, or a (B,) int32
     tensor of one position per row.  ``torch.argmax`` takes the first
-    maximum, as ``jnp.argmax`` does."""
+    maximum, as ``jnp.argmax`` does; on a mesh over the gathered logits.
+    One position a row: no sequence parallel."""
+    plan = plan or ParallelismConfig()
+    check_plan(plan, mesh, cfg)
 
     def serve_step(params, token, t, caches):
-        logits, caches = model_api.decode_step(cfg, params, token, t, caches)
-        return logits.argmax(dim=-1).to(torch.int32), caches
+        with _rules(plan, mesh, seq=None):
+            logits, caches = model_api.decode_step(cfg, params, token, t, caches)
+            return _whole_logits(cfg, logits).argmax(dim=-1).to(torch.int32), caches
 
     return serve_step
 
 
-def make_prefill(cfg: ModelConfig, *, last_only: bool = False):
+def make_prefill(cfg: ModelConfig, plan: Optional[ParallelismConfig] = None, mesh=None, *,
+                 last_only: bool = False):
     """Teacher-forced full-sequence forward, the prefill phase without a
     cache: (params, batch) → fp32 logits (B, S, V), or (B, 1, V) for the
     last position alone when ``last_only`` (the hidden states are sliced
     before the unembed, so the (S, V) product is never formed).  No remat
     (``model_api.forward`` runs with ``remat_policy="none"``) and no
     autograd graph, as the reference's ``make_prefill``."""
+    plan = plan or ParallelismConfig()
+    check_plan(plan, mesh, cfg)
 
     def prefill(params, batch):
-        with torch.no_grad():
-            return model_api.forward(cfg, params, batch, last_only=last_only)
+        with torch.no_grad(), _rules(plan, mesh):
+            return _whole_logits(cfg, model_api.forward(cfg, params, batch,
+                                                        last_only=last_only))
 
     return prefill
 
 
-def make_prefill_cache(cfg: ModelConfig):
+def make_prefill_cache(cfg: ModelConfig, plan: Optional[ParallelismConfig] = None, mesh=None):
     """Prompt ingestion: (params, batch, caches) → (last-position logits
     (B, V), caches), the caches filled with the prompt's K/V."""
+    plan = plan or ParallelismConfig()
+    check_plan(plan, mesh, cfg)
 
     def prefill_cache(params, batch, caches):
-        return model_api.prefill_cache(cfg, params, batch, caches)
+        with _rules(plan, mesh):
+            logits, caches = model_api.prefill_cache(cfg, params, batch, caches)
+            return _whole_logits(cfg, logits), caches
 
     return prefill_cache
 
 
-def make_slot_serve_step(cfg: ModelConfig):
+def one_device(what: str, mesh) -> None:
+    """Raise for ``what`` on a mesh: it runs on one device only."""
+    if mesh is not None:
+        raise NotImplementedError(f"{what} on a mesh: the continuous-batching steps under "
+                                  f"tensor parallelism are not ported yet {PARALLEL}")
+
+
+def make_slot_serve_step(cfg: ModelConfig, plan: Optional[ParallelismConfig] = None,
+                         mesh=None):
     """Continuous-batching decode: like ``make_serve_step``, but every slot
     (batch row) carries its own position ``ts[i]``, so requests at
     different depths decode together in one full-width step.  The reference
@@ -400,14 +507,18 @@ def make_slot_serve_step(cfg: ModelConfig):
     the (B,) int32 positions as they are (one launch per layer, no loop over
     slots, no host sync), so this is ``make_serve_step`` called with a
     tensor for ``t``: (params, tokens (B,), ts (B,), caches) → (next (B,)
-    int32, caches)."""
+    int32, caches).  One device only."""
+    one_device("the slot step", mesh)
     return make_serve_step(cfg)
 
 
-def make_paged_serve_step(cfg: ModelConfig):
+def make_paged_serve_step(cfg: ModelConfig, plan: Optional[ParallelismConfig] = None,
+                          mesh=None):
     """Continuous-batching decode against the block-paged KV pool: every row
     has its own position and its own page-table row.  (params, tokens (B,),
-    ts (B,), pool, page_tables (B, n_max)) → (next (B,) int32, pool)."""
+    ts (B,), pool, page_tables (B, n_max)) → (next (B,) int32, pool).  One
+    device only."""
+    one_device("the paged step", mesh)
 
     def paged_serve_step(params, tokens, ts, pool, page_tables):
         logits, pool = model_api.paged_decode_step(cfg, params, tokens, ts, pool,
@@ -417,10 +528,12 @@ def make_paged_serve_step(cfg: ModelConfig):
     return paged_serve_step
 
 
-def make_paged_prefill(cfg: ModelConfig):
+def make_paged_prefill(cfg: ModelConfig, plan: Optional[ParallelismConfig] = None,
+                       mesh=None):
     """Admission prefill into the paged pool: right-padded prompt suffixes
     with per-row ``hist_lens`` and ``lengths``.  (params, batch, pool,
-    page_tables) → (logits (B, V), pool)."""
+    page_tables) → (logits (B, V), pool).  One device only."""
+    one_device("the paged prefill", mesh)
 
     def paged_prefill(params, batch, pool, page_tables):
         return model_api.paged_prefill(cfg, params, batch, pool, page_tables)

@@ -16,6 +16,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core import tp
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
@@ -100,9 +101,9 @@ def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor):
     if "bq" in p:
         q, k, v = q + p["bq"].to(dt), k + p["bk"].to(dt), v + p["bv"].to(dt)
     B, S, _ = x.shape
-    return (q.reshape(B, S, cfg.n_heads, cfg.hd),
-            k.reshape(B, S, cfg.n_kv_heads, cfg.hd),
-            v.reshape(B, S, cfg.n_kv_heads, cfg.hd))
+    # heads by the weights' widths: all of them, or this rank's under tp
+    return (q.reshape(B, S, -1, cfg.hd), k.reshape(B, S, -1, cfg.hd),
+            v.reshape(B, S, -1, cfg.hd))
 
 
 def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -110,13 +111,14 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
                     window: Optional[int] = None,
                     segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence self-attention (the forward of training and prefill)."""
+    x = tp.enter(x)
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x)
     if cfg.pos_embed == "rope":
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
     out = sdpa(q, k, v, causal=causal, window=window, segment_ids=segment_ids)
-    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
+    return tp.leave(out.reshape(B, S, -1) @ p["wo"].to(x.dtype))
 
 
 def attention_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -128,6 +130,7 @@ def attention_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
     K/V into the ring cache at slots ``positions % size`` (only the last
     ``size`` positions, so the slots are unique).  The cache is updated in
     place, which saves copying it; it is returned as well."""
+    x = tp.enter(x)
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x)
     if cfg.pos_embed == "rope":
@@ -142,19 +145,21 @@ def attention_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
     cache["k"][bidx, slots] = k[:, S - keep:].to(cache["k"].dtype)
     cache["v"][bidx, slots] = v[:, S - keep:].to(cache["v"].dtype)
     cache["pos"][bidx, slots] = pos.to(torch.int32)
-    out = out.reshape(B, S, cfg.n_heads * cfg.hd)
-    return out @ p["wo"].to(x.dtype), cache
+    return tp.leave(out.reshape(B, S, -1) @ p["wo"].to(x.dtype)), cache
 
 
 def cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
-               window: Optional[int], device, dtype=None) -> Cache:
-    """Ring-buffer KV cache; a sliding-window layer's buffer is only
+               window: Optional[int], device, dtype=None,
+               n_kv_heads: Optional[int] = None) -> Cache:
+    """Ring-buffer KV cache of ``n_kv_heads`` heads (by default the
+    config's; this rank's under tp); a sliding-window layer's buffer is only
     ``window`` wide."""
     size = max_len if window is None else min(window, max_len)
     dt = dtype or cfg.compute_dtype
+    h = n_kv_heads or cfg.n_kv_heads
     return {
-        "k": torch.zeros((batch, size, cfg.n_kv_heads, cfg.hd), dtype=dt, device=device),
-        "v": torch.zeros((batch, size, cfg.n_kv_heads, cfg.hd), dtype=dt, device=device),
+        "k": torch.zeros((batch, size, h, cfg.hd), dtype=dt, device=device),
+        "v": torch.zeros((batch, size, h, cfg.hd), dtype=dt, device=device),
         "pos": torch.full((batch, size), -1, dtype=torch.int32, device=device),
     }
 
@@ -166,6 +171,7 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     or a (B,) int32 tensor of one per row (the continuous-batching slot
     step).  Writes the new K/V to ring slot ``t % size`` of each row in
     place and returns (out, cache)."""
+    x = tp.enter(x)
     B = x.shape[0]
     q, knew, vnew = _qkv(cfg, p, x)
     per_row = isinstance(t, torch.Tensor)
@@ -183,8 +189,7 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     dt = x.dtype
     out = ops.decode_attention(q, cache["k"].to(dt), cache["v"].to(dt), cache["pos"],
                                t=t, window=window)
-    out = out.reshape(B, 1, cfg.n_heads * cfg.hd)
-    return out @ p["wo"].to(dt), cache
+    return tp.leave(out.reshape(B, 1, -1) @ p["wo"].to(dt)), cache
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,12 @@ Plain functions over parameter dicts of tensors.  Initializers return fp32;
 the forward pass casts to the compute dtype.  Weights keep the reference's
 ``(d_in, d_out)`` orientation and are applied as ``x @ W`` (the transpose of
 ``nn.Linear``), so checkpoints cross between the packages unchanged.
+
+Under tensor parallelism (rules installed by ``core.sharding.axis_rules``)
+a leaf holds this rank's slice (``core.sharding.shard_params``): the MLP is
+column-parallel in and row-parallel out, inside ``core.tp``'s regions, and
+a vocabulary table shorter than the config's vocabulary is looked up and
+unembedded vocab-parallel.  Without rules the regions are the identity.
 """
 
 from __future__ import annotations
@@ -13,6 +19,8 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core import tp
 
 Params = Dict[str, torch.Tensor]
 
@@ -107,26 +115,36 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
 
 def mlp_apply(p: Params, x: torch.Tensor, *, gated: bool = True,
               act: str = "silu") -> torch.Tensor:
+    """Column-parallel ``w_gate``/``w_up``/``w_in`` (their d_ff columns
+    sharded), row-parallel ``w_out``: the regions enter from the residual
+    stream's layout and leave back into it."""
     dt = x.dtype
+    x = tp.enter(x)
     if gated:
         h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
     else:
         h = x @ p["w_in"].to(dt)
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h, approximate="tanh") if act == "gelu" else F.silu(h)
-    return h @ p["w_out"].to(dt)
+    return tp.leave(h @ p["w_out"].to(dt))
 
 
 # ---------------------------------------------------------------------------
 # embedding / unembedding
 # ---------------------------------------------------------------------------
 
-def embed_lookup(table: torch.Tensor, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor, dtype: torch.dtype,
+                 vocab_size: Optional[int] = None) -> torch.Tensor:
+    """``table[ids]`` in ``dtype``; a table of fewer rows than ``vocab_size``
+    is this rank's slice of the vocabulary, looked up vocab-parallel."""
+    if vocab_size is not None and table.shape[0] != vocab_size:
+        return tp.vocab_embed(table, ids, dtype)
     return table.to(dtype)[ids]
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding: logits in fp32 from the upcast table."""
+    """Tied unembedding: logits in fp32 from the upcast table (this rank's
+    slice of the vocabulary when the table is sharded)."""
     return x.float() @ table.float().T
 
 
@@ -137,9 +155,15 @@ def gold_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean token cross-entropy. logits fp32 (..., V); labels int (...,)."""
-    nll = torch.logsumexp(logits, dim=-1) - gold_logit(logits, labels)
+                  mask: Optional[torch.Tensor] = None,
+                  vocab_size: Optional[int] = None) -> torch.Tensor:
+    """Mean token cross-entropy. logits fp32 (..., V); labels int (...,).
+    Logits narrower than ``vocab_size`` are this rank's slice of the
+    vocabulary (``core.tp.vocab_cross_entropy``)."""
+    if vocab_size is not None and logits.shape[-1] != vocab_size:
+        nll = tp.vocab_cross_entropy(logits, labels)
+    else:
+        nll = torch.logsumexp(logits, dim=-1) - gold_logit(logits, labels)
     if mask is not None:
         mask = mask.to(nll.dtype)
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

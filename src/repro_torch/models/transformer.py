@@ -9,6 +9,15 @@ the reference's ``lax.scan`` over layers is a Python loop.  Its
 (n_pages, page_size, Hkv, hd) pair per layer where the reference stacks
 (L, ...); both are updated in place.  The MoE, hybrid, xLSTM and VLM arms
 are not ported yet.
+
+Under tensor parallelism the blocks run ``core.tp``'s regions (in
+``attention`` and ``layers.mlp_apply``) and the reference's
+``constrain(x, "batch", "seq", None)`` after the embedding lays the
+residual stream out over the sequence under sequence parallel: then it is
+(B, S/tp, d) between the blocks, the norms run on the slice, and the last
+hidden states are gathered before the unembed.  The logits are this rank's
+slice of the vocabulary when the table is sharded (the reference's
+``constrain(logits, "batch", None, "tp")``).
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.core import sharding, tp
 from repro_torch.core.tree import tree_map
 from repro_torch.models import layers
 from repro_torch.models.attention import (attention_apply, attention_decode,
@@ -122,9 +132,38 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
 
 
-def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return layers.embed_lookup(params["embed"], tokens, cfg.compute_dtype, cfg.vocab_size)
+
+
+def _seq_layout(x: torch.Tensor) -> torch.Tensor:
+    """The embedded sequence in the residual stream's layout: under
+    sequence parallel this rank's S/tp positions (S % tp must be 0)."""
+    if tp.sequence_parallel() and x.shape[1] % tp.size():
+        raise ValueError(f"sequence parallel: S={x.shape[1]} is not divisible by "
+                         f"tp={tp.size()}")
+    return sharding.constrain(x, "batch", "seq", None)
+
+
+def _gather_seq(x: torch.Tensor) -> torch.Tensor:
+    """Whole hidden states from the residual stream (for every rank to run
+    what follows whole)."""
+    return tp.gather_seq(x, reduce_grad=False) if tp.sequence_parallel() else x
+
+
+def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
+            seq_sharded: bool = False) -> torch.Tensor:
+    """Final norm and unembed; ``seq_sharded``: x is this rank's S/tp
+    positions, gathered after the norm.  A sharded table gives this rank's
+    slice of the vocabulary."""
     x = layers.norm_apply(cfg.norm, params["final_norm"], x)
-    return layers.unembed(params.get("lm_head", params["embed"]), x)
+    table = params.get("lm_head", params["embed"])
+    vocab_parallel = table.shape[0] != cfg.vocab_size
+    if seq_sharded:
+        x = tp.gather_seq(x, reduce_grad=vocab_parallel)
+    elif vocab_parallel:
+        x = tp.copy_to_tp(x)
+    return layers.unembed(table, x)
 
 
 REMAT_POLICIES = ("none", "full", "dots", "stage")
@@ -168,14 +207,14 @@ def lm_forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
                          f"{', '.join(REMAT_POLICIES)}")
     block = _remat_block(remat_policy) or block_apply
     tokens = batch["tokens"]
-    x = layers.embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    x = _seq_layout(_embed(cfg, params, tokens))
     positions = _positions(tokens)
     segment_ids = batch.get("segment_ids")
     for bp in params["blocks"]:
         x = block(cfg, bp, x, positions, window=cfg.swa_window, segment_ids=segment_ids)
     if last_only:
-        x = x[:, -1:]
-    return _logits(cfg, params, x)
+        return _logits(cfg, params, _gather_seq(x)[:, -1:])
+    return _logits(cfg, params, x, seq_sharded=tp.sequence_parallel())
 
 
 def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
@@ -183,15 +222,18 @@ def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     """→ (loss, {"xent", "aux"}); the dense arm has no auxiliary loss, so
     ``aux`` is 0 and the loss is the masked mean cross-entropy."""
     logits = lm_forward(cfg, params, batch, remat_policy=remat_policy)
-    xent = layers.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    xent = layers.cross_entropy(logits, batch["labels"], batch.get("loss_mask"),
+                                vocab_size=cfg.vocab_size)
     aux = torch.zeros((), dtype=torch.float32, device=xent.device)
     return xent, {"xent": xent, "aux": aux}
 
 
-def lm_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, device) -> Dict[str, List]:
+def lm_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, device,
+                  n_kv_heads: Optional[int] = None) -> Dict[str, List]:
     _, n_layers, _ = layer_plan(cfg)
     return {"blocks": [cache_init(cfg, batch, max_len, window=cfg.swa_window,
-                                  device=device) for _ in range(n_layers)]}
+                                  device=device, n_kv_heads=n_kv_heads)
+                       for _ in range(n_layers)]}
 
 
 def _invalidate_padded_slots(caches, lengths: torch.Tensor) -> None:
@@ -214,11 +256,12 @@ def lm_prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     holding padded positions are invalidated."""
     layer_plan(cfg)
     tokens = batch["tokens"]
-    x = layers.embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    x = _seq_layout(_embed(cfg, params, tokens))
     positions = _positions(tokens)
     for bp, c in zip(params["blocks"], caches["blocks"]):
         x, _ = block_prefill(cfg, bp, x, positions, c, window=cfg.swa_window,
                              segment_ids=batch.get("segment_ids"))
+    x = _gather_seq(x)
     lengths = batch.get("lengths")
     if lengths is None:
         x_last = x[:, -1:]
@@ -233,7 +276,7 @@ def lm_decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor, t,
     """token: (B,) int; t: the position being decoded, an int for every row
     or a (B,) int32 tensor of one per row → (logits (B, V), caches)."""
     layer_plan(cfg)
-    x = layers.embed_lookup(params["embed"], token[:, None], cfg.compute_dtype)
+    x = _embed(cfg, params, token[:, None])
     for bp, c in zip(params["blocks"], caches["blocks"]):
         x, _ = block_decode(cfg, bp, x, t, c, window=cfg.swa_window)
     return _logits(cfg, params, x)[:, 0], caches
@@ -311,8 +354,10 @@ class DecoderOnlyLM:
         return lm_loss(cfg, params, batch, remat_policy=remat_policy)
 
     def init_cache(self, cfg, params, batch_size, max_len):
-        return lm_cache_init(cfg, batch_size, max_len,
-                             device=params["embed"].device)
+        """Ring caches of the KV heads ``params`` hold (this rank's under tp)."""
+        kv_heads = params["blocks"][0]["attn"]["wk"].shape[1] // cfg.hd
+        return lm_cache_init(cfg, batch_size, max_len, device=params["embed"].device,
+                             n_kv_heads=kv_heads)
 
     def decode_step(self, cfg, params, token, t, caches):
         return lm_decode_step(cfg, params, token, t, caches)

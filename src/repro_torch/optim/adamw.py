@@ -12,15 +12,21 @@ every block leaf is decayed there, norm scales and biases included (its
 comment says "no decay on norms/biases"; the stacking defeats it).  Only
 unstacked 1-D leaves such as ``final_norm`` escape.  The port's block leaves
 are per layer, one rank lower, so the rank is taken +1 inside ``blocks``.
+
+Under tensor parallelism the gradient norm (the clip's and the skip
+gate's) is the whole model's: the squares of the tp-sharded leaves are
+summed over the tp group (``core.tp``), each replicated leaf's counted
+once.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import tp
 from repro_torch.core.tree import tree_leaves, tree_map
 
 
@@ -40,9 +46,17 @@ def init_opt_state(params) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(leaves) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor in ``leaves`` (a list), in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+def global_norm(leaves, sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor in ``leaves`` (a list), in
+    f32.  ``sharded[i]``: leaf i is this rank's slice of a tp-sharded leaf,
+    whose squares are summed over the tp group as well."""
+    if sharded is None or tp.size() == 1:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+    sq = [torch.sum(torch.square(x.float())) for x in leaves]
+    zero = torch.zeros((), dtype=torch.float32, device=sq[0].device)
+    part = sum((q for q, s in zip(sq, sharded) if s), zero)
+    rest = sum((q for q, s in zip(sq, sharded) if not s), zero)
+    return torch.sqrt(tp.all_reduce(part) + rest)
 
 
 def reference_rank(path: Tuple, p: torch.Tensor) -> int:
@@ -52,11 +66,13 @@ def reference_rank(path: Tuple, p: torch.Tensor) -> int:
 
 def adamw_update(grads, opt_state, params, lr: torch.Tensor,
                  cfg: AdamWConfig = AdamWConfig(),
-                 skip: torch.Tensor = None) -> Dict[str, torch.Tensor]:
+                 skip: torch.Tensor = None,
+                 sharded: Optional[Sequence[bool]] = None) -> Dict[str, torch.Tensor]:
     """One AdamW step over the leaves, in place.  ``grads`` is a list in the
-    order of ``tree_leaves(params)``.  Returns the metrics {grad_norm, lr}."""
+    order of ``tree_leaves(params)``; ``sharded`` as for :func:`global_norm`.
+    Returns the metrics {grad_norm, lr}."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, sharded)
     scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
     b1c = 1.0 - cfg.b1 ** step.to(torch.float32)
     b2c = 1.0 - cfg.b2 ** step.to(torch.float32)

@@ -7,14 +7,17 @@ changes the numbers only, exactly as the reference's does.
 The int8 scale follows the reference's leaves: its ``blocks`` leaves are
 stacked (L, ...), so one scale (max |g| over every layer) serves a leaf of
 all L blocks.  The port's per-layer leaves are grouped by their path without
-the layer index to take the same max."""
+the layer index to take the same max, and under tensor parallelism the max
+of a tp-sharded leaf is taken over the tp group too (one all-reduce for
+every such leaf together)."""
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import tp
 from repro_torch.core.tree import tree_leaves, tree_map
 
 
@@ -29,7 +32,8 @@ def _reference_leaf(path: Tuple) -> Tuple:
     return tuple(p for i, p in enumerate(path) if not (i and path[i - 1] == "blocks"))
 
 
-def _int8_ef(grads: List[torch.Tensor], ef_state, skip) -> List[torch.Tensor]:
+def _int8_ef(grads: List[torch.Tensor], ef_state, skip,
+             sharded: Optional[Sequence[bool]]) -> List[torch.Tensor]:
     leaves = tree_leaves(ef_state)
     # one scale per reference leaf; g + e is formed again in the second pass
     # rather than kept, so only one leaf's temporaries live at a time
@@ -38,6 +42,12 @@ def _int8_ef(grads: List[torch.Tensor], ef_state, skip) -> List[torch.Tensor]:
         m = torch.max(torch.abs(g.to(torch.float32) + e))
         key = _reference_leaf(path)
         amax[key] = m if key not in amax else torch.maximum(amax[key], m)
+    if sharded is not None and tp.size() > 1:
+        keys = list(dict.fromkeys(_reference_leaf(path) for (path, _), s
+                                  in zip(leaves, sharded) if s))
+        if keys:
+            whole = tp.all_reduce(torch.stack([amax[k] for k in keys]), op="max")
+            amax.update(zip(keys, whole.unbind(0)))
     out = []
     for g, (path, e) in zip(grads, leaves):
         g = g.to(torch.float32) + e
@@ -50,9 +60,11 @@ def _int8_ef(grads: List[torch.Tensor], ef_state, skip) -> List[torch.Tensor]:
 
 
 def apply_compression(grads: List[torch.Tensor], kind: Optional[str], ef_state=None,
-                      skip: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+                      skip: Optional[torch.Tensor] = None,
+                      sharded: Optional[Sequence[bool]] = None) -> List[torch.Tensor]:
     """→ the (de)compressed gradient list.  With ``int8_ef`` the ``ef`` leaves
-    take their new residuals in place, unless ``skip`` (a 0-d bool) is set."""
+    take their new residuals in place, unless ``skip`` (a 0-d bool) is set;
+    ``sharded[i]``: leaf i is this rank's slice of a tp-sharded leaf."""
     if kind is None or kind == "none":
         return grads
     if kind == "bf16":
@@ -61,5 +73,5 @@ def apply_compression(grads: List[torch.Tensor], kind: Optional[str], ef_state=N
         if ef_state is None:
             raise ValueError("int8_ef compression needs the ef state")
         with torch.no_grad():
-            return _int8_ef(grads, ef_state, skip)
+            return _int8_ef(grads, ef_state, skip, sharded)
     raise ValueError(f"unknown compression {kind!r}")

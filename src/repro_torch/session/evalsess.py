@@ -5,7 +5,9 @@ of ``repro.session.evalsess`` on one device.
 ``evaluate(batch)`` gives one batch's metrics and the count of tokens that
 bear loss; ``perplexity(batches)`` is the token-weighted sweep (each
 batch's mean xent weighted by its masked token count, so a ragged final
-batch does not skew the aggregate).  The session runs on the card unless
+batch does not skew the aggregate).  On a mesh (``mesh=``, as
+``TrainSession``'s) it evaluates this rank's slices tensor-parallel.  The
+session runs on the card unless
 the caller asks for the CPU; without CUDA the default raises.  The
 reference's abstract mode (``abstract=``, ``lower``, ``make_jaxpr``: a
 sharded lowering that its lint auditor reads) has no PyTorch counterpart.
@@ -25,7 +27,7 @@ from typing import Any, Dict, Iterable, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.core import stepfn
+from repro_torch.core import sharding, stepfn
 from repro_torch.core.recipe import ParallelismConfig
 from repro_torch.core.tree import tree_map
 from repro_torch.models import api as model_api
@@ -36,20 +38,25 @@ from repro_torch.session.infer import resolve_config, resolve_device, to_device
 class EvalSession:
     def __init__(self, cfg: ModelConfig, *, plan: Optional[ParallelismConfig] = None,
                  params: Any = None, seed: int = 0,
-                 device: Union[str, torch.device] = "cuda"):
-        """Without ``params``: fresh weights from ``seed`` on ``device``,
-        every leaf cast to the compute dtype."""
+                 device: Union[str, torch.device] = "cuda", mesh=None):
+        """Without ``params``: fresh weights from ``seed`` on ``device``
+        (this rank's slices on a mesh), every leaf cast to the compute
+        dtype.  Given ``params`` are taken as they are (sliced already on a
+        mesh)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.plan = plan if plan is not None else ParallelismConfig()
+        self.mesh = mesh
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             with torch.no_grad():
-                params = tree_map(lambda x: x.to(cfg.compute_dtype),
-                                  model_api.init_params(cfg, gen))
+                params = model_api.init_params(cfg, gen)
+                if mesh is not None:
+                    params = sharding.shard_params(params, mesh, self.plan)
+                params = tree_map(lambda x: x.to(cfg.compute_dtype), params)
         self.params = params
-        self.eval_step = stepfn.make_eval_step(cfg, self.plan)
+        self.eval_step = stepfn.make_eval_step(cfg, self.plan, mesh)
 
     @classmethod
     def from_recipe(cls, arch: Union[str, ModelConfig], *, reduced: bool = False,
@@ -63,7 +70,8 @@ class EvalSession:
     def from_train_session(cls, sess) -> "EvalSession":
         """Evaluate a ``TrainSession``'s current weights in place (no copy,
         no cast: the eval step reads whatever dtype training holds)."""
-        return cls(sess.cfg, plan=sess.plan, params=sess.state["params"], device=sess.device)
+        return cls(sess.cfg, plan=sess.plan, params=sess.state["params"], device=sess.device,
+                   mesh=sess.mesh)
 
     def evaluate(self, batch) -> Dict[str, Any]:
         """Metrics on one batch (0-d tensors on the device) and the count of

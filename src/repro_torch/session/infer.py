@@ -12,7 +12,13 @@ continuous-batching scheduler (``repro_torch.session.scheduler``) on
 contiguous slots or on the paged pool.  The session runs on the card
 unless the caller asks for the CPU; without CUDA the default raises.  The
 reference's ``lower_prefill`` / ``lower_decode`` (compile-only dry runs over
-a mesh) wait for the parallel recipe's port.
+a mesh) have no PyTorch counterpart.
+
+With ``plan=`` and ``mesh=`` (a ``launch.mesh.RecipeMesh``) every rank
+holds its slices of the weights (``core.sharding.shard_params``) and
+``prefill`` and ``generate`` run tensor-parallel, each rank returning the
+whole logits and tokens; ``serve`` (the continuous-batching scheduler) runs
+on one device only.
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core import stepfn
+from repro_torch.core import sharding, stepfn
+from repro_torch.core.recipe import ParallelismConfig
 from repro_torch.core.tree import tree_map
 from repro_torch.models import api as model_api
 from repro_torch.models.config import ModelConfig
@@ -54,16 +61,22 @@ def to_device(batch, device: torch.device) -> Dict[str, torch.Tensor]:
 
 
 class InferenceSession:
-    def __init__(self, cfg: ModelConfig, params, *, device: torch.device):
+    def __init__(self, cfg: ModelConfig, params, *, device: torch.device,
+                 plan: Optional[ParallelismConfig] = None, mesh=None):
+        """``params`` as the session serves them: this rank's slices on a
+        mesh."""
         self.cfg = cfg
         self.params = params
         self.device = device
+        self.plan = plan if plan is not None else ParallelismConfig()
+        self.mesh = mesh
         self.family = model_api.family_of(cfg)
-        self.prefill_cache_step = stepfn.make_prefill_cache(cfg)
-        self.serve_step = stepfn.make_serve_step(cfg)
-        self.slot_step = stepfn.make_slot_serve_step(cfg)
-        self.paged_prefill_step = stepfn.make_paged_prefill(cfg)
-        self.paged_slot_step = stepfn.make_paged_serve_step(cfg)
+        self.prefill_cache_step = stepfn.make_prefill_cache(cfg, self.plan, mesh)
+        self.serve_step = stepfn.make_serve_step(cfg, self.plan, mesh)
+        if mesh is None:
+            self.slot_step = stepfn.make_slot_serve_step(cfg)
+            self.paged_prefill_step = stepfn.make_paged_prefill(cfg)
+            self.paged_slot_step = stepfn.make_paged_serve_step(cfg)
         self.last_stats = None  # ServingStats of the most recent serve()
 
     # ------------------------------------------------------------------
@@ -71,27 +84,40 @@ class InferenceSession:
     # ------------------------------------------------------------------
     @classmethod
     def from_recipe(cls, arch: Union[str, ModelConfig], *, reduced: bool = False,
+                    plan: Optional[ParallelismConfig] = None, mesh=None,
                     seed: int = 0, device: Union[str, torch.device] = "cuda"
                     ) -> "InferenceSession":
         """Fresh random weights from ``seed``, every leaf (norm scales
-        included) cast to the compute dtype as the reference does."""
+        included) cast to the compute dtype as the reference does.  On a
+        mesh every rank draws the whole model and keeps its slices before
+        the cast, so tp = k serves the weights of tp = 1."""
         device = resolve_device(device)
         cfg = resolve_config(arch, reduced=reduced)
+        plan = plan if plan is not None else ParallelismConfig()
+        stepfn.check_plan(plan, mesh, cfg)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         with torch.inference_mode():
             params = model_api.init_params(cfg, gen)
+            if mesh is not None:
+                params = sharding.shard_params(params, mesh, plan)
             params = tree_map(lambda x: x.to(cfg.compute_dtype), params)
-        return cls(cfg, params, device=device)
+        return cls(cfg, params, device=device, plan=plan, mesh=mesh)
 
     @classmethod
     def from_params(cls, cfg: ModelConfig, params, *,
+                    plan: Optional[ParallelismConfig] = None, mesh=None,
                     device: Union[str, torch.device] = "cuda") -> "InferenceSession":
-        """Adopt existing weights (e.g. bridged from a reference checkpoint),
-        moved to ``device`` as they are."""
+        """Adopt existing whole weights (e.g. bridged from a reference
+        checkpoint), moved to ``device`` as they are; on a mesh this rank
+        keeps its slices."""
         device = resolve_device(device)
+        plan = plan if plan is not None else ParallelismConfig()
+        stepfn.check_plan(plan, mesh, cfg)
         params = tree_map(lambda x: torch.as_tensor(x).to(device), params)
-        return cls(cfg, params, device=device)
+        if mesh is not None:
+            params = sharding.shard_params(params, mesh, plan)
+        return cls(cfg, params, device=device, plan=plan, mesh=mesh)
 
     # ------------------------------------------------------------------
     # serving
@@ -102,7 +128,7 @@ class InferenceSession:
         ``last_only``, else (B, S, V).  ``batch`` holds ``tokens`` (B, S)
         (and optionally ``segment_ids``), numpy or tensors, moved to the
         session's device."""
-        step = stepfn.make_prefill(self.cfg, last_only=last_only)
+        step = stepfn.make_prefill(self.cfg, self.plan, self.mesh, last_only=last_only)
         return step(self.params, to_device(batch, self.device))
 
     def init_cache(self, batch_size: int, max_len: int) -> Any:
@@ -190,7 +216,8 @@ class InferenceSession:
         physical pages, prefix-cache reuse of identical prompt prefixes,
         copy-on-write growth); greedy outputs stay token-identical to the
         contiguous-slot path.  Pass a previously returned ``scheduler`` to
-        keep its prefix cache warm across calls."""
+        keep its prefix cache warm across calls.  One device only."""
+        stepfn.one_device("serve", self.mesh)
         from repro_torch.session.scheduler import (ContinuousBatchingScheduler,
                                                    RequestQueue, ServingStats)
         prompts = [np.asarray(p, np.int32).reshape(-1) for p in prompts]

@@ -18,7 +18,12 @@ Typical use::
     # or: out = sess.run(50, ckpt_dir="/tmp/ckpt")   → {state, history, ...}
     inf = sess.to_inference()            # serve the trained weights
 
-The mesh and the abstract (dry-run) mode come with the parallel recipe.
+With ``plan=`` and ``mesh=`` (a ``launch.mesh.RecipeMesh``; every rank
+builds the same session) the train state holds this rank's slices and the
+step runs tensor-parallel; ``to_inference`` gathers the weights back to the
+reference layout.  The checkpointed loop on a mesh waits for ZeRO
+(``run(ckpt_dir=...)`` raises).  The abstract (dry-run) mode has no
+PyTorch counterpart.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.core import stepfn
+from repro_torch.core import sharding, stepfn
 from repro_torch.core.recipe import ParallelismConfig, RecipeAdvisor
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.data import DataConfig, make_dataset
@@ -43,7 +48,7 @@ class TrainSession:
     def __init__(self, cfg: ModelConfig, *,
                  plan: Optional[ParallelismConfig] = None,
                  train_cfg: Optional[stepfn.TrainConfig] = None,
-                 data_cfg: Optional[DataConfig] = None,
+                 data_cfg: Optional[DataConfig] = None, mesh=None,
                  seed: int = 0, device: Union[str, torch.device] = "cuda",
                  advisor: Optional[RecipeAdvisor] = None):
         self.device = resolve_device(device)
@@ -51,6 +56,7 @@ class TrainSession:
         self.plan = plan if plan is not None else ParallelismConfig()
         self.train_cfg = train_cfg if train_cfg is not None else stepfn.TrainConfig()
         self.data_cfg = data_cfg
+        self.mesh = mesh
         if self.plan.pp > 1:
             self.plan.validate(cfg.n_layers)   # pp·vpp layout + gas%pp rules
         # the paper's §7 checklist, evaluated once at composition time; the
@@ -59,9 +65,9 @@ class TrainSession:
         self.advice: Dict[str, str] = self._advisor.check(self.plan, n_layers=cfg.n_layers)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        self.state = stepfn.init_state(cfg, self.plan, gen, self.train_cfg)
-        self.train_step = stepfn.make_train_step(cfg, self.plan, self.train_cfg)
-        self._eval_step = stepfn.make_eval_step(cfg, self.plan)
+        self.state = stepfn.init_state(cfg, self.plan, gen, self.train_cfg, mesh=mesh)
+        self.train_step = stepfn.make_train_step(cfg, self.plan, self.train_cfg, mesh=mesh)
+        self._eval_step = stepfn.make_eval_step(cfg, self.plan, mesh=mesh)
         self._dataset = None
         self._batch_cache: Dict[int, Any] = {}
         self._next_step = 0
@@ -70,12 +76,12 @@ class TrainSession:
     def from_recipe(cls, arch: Union[str, ModelConfig], *, reduced: bool = False,
                     plan: Optional[ParallelismConfig] = None,
                     train_cfg: Optional[stepfn.TrainConfig] = None,
-                    data_cfg: Optional[DataConfig] = None, seed: int = 0,
+                    data_cfg: Optional[DataConfig] = None, mesh=None, seed: int = 0,
                     device: Union[str, torch.device] = "cuda") -> "TrainSession":
         """Architecture name (or config) + recipe → a training session."""
         cfg = resolve_config(arch, reduced=reduced)
-        return cls(cfg, plan=plan, train_cfg=train_cfg, data_cfg=data_cfg, seed=seed,
-                   device=device)
+        return cls(cfg, plan=plan, train_cfg=train_cfg, data_cfg=data_cfg, mesh=mesh,
+                   seed=seed, device=device)
 
     # ------------------------------------------------------------------
     # data pipeline (deterministic, resumable: batch = f(seed, step))
@@ -149,6 +155,10 @@ class TrainSession:
         if self.state is None:
             raise RuntimeError("this session's run() raised and its state is gone; "
                                "resume through ckpt_dir in a fresh session")
+        if self.mesh is not None and ckpt_dir:
+            raise NotImplementedError(
+                "checkpoints of a tensor-parallel state come with ZeRO's sharded states "
+                f"{stepfn.PARALLEL}")
         if fail_at_step is not None:
             from repro_torch.runtime.chaos import FaultPlan
             chaos = chaos if chaos is not None else FaultPlan()
@@ -186,11 +196,19 @@ class TrainSession:
     # ------------------------------------------------------------------
     # hand-offs
     # ------------------------------------------------------------------
-    def to_inference(self) -> InferenceSession:
-        """Serve the trained weights: a copy cast to the compute dtype."""
-        params = tree_map(lambda x: x.detach().to(self.cfg.compute_dtype, copy=True),
-                          self.state["params"])
-        return InferenceSession(self.cfg, params, device=self.device)
+    def to_inference(self, *, plan: Optional[ParallelismConfig] = None,
+                     mesh=None) -> InferenceSession:
+        """Serve the trained weights: a copy in the reference layout (gathered
+        over the tp group on a mesh) cast to the compute dtype, served on
+        ``mesh`` under ``plan`` (one device by default)."""
+        params = self.state["params"]
+        if self.mesh is not None:
+            params = sharding.gather_params(params, self.mesh, self.plan, self.cfg.vocab_size)
+        params = tree_map(lambda x: x.detach().to(self.cfg.compute_dtype, copy=True), params)
+        if mesh is not None:
+            return InferenceSession.from_params(self.cfg, params, plan=plan, mesh=mesh,
+                                                device=self.device)
+        return InferenceSession(self.cfg, params, device=self.device, plan=plan)
 
     @property
     def n_params(self) -> int:

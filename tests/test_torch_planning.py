@@ -525,5 +525,5 @@ def test_refusal_messages_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match=parallel):
         elastic.canonicalize_state({}, ParallelismConfig(pp=2))
     with pytest.raises(NotImplementedError, match=parallel):
-        stepfn.check_single_device(ParallelismConfig(tp=2))
+        stepfn.check_plan(ParallelismConfig(pp=2))
     assert parallel in " ".join(elastic.__doc__.split())

@@ -134,20 +134,26 @@ def _check_loss_and_grads(arch, path, packed, remat):
 
 
 def test_unported_remat_policies_and_plans_raise():
-    """tp and pp (so remat "stage" inside a pipeline) still raise; an
-    unknown remat policy raises; dp (and pods) and the simulated-replica
-    consensus are accepted without a mesh, as the reference accepts them."""
+    """pp (so remat "stage" inside a pipeline) still raises; an unknown
+    remat policy raises; tp, dp (and pods) and the simulated-replica
+    consensus are accepted without a mesh, as the reference accepts them:
+    tp = 2 without a mesh trains exactly as tp = 1."""
     cfg = get_config("granite_3_2b").reduced()
     sess = TrainSession(cfg, device="cpu", data_cfg=_data()[1])
     with pytest.raises(ValueError, match="remat_policy"):
         ttf.lm_loss(cfg, sess.state["params"], sess._to_device(sess.batches(0)),
                     remat_policy="offload")
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(NotImplementedError, match="the pipeline is not ported yet"):
         TrainSession(cfg, plan=ParallelismConfig(pp=2, gas=2, remat_policy="stage"),
                      device="cpu")
-    for plan in (ParallelismConfig(tp=2), ParallelismConfig(pp=2)):
-        with pytest.raises(NotImplementedError, match="one device"):
-            TrainSession(cfg, plan=plan, device="cpu")
+    with pytest.raises(NotImplementedError, match="the pipeline is not ported yet"):
+        TrainSession(cfg, plan=ParallelismConfig(pp=2), device="cpu")
+    tp2 = TrainSession(cfg, plan=ParallelismConfig(tp=2), device="cpu", data_cfg=_data()[1])
+    m1, m2 = sess.step(), tp2.step()
+    assert all(torch.equal(m1[k], m2[k]) for k in m1)
+    for (_, a), (_, b) in zip(tree_leaves(sess.state["params"]),
+                              tree_leaves(tp2.state["params"])):
+        assert torch.equal(a, b)
     from repro_torch.runtime.resilience import ResilienceConfig
     tcfg = stepfn.TrainConfig(resilience=ResilienceConfig(consensus_replicas=2))
     for plan in (ParallelismConfig(dp=2), ParallelismConfig(pods=2)):
