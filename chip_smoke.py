@@ -154,9 +154,27 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    collectives by kind (``core/tp.py``'s counter) are exact, beside the
    cost model's 4 all-reduces a layer; the compute mode must not be
    ``Exclusive_Process``; times are labelled as two time-sliced ranks;
-21. prints each phase's seconds, a ``{"planning": {...}}`` line, a
-   ``{"tp": {...}}`` line, a ``{"kernels": [...]}`` line and, last,
-   ``{"ok": true, "device": {...}}``.
+21. (run after 20) sharded data parallelism at dp = 2 as two processes on
+   the one card, as 20 runs them: gpt-3.6b at published width, 4 of 30
+   layers, 4 x 1024 tokens in 2 micro-batches, remat full, bf16 over f32
+   masters, one counted step after a first at ZeRO 0, 1, 2 and 3, then
+   ``overlap_zero`` at stage 2 and ``gather_params_once`` at stage 3 (the
+   GAS path, consensus off): each rank's peak memory beside
+   ``core.memory.per_device_bytes``, the collectives by kind and group
+   exact (``expected_dp_collectives``) beside the cost model's ``t_dp``
+   bytes, K1-K4 launches exact, host and event times labelled as
+   time-sliced ranks; the vote (the reference's default) at every stage
+   with NaN in replica 0, in replica 1 (masked, not skipped) and in both
+   (skipped, params frozen), the ranks' bits equal; the f32 identities at
+   2 layers (every stage against one device with 2 simulated replicas,
+   1e-5, and ZeRO 1-3 against ZeRO 0's bits); tp = 2 x dp = 2 as four
+   ranks at ZeRO-1 (f32 identity and a bf16 step); a ZeRO-3 crash ->
+   resume of ``TrainSession.run`` (bitwise against a run that never
+   crashed, the ranks' events equal) and its checkpoint restored on one
+   device (the same loss);
+22. prints each phase's seconds, a ``{"planning": {...}}`` line, a
+   ``{"tp": {...}}`` line, a ``{"dp": {...}}`` line, a ``{"kernels": [...]}``
+   line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  It also exits non-zero
 when CUDA is not available, or when it does not stand in a checkout of the
@@ -177,6 +195,7 @@ import sys
 import time
 import traceback
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -256,6 +275,23 @@ TP = dict(ranks=2, batch=2, prompt_len=128, new_tokens=16, prefill=(2, 256), f32
           train=dict(arch="gpt_36b", n_layers=4, seq_len=1024, global_batch=4, gas=2))
 TP_DIR = ROOT / "build" / "chip_smoke_tp"
 TP_LABEL = "two ranks time-sliced on one card over gloo"
+# phase 21: sharded data parallelism, dp = 2 as two ranks on the one card
+# over gloo (and tp = 2 x dp = 2 as four): gpt-3.6b at published width, 4 of
+# its 30 layers, global batch 4 x 1024 in 2 micro-batches, remat full, bf16
+# over f32 masters; the f32 identities at 2 layers; the checkpoint at 1
+# layer and a 4096-token vocabulary (1.5 GB written: the 45 GiB the card's
+# host lets a run write holds no more beside phases 11-13 and 20)
+DP = dict(ranks=2, arch="gpt_36b", n_layers=4, seq_len=1024, global_batch=4, gas=2,
+          f32_layers=2, ckpt=dict(n_layers=1, vocab=4096, global_batch=4, steps=3,
+                                  ckpt_every=2, fail_at=2))
+DP_RUNS = ((0, {}), (1, {}), (2, {}), (3, {}), (2, {"overlap_zero": True}),
+           (3, {"gather_params_once": True}))
+DP_VOTES = ("bad0", "bad1", "both")
+# the bf16 sweep: DP_RUNS on the GAS path, then ZeRO-3 under the vote (its
+# masters gathered whole once a step)
+DP_SWEEP = (*((z, kw, False) for z, kw in DP_RUNS), (3, {}, True))
+DP_DIR = ROOT / "build" / "chip_smoke_dp"
+DP_LABEL = "ranks time-sliced on one card over gloo: they say nothing of NVLink"
 
 
 class SmokeFailure(Exception):
@@ -2384,7 +2420,8 @@ def expected_collectives(L: int, G: int, *, remat: str, sp: bool, vocab_parallel
     hidden states are gathered (a reduce-scatter backward with a
     vocab-parallel table), the embedded sequence split (an all-gather
     backward), and one all-reduce sums the norms' gradients.  Per step the
-    skip gate's and AdamW's gradient norms add an all-reduce each."""
+    skip gate's gradient norm adds an all-reduce (AdamW clips by the same
+    norm)."""
     vp, rec = int(vocab_parallel), 0 if remat == "none" else 1
     if sp:
         per = {"all_reduce": 2 * vp + 2, "all_reduce_max": vp,
@@ -2393,8 +2430,53 @@ def expected_collectives(L: int, G: int, *, remat: str, sp: bool, vocab_parallel
     else:
         per = {"all_reduce": 3 * vp + (4 + rec) * L + 1, "all_reduce_max": vp}
     out = {k: G * v for k, v in per.items() if v}
-    out["all_reduce"] += 2
+    out["all_reduce"] += 1
     return out
+
+
+def expected_dp_collectives(layout, L: int, G: int, *, vote: bool, remat: str = "full"):
+    """The data-parallel collectives one train step calls over a mesh without
+    tp, by ``"<kind>@<group>"``, as the code implies them from ``layout``
+    (the step's ``core.zero.Layout``), at L layers and G micro-batches.
+
+    One norm a step (the skip gate's, over the world; AdamW clips by it); on
+    the GAS path a finite check a micro-batch (the vote's is its replica's
+    own).
+    Over the plane: one all-reduce of the loss and metrics (on the vote's
+    path of the verdict too), then a leaf's gradient sum: an all-reduce,
+    from ZeRO-2 a reduce-scatter where the optimizer shard cuts the leaf
+    (a micro-batch at a time under ``overlap_zero``), and one all-gather of
+    each such leaf's updated shard.  A ZeRO-3 leaf is gathered over the data
+    axis where it is read (a block's again in a remat recompute) and its
+    gradient reduce-scattered at every read; gathered once a step on the
+    vote's path or under ``gather_params_once``, reduce-scattered once."""
+    import collections
+    plan, mesh = layout.plan, layout.mesh
+    live = [a for a in ("pod", "data") if mesh.shape[a] > 1]
+    plane = ",".join(live)
+    fsdp = [lf for lf in layout.leaves if lf.fsdp_dim is not None]
+    f_blocks = sum(1 for lf in fsdp if lf.path[0] == "blocks")
+    z = sum(1 for lf in layout.leaves if lf.z_dim is not None)
+    rest = len(layout.leaves) - len(fsdp) - z
+    times = G if plan.overlap_zero and plan.zero_stage >= 2 and not vote else 1
+    out = collections.Counter({"all_reduce@world": 1 + (0 if vote else G),
+                               f"all_reduce@{plane}": 1 + times * rest})
+    if plan.zero_stage >= 2:
+        out[f"reduce_scatter@{plane}"] += times * z
+    else:
+        out[f"all_reduce@{plane}"] += z
+    out[f"all_gather@{plane}"] += z
+    if fsdp:
+        if vote or plan.gather_params_once:
+            out["all_gather@data"] += len(fsdp)
+            out["reduce_scatter@data"] += len(fsdp)
+        else:
+            rec = 0 if remat == "none" else 1
+            out["all_gather@data"] += G * ((1 + rec) * f_blocks + len(fsdp) - f_blocks)
+            out["reduce_scatter@data"] += G * len(fsdp)
+        if mesh.shape["pod"] > 1:
+            out["all_reduce@pod"] += len(fsdp)
+    return {k: v for k, v in out.items() if v}
 
 
 def expected_serving_collectives(L: int, decode_steps: int, *, vocab_parallel: bool,
@@ -2797,6 +2879,481 @@ def _tp_check(torch, get_config, ref, outs, ranks_s, mode, smi):
     return summary, launch_runs
 
 
+# ---------------------------------------------------------------------------
+# phase 21: sharded data parallelism, two (and four) ranks on the one card
+# ---------------------------------------------------------------------------
+
+def _dp_cfg(get_config, n_layers, dtype=None, vocab=None):
+    cfg = dataclasses.replace(get_config(DP["arch"]), n_layers=n_layers)
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    if vocab:
+        cfg = dataclasses.replace(cfg, vocab_size=vocab)
+    return cfg
+
+
+def _dp_session(mods, cfg, *, mesh=None, vote=True, replicas=0, global_batch=None, seed=0,
+                total_steps=8, **plan_kw):
+    """A TrainSession of phase 21: remat full, gas 2, 1024 tokens a row;
+    ``vote`` keeps the reference's default consensus (over the mesh's
+    replicas, or ``replicas`` simulated ones on one device)."""
+    shape = mesh.shape if mesh is not None else {"tp": 1, "data": 1, "pod": 1}
+    plan = mods.ParallelismConfig(gas=DP["gas"], remat_policy="full", tp=shape["tp"],
+                                  dp=shape["data"], pods=shape["pod"], **plan_kw)
+    rs = mods.ResilienceConfig(consensus=vote, consensus_replicas=replicas)
+    return mods.TrainSession.from_recipe(
+        cfg, seed=seed, plan=plan, mesh=mesh,
+        train_cfg=mods.stepfn.TrainConfig(total_steps=total_steps, warmup=2, resilience=rs),
+        data_cfg=mods.DataConfig(seq_len=DP["seq_len"],
+                                 global_batch=global_batch or DP["global_batch"]))
+
+
+def _dp_mods():
+    from repro_torch.core import stepfn
+    from repro_torch.core.recipe import ParallelismConfig
+    from repro_torch.data import DataConfig
+    from repro_torch.runtime.resilience import ResilienceConfig
+    from repro_torch.session import TrainSession
+    return SimpleNamespace(stepfn=stepfn, ParallelismConfig=ParallelismConfig,
+                           DataConfig=DataConfig, ResilienceConfig=ResilienceConfig,
+                           TrainSession=TrainSession)
+
+
+def _digest(torch, tree):
+    """Per leaf, the sum of its f32 words' bit patterns: equal trees give
+    equal digests (the ranks' cross-check of bits)."""
+    from repro_torch.core.tree import tree_leaves
+    return [int(x.detach().float().contiguous().view(torch.int32).sum(dtype=torch.int64))
+            for _, x in tree_leaves(tree)]
+
+
+def _whole_params(sess):
+    from repro_torch.core import sharding
+    return sharding.gather_params(sess.state["params"], sess.mesh, sess.plan,
+                                  sess.cfg.vocab_size, sess.cfg.d_model)
+
+
+def _dp_tag(z, kw, vote=False):
+    return f"z{z}" + "".join(f"-{k}" for k in kw) + ("-vote" if vote else "")
+
+
+def _params_and_m(sess, keep=True):
+    """{reference path: host array} of the whole params and ``m`` (after a
+    first step 0.1 x the clipped gradient); on a mesh gathered leaf by leaf,
+    ``{}`` where not ``keep``."""
+    from repro_torch.checkpoint.bridge import state_to_numpy
+    from repro_torch.checkpoint.elastic import host_snapshot
+    part = {"params": sess.state["params"], "opt": {"m": sess.state["opt"]["m"]}}
+    if sess.mesh is None:
+        return state_to_numpy(part)
+    return dict(host_snapshot(part, sess.plan, mesh=sess.mesh, cfg=sess.cfg, keep=keep))
+
+
+def _held_to(np, got, ref, lr):
+    """A first step's params and gradient against one device's, as the CPU
+    tests hold them: a param within 1e-5 + 1e-5 |p|, except Adam's noise
+    floor (|m| <= 1e-6 max |m| of its leaf: its update is the sign of a
+    rounding error), held to 2 lr and counted; each leaf's ``m`` within
+    1e-5 of its largest entry."""
+    out = dict(max_param_diff=0.0, floor=0, entries=0, worst_m=0.0, ok=True)
+    for key, p_ref in ref.items():
+        if not key.startswith("params/"):
+            continue
+        m_ref = ref["opt/m/" + key[len("params/"):]]
+        top = float(np.abs(m_ref).max())
+        d = np.abs(got[key] - p_ref)
+        ok = d <= 1e-5 + 1e-5 * np.abs(p_ref)
+        noise = np.abs(m_ref) <= 1e-6 * top
+        out["ok"] &= bool((ok | (noise & (d <= 2 * lr))).all())
+        out["max_param_diff"] = max(out["max_param_diff"], float(d.max()))
+        out["floor"] += int((~ok).sum())
+        out["entries"] += d.size
+        dm = float(np.abs(got["opt/m/" + key[len("params/"):]] - m_ref).max())
+        out["worst_m"] = max(out["worst_m"], dm / top if top else dm)
+    out["ok"] &= out["floor"] <= 1e-4 * out["entries"] and out["worst_m"] <= 1e-5
+    return out
+
+
+def phase_dp(torch, get_config, store, smi):
+    """ZeRO 0-3, ``overlap_zero``, ``gather_params_once``, the vote over real
+    replicas and the checkpoint of a sharded state at dp = 2 as two
+    processes on the one card over gloo (``_dp_rank``), and tp = 2 x dp = 2
+    as four; the ranks hold their f32 runs to one device themselves (rank 0
+    computes the one-device run first); this process then restores the
+    ranks' ZeRO-3 checkpoint on one device."""
+    import torch.multiprocessing as mp
+    mods = _dp_mods()
+    if DP_DIR.exists():
+        shutil.rmtree(DP_DIR)
+    DP_DIR.mkdir(parents=True)
+    cfg, full = _dense_cfg(get_config, dict(arch=DP["arch"], n_layers=DP["n_layers"]))
+    ref = {}
+    sess = _dp_session(mods, cfg, vote=False)
+    _timed_step(torch, sess)
+    m, host_s, ev_ms = _timed_step(torch, sess)     # the second step, as the ranks count
+    ref["dp1"] = dict(metrics=m, s=host_s, event_ms=ev_ms,
+                      peak_bytes=torch.cuda.max_memory_allocated())
+    del sess
+    torch.cuda.empty_cache()
+    log(f"[dp] dp = 1 reference ({_describe(cfg, full)}): the second step's loss "
+        f"{m['loss']:.6f}, {host_s * 1e3:.1f} ms host, {ev_ms:.1f} ms CUDA events")
+    outs = {}
+    t0 = time.perf_counter()
+    for world in (DP["ranks"], 4):
+        import socket
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        tw = time.perf_counter()
+        mp.start_processes(_dp_rank, args=(world, port), nprocs=world, join=True,
+                           start_method="spawn")
+        outs[world] = [torch.load(DP_DIR / f"rank{r}_of{world}.pt", weights_only=False)
+                       for r in range(world)]
+        outs[world][0]["ranks_s"] = time.perf_counter() - tw
+    ranks_s = time.perf_counter() - t0
+    # the ZeRO-3 dp = 2 checkpoint, restored on one device
+    ck = DP["ckpt"]
+    ccfg = _dp_cfg(get_config, ck["n_layers"], "float32", ck["vocab"])
+    sess = _dp_session(mods, ccfg, vote=True, replicas=DP["ranks"],
+                       global_batch=ck["global_batch"], seed=2)
+    restored, extra, step = store.restore_latest(DP_DIR / "ck", sess.state, log=log)
+    sess.state = restored
+    dp1_xent = float(sess.evaluate(sess.batches(ck["fail_at"]))["xent"])
+    del sess, restored
+    torch.cuda.empty_cache()
+    shutil.rmtree(DP_DIR)
+    return _dp_check(get_config, ref, outs, ranks_s, smi,
+                     dict(step=step, next_step=extra["next_step"], xent=dp1_xent))
+
+
+def _dp_rank(rank: int, world: int, port: int) -> None:
+    """One rank of phase 21 (a spawned process): its runs, results and
+    checks to ``DP_DIR/rank<r>_of<world>.pt``."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        out = _dp_rank_runs(torch, np, world)
+        torch.save(out, DP_DIR / f"rank{rank}_of{world}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_rank_runs(torch, np, world):
+    import collections
+    import torch.distributed as dist
+    from repro_torch.checkpoint.elastic import host_snapshot
+    from repro_torch.configs import get_config
+    from repro_torch.core import tp, zero
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import describe, make_recipe_mesh
+    mods = _dp_mods()
+    rank = dist.get_rank()
+    mesh = make_recipe_mesh(tp=1 if world == DP["ranks"] else 2, device_type="cuda")
+    out = {"mesh": describe(mesh)}
+
+    def counted(key, fn):
+        """``fn()`` with the launch and collective counts zeroed just before
+        and read just after."""
+        heads = collections.Counter()
+        build.launch_counts.clear()
+        tp.reset()
+        with recording_heads(heads):
+            res = fn()
+        out[key] = dict(launches=dict(build.launch_counts), heads=dict(heads),
+                        collectives=dict(tp.by_group), bytes=dict(tp.bytes_by_group))
+        return res
+
+    # the f32 identities, 2 layers: one device with 2 simulated replicas
+    # and, at dp 2, without the vote (rank 0 alone); then the mesh at every
+    # ZeRO stage, the vote on, and at dp 2 the GAS path at every setting of
+    # the bf16 sweep
+    f32 = _dp_cfg(get_config, DP["f32_layers"], "float32")
+    ref = gas_ref = None
+    if rank == 0:
+        sess = _dp_session(mods, f32, replicas=mesh.plane_size, seed=1)
+        m = sess.step()
+        ref = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   params=[x.detach().cpu() for _, x in tree_leaves(sess.state["params"])])
+        del sess
+        if world == DP["ranks"]:
+            sess = _dp_session(mods, f32, vote=False, seed=1)
+            m = sess.step()
+            gas_ref = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                           lr=float(m["lr"]), state=_params_and_m(sess))
+            del sess
+        torch.cuda.empty_cache()
+    dist.barrier()
+    stages = (0, 1, 2, 3) if world == DP["ranks"] else (1,)
+    z0 = None
+    for z in stages:
+        sess = _dp_session(mods, f32, mesh=mesh, seed=1, zero_stage=z)
+        m = sess.step()
+        whole = [x.detach().cpu() for _, x in tree_leaves(_whole_params(sess))]
+        res = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   skipped=float(m["skipped"]), digest=_digest(torch, _whole_params(sess)))
+        if ref is not None:
+            d = max(float((a - b).abs().max()) for a, b in zip(whole, ref["params"]))
+            res.update(ref_loss=ref["loss"], ref_grad_norm=ref["grad_norm"], max_diff=d,
+                       bitwise=all(torch.equal(a, b) for a, b in zip(whole, ref["params"])))
+            if z0 is None:
+                z0 = whole
+            res["bitwise_z0"] = all(torch.equal(a, b) for a, b in zip(whole, z0))
+        out[f"f32/z{z}"] = res
+        del sess, whole
+        torch.cuda.empty_cache()
+    del ref, z0
+    for z, kw in DP_RUNS if world == DP["ranks"] else ():
+        sess = _dp_session(mods, f32, mesh=mesh, vote=False, seed=1, zero_stage=z, **kw)
+        m = sess.step()
+        got = _params_and_m(sess, keep=rank == 0)
+        res = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   skipped=float(m["skipped"]))
+        if gas_ref is not None:
+            res.update(ref_loss=gas_ref["loss"], ref_grad_norm=gas_ref["grad_norm"],
+                       **_held_to(np, got, gas_ref["state"], gas_ref["lr"]))
+        out[f"f32-gas/{_dp_tag(z, kw)}"] = res
+        del sess, got
+        torch.cuda.empty_cache()
+    del gas_ref
+
+    # bf16 at 4 layers: the ZeRO sweep on the GAS path (consensus off, so
+    # ZeRO-3 gathers as the blocks run and overlap_zero applies); then the
+    # vote (the reference's default) at every stage
+    cfg = _dp_cfg(get_config, DP["n_layers"])
+    runs = DP_SWEEP if world == DP["ranks"] else ((1, {}, True),)
+    for z, kw, vote in runs:
+        tag = _dp_tag(z, kw, vote and world == DP["ranks"])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sess = _dp_session(mods, cfg, mesh=mesh, vote=vote, zero_stage=z, **kw)
+        init_peak = torch.cuda.max_memory_allocated()
+        _timed_step(torch, sess)
+        torch.cuda.reset_peak_memory_stats()
+        m, host_s, ev_ms = counted(tag, lambda: _timed_step(torch, sess))
+        layout = zero.Layout(sess.cfg, sess.plan, mesh, sess.state["params"])
+        out[tag].update(metrics=m, step_s=host_s, event_ms=ev_ms, init_peak=init_peak,
+                        peak_bytes=torch.cuda.max_memory_allocated(),
+                        expected=expected_dp_collectives(layout, cfg.n_layers, DP["gas"],
+                                                         vote=vote),
+                        state_bytes={k: sum(x.numel() * x.element_size()
+                                            for _, x in tree_leaves(t))
+                                     for k, t in (("params", sess.state["params"]),
+                                                  ("m", sess.state["opt"]["m"]),
+                                                  ("v", sess.state["opt"]["v"]))})
+        del sess
+    if world != DP["ranks"]:
+        return out
+    torch.cuda.empty_cache()
+    for z in (0, 1, 2, 3):
+        for case in DP_VOTES:
+            sess = _dp_session(mods, cfg, mesh=mesh, zero_stage=z)
+            before = [x.detach().clone() for _, x in tree_leaves(sess.state["params"])]
+            batch = dict(sess.batches(0), _chaos_grad_scale=_dp_vote_scale(np, case))
+            m = {k: float(v) for k, v in sess.step(batch).items()}
+            frozen = all(torch.equal(a, b) for a, (_, b) in
+                         zip(before, tree_leaves(sess.state["params"])))
+            out[f"vote/z{z}/{case}"] = dict(metrics=m, frozen=frozen,
+                                            digest=_digest(torch, _whole_params(sess)))
+            del sess, before
+            torch.cuda.empty_cache()
+
+    # the checkpoint: ZeRO-3, f32, crashed after the step-2 checkpoint,
+    # resumed in a fresh session, against a run that never crashed
+    ck = DP["ckpt"]
+    ccfg = _dp_cfg(get_config, ck["n_layers"], "float32", ck["vocab"])
+
+    def session():
+        return _dp_session(mods, ccfg, mesh=mesh, zero_stage=3, seed=2,
+                           global_batch=ck["global_batch"])
+
+    quiet = lambda _m: None  # noqa: E731
+    sess = session()
+    try:
+        sess.run(ck["steps"], ckpt_dir=str(DP_DIR / "ck"), ckpt_every=ck["ckpt_every"],
+                 fail_at_step=ck["fail_at"], log=quiet)
+        crashed = False
+    except RuntimeError as e:
+        crashed = f"injected failure at step {ck['fail_at']}" in str(e)
+    del sess
+    sess = session()
+    t0 = time.perf_counter()
+    res = sess.run(ck["steps"], ckpt_dir=str(DP_DIR / "ck"), ckpt_every=ck["ckpt_every"],
+                   log=quiet)
+    resume_s = time.perf_counter() - t0
+    resumed = host_snapshot(sess.state, sess.plan, mesh=mesh, cfg=ccfg)
+    events = [(e.step, e.kind) for e in res["events"]]
+    del sess
+    sess = session()                     # the checkpoint alone, restored at dp 2
+    sess.run(ck["fail_at"], ckpt_dir=str(DP_DIR / "ck"), log=quiet)
+    xent = float(sess.evaluate(sess.batches(ck["fail_at"]))["xent"])
+    del sess
+    sess = session()
+    sess.run(ck["steps"], log=quiet)
+    straight = host_snapshot(sess.state, sess.plan, mesh=mesh, cfg=ccfg)
+    bitwise = [k for k, _ in resumed] == [k for k, _ in straight] and all(
+        a.tobytes() == b.tobytes() for (_, a), (_, b) in zip(resumed, straight))
+    out["ckpt"] = dict(crashed=crashed, resumed_from=res["resumed_from"], bitwise=bitwise,
+                       xent=xent, events=events, resume_s=resume_s)
+    return out
+
+
+def _dp_vote_scale(np, case):
+    """Per (replica, micro-batch) gradient scale: NaN in the bad replicas."""
+    bad = {"bad0": (0,), "bad1": (1,), "both": (0, 1)}[case]
+    s = np.ones((DP["ranks"], DP["gas"]), np.float32)
+    for r in bad:
+        s[r] = np.nan
+    return s.reshape(-1)
+
+
+def _dp_check(get_config, ref, outs, ranks_s, smi, dp1):
+    """Phase 21's checks on the ranks' results; returns (the ``{"dp": ...}``
+    summary, rank 0's counted main-path launches)."""
+    from repro_torch.core.memory import per_device_bytes
+    two, four = outs[DP["ranks"]], outs[4]
+    out = two[0]
+    cfg = _dp_cfg(get_config, DP["n_layers"])
+    L, G = cfg.n_layers, DP["gas"]
+    n = cfg.n_params()
+    log(f"[dp] {DP['ranks']} ranks ({out['mesh']}) then 4 ({four[0]['mesh']}) ran in "
+        f"{ranks_s:.1f} s ({DP_LABEL})")
+    summary = {"card": smi, "times_label": DP_LABEL, "memory": {}, "collectives": {},
+               "times": {}, "f32": {}, "vote": {}}
+    # the f32 identities
+    for z in (0, 1, 2, 3):
+        r = out[f"f32/z{z}"]
+        rel = abs(r["loss"] - r["ref_loss"]) / abs(r["ref_loss"])
+        log(f"[dp] f32 {DP['f32_layers']} layers, ZeRO-{z}, the vote over 2 ranks vs one device "
+            f"with 2 simulated replicas: loss {r['loss']:.7f} vs {r['ref_loss']:.7f}, grad_norm "
+            f"{r['grad_norm']:.7f} vs {r['ref_grad_norm']:.7f}; params max |diff| "
+            f"{r['max_diff']:.3g}, bitwise {r['bitwise']}; bitwise to ZeRO-0 {r['bitwise_z0']}")
+        require(rel <= 1e-5 and r["max_diff"] <= 1e-5 and r["skipped"] == 0.0,
+                f"f32 ZeRO-{z}: the mesh parts from one device (loss rel {rel:.3g}, params "
+                f"{r['max_diff']:.3g})")
+        require(r["bitwise_z0"], f"f32 ZeRO-{z}: params differ from ZeRO-0's bits")
+        require(two[1][f"f32/z{z}"]["digest"] == r["digest"],
+                f"f32 ZeRO-{z}: rank 1's params differ from rank 0's")
+        summary["f32"][f"z{z}"] = dict(bitwise_to_one_device=r["bitwise"],
+                                       bitwise_to_z0=r["bitwise_z0"], max_diff=r["max_diff"])
+    r4 = four[0]["f32/z1"]
+    log(f"[dp] f32 tp 2 x dp 2, ZeRO-1: loss {r4['loss']:.7f} vs one device {r4['ref_loss']:.7f}"
+        f"; params max |diff| {r4['max_diff']:.3g} (tol 1e-5)")
+    require(abs(r4["loss"] - r4["ref_loss"]) <= 1e-5 * abs(r4["ref_loss"])
+            and r4["max_diff"] <= 1e-5, "f32 tp 2 x dp 2 parts from one device")
+    require(all(o["f32/z1"]["digest"] == r4["digest"] for o in four[1:]),
+            "f32 tp 2 x dp 2: the ranks' params differ")
+    summary["f32"]["tp2dp2_z1_max_diff"] = r4["max_diff"]
+    for z, kw in DP_RUNS:
+        tag = _dp_tag(z, kw)
+        r = out[f"f32-gas/{tag}"]
+        rel = abs(r["loss"] - r["ref_loss"]) / abs(r["ref_loss"])
+        rel_n = abs(r["grad_norm"] - r["ref_grad_norm"]) / abs(r["ref_grad_norm"])
+        log(f"[dp] f32 {DP['f32_layers']} layers, {tag}, the GAS path over 2 ranks vs one "
+            f"device: loss {r['loss']:.7f} vs {r['ref_loss']:.7f}, grad_norm "
+            f"{r['grad_norm']:.7f} vs {r['ref_grad_norm']:.7f}; params max |diff| "
+            f"{r['max_param_diff']:.3g}, {r['floor']} of {r['entries']} past 1e-5 (Adam's "
+            f"noise floor, each within 2 lr); m max |diff| {r['worst_m']:.3g} of its "
+            f"leaf's largest")
+        require(rel <= 1e-5 and rel_n <= 1e-5 and r["skipped"] == 0.0 and r["ok"],
+                f"f32 GAS {tag}: the mesh parts from one device (loss rel {rel:.3g}, "
+                f"grad_norm rel {rel_n:.3g}, {r})")
+        require(two[1][f"f32-gas/{tag}"]["loss"] == r["loss"], f"f32 GAS {tag}: rank 1's loss")
+        summary["f32"][f"gas/{tag}"] = dict(loss_rel=rel, grad_norm_rel=rel_n,
+                                            max_param_diff=r["max_param_diff"],
+                                            floor=r["floor"], m_rel=r["worst_m"])
+
+    # the bf16 sweep: collectives, memory and times
+    want_l = {"flash_fwd": 2 * L * G, "flash_delta": L * G, "flash_dq": L * G,
+              "flash_dkv": L * G}
+    hq = cfg.n_heads
+    want_h = {(k, hq, hq): c for k, c in want_l.items()}
+    t_dp = 2.0 * (2.0 * n) * (DP["ranks"] - 1) / DP["ranks"]
+    launch_runs = []
+    for z, kw, vote in DP_SWEEP:
+        tag = _dp_tag(z, kw, vote)
+        run, m = out[tag], out[tag]["metrics"]
+        model = per_device_bytes(cfg, dp=DP["ranks"], tp=1, pp=1, zero_stage=z, mbs=1, gas=G,
+                                 seq=DP["seq_len"], remat="full")
+        grad_bytes = sum(v for k, v in run["bytes"].items()
+                         if k.split("@")[1] == "data")
+        log(f"[dp] bf16 {tag}: loss {m['loss']:.6f} (dp 1 {ref['dp1']['metrics']['loss']:.6f}), "
+            f"skipped {m['skipped']:.0f}; peak {run['peak_bytes'] / 2**30:.3f} GiB a rank in "
+            f"the step ({run['init_peak'] / 2**30:.3f} GiB at init), memory model "
+            f"{model['total'] / 2**30:.3f} GiB (params {model['params'] / 2**30:.3f}, grads "
+            f"{model['grads'] / 2**30:.3f}, optimizer {model['optimizer'] / 2**30:.3f}, "
+            f"activations {model['activations'] / 2**30:.3f}, logits "
+            f"{model['logits'] / 2**30:.3f}); state a rank {run['state_bytes']}")
+        log(f"[dp] bf16 {tag}: collectives {run['collectives']} (expected {run['expected']}), "
+            f"bytes {run['bytes']}; over the data axis {grad_bytes} B, the cost model's t_dp "
+            f"{t_dp:.0f} B (reduce-scatter + all-gather of bf16 gradients); the second step "
+            f"{run['step_s'] * 1e3:.1f} ms host, {run['event_ms']:.1f} ms CUDA events "
+            f"({DP_LABEL}); launches {run['launches']}")
+        require(math.isfinite(m["loss"]) and m["skipped"] == 0.0, f"bf16 {tag}: {m}")
+        require(abs(m["loss"] - ref["dp1"]["metrics"]["loss"]) <= TOL["bfloat16"] * abs(m["loss"]),
+                f"bf16 {tag}: loss {m['loss']} vs dp 1's {ref['dp1']['metrics']['loss']}")
+        require(run["collectives"] == run["expected"], f"bf16 {tag}: collectives")
+        require(run["launches"] == want_l and run["heads"] == want_h,
+                f"bf16 {tag}: launches {run['launches']}, heads {run['heads']}")
+        require(two[1][tag]["metrics"]["loss"] == m["loss"], f"bf16 {tag}: rank 1's loss")
+        launch_runs.append(run["launches"])
+        summary["memory"][tag] = dict(peak_bytes=run["peak_bytes"], init_peak=run["init_peak"],
+                                      model_bytes=model)
+        summary["collectives"][tag] = dict(calls=run["collectives"], bytes=run["bytes"],
+                                           data_axis_bytes=grad_bytes, cost_model_t_dp_bytes=t_dp)
+        summary["times"][f"{tag} step ms (host, events)"] = [run["step_s"] * 1e3,
+                                                             run["event_ms"]]
+    summary["times"]["dp 1 step ms (host, events)"] = [ref["dp1"]["s"] * 1e3,
+                                                       ref["dp1"]["event_ms"]]
+    r4 = four[0]["z1"]
+    log(f"[dp] bf16 tp 2 x dp 2, ZeRO-1, the vote: loss {r4['metrics']['loss']:.6f}, collectives "
+        f"{r4['collectives']}; the second step {r4['step_s'] * 1e3:.1f} ms host "
+        f"({DP_LABEL}, four ranks)")
+    require(math.isfinite(r4["metrics"]["loss"]) and r4["metrics"]["skipped"] == 0.0
+            and all(o["z1"]["metrics"]["loss"] == r4["metrics"]["loss"] for o in four[1:]),
+            "bf16 tp 2 x dp 2 step")
+    require({k: v for k, v in r4["collectives"].items() if k.endswith("@data")}
+            == {k: v for k, v in r4["expected"].items() if k.endswith("@data")},
+            f"tp 2 x dp 2: data-axis collectives {r4['collectives']}")
+    summary["times"]["tp2dp2 z1 step ms (host, events)"] = [r4["step_s"] * 1e3,
+                                                            r4["event_ms"]]
+    # the vote
+    for z in (0, 1, 2, 3):
+        for case in DP_VOTES:
+            v = out[f"vote/z{z}/{case}"]
+            m = v["metrics"]
+            log(f"[dp] vote ZeRO-{z} NaN in {case}: bad_replicas {m['bad_replicas']:.0f}, "
+                f"skipped {m['skipped']:.0f}, n_replicas {m['n_replicas']:.0f}, loss "
+                f"{m['loss']:.6f}, params frozen {v['frozen']}")
+            want = (2.0, 1.0) if case == "both" else (1.0, 0.0)
+            require((m["bad_replicas"], m["skipped"]) == want and m["n_replicas"] == 2.0,
+                    f"vote ZeRO-{z} {case}: {m}")
+            require(v["frozen"] == (case == "both"), f"vote ZeRO-{z} {case}: frozen")
+            require(two[1][f"vote/z{z}/{case}"]["digest"] == v["digest"],
+                    f"vote ZeRO-{z} {case}: the ranks' params differ")
+            summary["vote"][f"z{z}/{case}"] = [m["bad_replicas"], m["skipped"]]
+    # the checkpoint
+    c = out["ckpt"]
+    log(f"[dp] checkpoint (ZeRO-3, dp 2, f32, {DP['ckpt']['n_layers']} layer(s), vocab "
+        f"{DP['ckpt']['vocab']}): crashed {c['crashed']}, resumed from {c['resumed_from']}, "
+        f"resumed == never crashed bitwise {c['bitwise']}; restored at dp 1 from step "
+        f"{dp1['step']}: xent {dp1['xent']:.7f} vs the mesh's {c['xent']:.7f}")
+    require(c["crashed"] and c["resumed_from"] == DP["ckpt"]["fail_at"] and c["bitwise"],
+            f"checkpoint: {c}")
+    require(two[1]["ckpt"]["events"] == c["events"], "checkpoint: the ranks' events differ")
+    require(abs(dp1["xent"] - c["xent"]) <= 1e-6 * abs(c["xent"]),
+            f"checkpoint restored at dp 1: xent {dp1['xent']} vs {c['xent']}")
+    summary["checkpoint"] = dict(c, dp1=dp1)
+    return summary, launch_runs
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a checkout of "
@@ -2903,6 +3460,8 @@ def main() -> int:
     tp_summary, tp_launches = timed("20 tensor parallel", phase_tp, torch, np, get_config,
                                     InferenceSession, TrainSession, stepfn, ParallelismConfig,
                                     DataConfig, tree_map, smi)
+    dp_summary, dp_launches = timed("21 data parallel", phase_dp, torch, get_config, store,
+                                    smi)
     timing = timed("14 timing", phase_timing, torch, fa, da, rn, smi)
     log(f"[phase] all phases {sum(seconds.values()):.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
@@ -2931,12 +3490,13 @@ def main() -> int:
     # the reference, so no main path launches it
     runs = [serve_launches, train_launches, *stream_launches.values(), *cli_launches,
             eval_launches, *(c for pair in dense_launches.values() for c in pair),
-            *h2o_stream_launches.values(), h2o_train_launches, *tp_launches]
+            *h2o_stream_launches.values(), h2o_train_launches, *tp_launches, *dp_launches]
     log(f"[launches] generate {serve_launches}; train step {train_launches}; stream "
         f"{stream_launches}; training CLI (crashed, resumed) {cli_launches}; eval sweep "
         f"{eval_launches}; dense arm (prefill, generate) {dense_launches}; h2o stream "
         f"{h2o_stream_launches}; h2o train step {h2o_train_launches}; tp = 2 rank 0 "
-        f"(granite and gpt-3.6b generate, gpt-3.6b prefill, three train steps) {tp_launches}")
+        f"(granite and gpt-3.6b generate, gpt-3.6b prefill, three train steps) {tp_launches}"
+        f"; dp = 2 rank 0 (a step at each of seven ZeRO settings) {dp_launches}")
     for kr in kernels:
         r = timing[kr["name"]]
         n = sum(c.get(kr["name"], 0) for c in runs)
@@ -2946,6 +3506,7 @@ def main() -> int:
     log(f"[env] card: {smi}")
     print(json.dumps({"planning": planning}), flush=True)
     print(json.dumps({"tp": tp_summary}), flush=True)
+    print(json.dumps({"dp": dp_summary}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

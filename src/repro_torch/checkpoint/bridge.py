@@ -17,16 +17,19 @@ reference's paths, in the reference's leaf order (dict keys sorted), every
 leaf a host copy that the live state can no longer change; bf16 leaves
 become 2-byte void records, as numpy stores the reference's.
 
-Under tensor parallelism every rank bridges the whole parameters and keeps
-its slices with ``core.sharding.shard_params`` (``InferenceSession.
-from_params`` with ``mesh=`` does both).
+On a mesh every rank bridges the whole state on the host and keeps its
+shards (``core.sharding.shard_params`` for tp's slices and ZeRO-3's,
+``shard_state`` for ZeRO's ``m``, ``v`` and ``ef``;
+``checkpoint.elastic.reshard_state`` does both and moves only the shards to
+the device), and a sharded state is gathered to the host leaf by leaf before
+it is written (``elastic.host_snapshot``): the files never hold a shard.
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Any, Dict, List, Mapping, Tuple, Union
+from typing import Any, Callable, Dict, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -137,15 +140,22 @@ def state_leaves(state: Mapping[str, Any], prefix: Tuple[str, ...] = ()
     return out
 
 
-def to_host(leaf: Union[torch.Tensor, List[torch.Tensor]]) -> np.ndarray:
+def to_host(leaf: Union[torch.Tensor, List[torch.Tensor]],
+            fetch: Callable[[torch.Tensor], torch.Tensor] = torch.Tensor.detach
+            ) -> np.ndarray:
     """A host copy of one leaf of ``state_leaves`` (per-layer tensors stacked
-    on a new first axis); bf16 as 2-byte records."""
-    if isinstance(leaf, list):
-        t = torch.empty((len(leaf), *leaf[0].shape), dtype=leaf[0].dtype)
-        for row, x in zip(t, leaf):
-            row.copy_(x.detach())
-    else:
-        t = leaf.detach().to("cpu", copy=True)
+    on a new first axis); bf16 as 2-byte records.  ``fetch(x)`` is copied in
+    place of each tensor ``x``, one at a time (on a mesh: ``x`` gathered
+    whole)."""
+    xs = leaf if isinstance(leaf, list) else [leaf]
+    t = None
+    for i, x in enumerate(xs):
+        x = fetch(x)
+        if t is None:
+            lead = (len(xs),) if isinstance(leaf, list) else ()
+            t = torch.empty(lead + tuple(x.shape), dtype=x.dtype)
+        (t[i] if isinstance(leaf, list) else t).copy_(x)
+        del x
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(BF16_RECORD)
     return t.numpy()

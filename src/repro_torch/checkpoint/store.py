@@ -8,7 +8,8 @@ sha256 per leaf, so either package restores the other's checkpoints.  The
 snapshot copies every leaf to the host before ``save_checkpoint`` returns:
 the port's optimizer updates the state in place, so a background write of
 views would record a later step.  A restore returns the state's tensors on
-the template's device.
+the template's device, or on the one it is given (a mesh reads the whole
+state on the host and keeps its shards).
 
 Fault-tolerance contract:
   * atomic: leaves are written into ``step_<N>.tmp`` and the directory is
@@ -147,7 +148,8 @@ def save_checkpoint(directory: str | Path, step: int, state, *,
                     log: Optional[Callable[[str], None]] = None,
                     fault_hook: Optional[Callable[[int], None]] = None
                     ) -> CheckpointWriter | None:
-    """Write ``state`` (the port's train state) for ``step``.
+    """Write ``state`` (the port's train state, or its host snapshot
+    ``[(reference path, array)]``: ``elastic.host_snapshot``) for ``step``.
 
     Foreground (default): retries per ``retry`` and raises the final failure.
     ``background=True``: snapshots to host memory, writes on a thread, and
@@ -159,7 +161,7 @@ def save_checkpoint(directory: str | Path, step: int, state, *,
     retry = retry if retry is not None else RetryPolicy()
     # snapshot to host memory first: copies, since the next step updates the
     # state in place
-    host = [(k, to_host(v)) for k, v in state_leaves(state)]
+    host = state if isinstance(state, list) else [(k, to_host(v)) for k, v in state_leaves(state)]
 
     def write_once():
         tmp = directory / f"step_{step:08d}.tmp"
@@ -215,7 +217,7 @@ def list_steps(directory: str | Path) -> List[int]:
 
 
 def _load_step(directory: Path, step: int, template,
-               fault_hook: Optional[Callable[[], None]] = None
+               fault_hook: Optional[Callable[[], None]] = None, device=None
                ) -> Tuple[Any, Dict[str, Any]]:
     if fault_hook is not None:
         fault_hook()
@@ -235,8 +237,9 @@ def _load_step(directory: Path, step: int, template,
         if meta["dtype"] == "bfloat16":
             arr = arr.view(BF16_RECORD)
         leaves[key] = arr
-    first = flat[0][1]
-    device = (first[0] if isinstance(first, list) else first).device
+    if device is None:
+        first = flat[0][1]
+        device = (first[0] if isinstance(first, list) else first).device
     # every leaf is verified before one is placed on the template's device:
     # a corrupt step leaves no partial state behind
     return state_from_numpy(leaves, device=device), manifest["extra"]
@@ -245,8 +248,8 @@ def _load_step(directory: Path, step: int, template,
 def restore_step(directory: str | Path, step: int, template, *,
                  retry: Optional[RetryPolicy] = None,
                  log: Optional[Callable[[str], None]] = None,
-                 fault_hook: Optional[Callable[[], None]] = None):
-    load = lambda: _load_step(Path(directory), step, template, fault_hook)
+                 fault_hook: Optional[Callable[[], None]] = None, device=None):
+    load = lambda: _load_step(Path(directory), step, template, fault_hook, device)
     if retry is None:
         return load()
     return retry.run(load, describe=f"read step {step}", log=log)
@@ -255,8 +258,9 @@ def restore_step(directory: str | Path, step: int, template, *,
 def restore_latest(directory: str | Path, template, *,
                    retry: Optional[RetryPolicy] = None,
                    log: Optional[Callable[[str], None]] = None,
-                   fault_hook: Optional[Callable[[], None]] = None):
-    """Restore the newest valid checkpoint, skipping corrupt ones.
+                   fault_hook: Optional[Callable[[], None]] = None, device=None):
+    """Restore the newest valid checkpoint, skipping corrupt ones, onto
+    ``device`` (the template's by default).
 
     Transient read errors are retried per ``retry`` before the step is given
     up on; fallbacks are reported through ``log`` (defaults to stdout) so
@@ -267,7 +271,7 @@ def restore_latest(directory: str | Path, template, *,
     for step in reversed(list_steps(directory)):
         try:
             state, extra = restore_step(directory, step, template, retry=retry,
-                                        log=log, fault_hook=fault_hook)
+                                        log=log, fault_hook=fault_hook, device=device)
             return state, extra, step
         except (CheckpointError, OSError, ValueError) as e:  # corrupt → older
             log(f"[checkpoint] step {step} unusable ({e}); trying older")

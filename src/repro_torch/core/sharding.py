@@ -9,9 +9,12 @@ a resolved spec is a plain tuple where the reference builds a
 dict per layer, no stacked axis), so ``stacked_axes`` is 0 for every leaf.
 
 GSPMD places the reference's arrays from these specs.  The port places them
-itself: :func:`shard_params` keeps, of every leaf, this rank's slice along
-the dim the resolved and sanitized spec gives the ``tp`` axis, and
-:func:`gather_params` is its inverse.  The model code asks the rules that
+itself: :func:`shard_params` keeps, of every leaf, this rank's block along
+the dims the resolved and sanitized spec shards (the ``tp`` axis, and under
+ZeRO-3 the data axis), :func:`shard_state` does the same for an optimizer
+state under ZeRO's specs (``core.zero``), and :func:`gather_params` is the
+first's inverse (``checkpoint.elastic.host_snapshot`` gathers a whole
+state to the host leaf by leaf).  The model code asks the rules that
 :func:`axis_rules` installs for the tp group (``core.tp``) and does the
 collectives GSPMD would insert.  Everything no-ops when no rules are
 installed: the single-device paths do not change by a bit.
@@ -196,22 +199,6 @@ def sanitize(spec: Tuple, shape: Tuple[int, ...], mesh) -> Tuple:
 # the port's placement: this rank's slices of the parameters
 # ---------------------------------------------------------------------------
 
-def tp_dims(shapes, mesh, plan: ParallelismConfig) -> Dict[Tuple, Optional[int]]:
-    """{leaf path: the dim of the whole leaf that the tp axis splits, or
-    None}, from the resolved and sanitized spec of each leaf; ``shapes`` is
-    [(path, whole shape)]."""
-    rules = AxisRules(mesh, axis_mapping(plan))
-    tp_axis = rules._present("tp")
-    out = {}
-    for path, shape in shapes:
-        spec = sanitize(rules.resolve(spec_for_path("/".join(map(str, path)), shape)),
-                        shape, mesh)
-        dims = [d for d, ax in enumerate(spec)
-                if ax == tp_axis or (isinstance(ax, tuple) and tp_axis in ax)]
-        out[path] = dims[0] if dims and mesh.shape[tp_axis] > 1 else None
-    return out
-
-
 def _map_with_path(fn, tree, path=()):
     if isinstance(tree, dict):
         return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
@@ -220,32 +207,48 @@ def _map_with_path(fn, tree, path=()):
     return fn(path, tree)
 
 
-def shard_params(params, mesh, plan: ParallelismConfig):
+def shard_params(params, mesh, plan: ParallelismConfig, device=None):
     """Whole parameters (every rank holds the same) → this rank's: each leaf
-    keeps the slice of this rank's tp coordinate along its tp dim, as a
-    contiguous copy; a leaf whose dim tp does not divide stays whole."""
-    dims = tp_dims([(p, tuple(x.shape)) for p, x in tree_leaves(params)], mesh, plan)
-    n, i = mesh.shape["tp"], mesh.coords["tp"]
-
-    def one(path, x):
-        d = dims[path]
-        if d is None:
-            return x
-        w = x.shape[d] // n
-        return x.narrow(d, i * w, w).clone(memory_format=torch.contiguous_format)
-
-    return _map_with_path(one, params)
+    keeps this rank's block along the dims its resolved and sanitized spec
+    shards (tp, and under ZeRO-3 the data axis on its ``embed`` dim), as a
+    contiguous copy; a leaf whose dims the mesh does not divide stays
+    whole.  ``device``: where the blocks go (the leaves' own by default)."""
+    from repro_torch.core import zero
+    specs = zero.param_shardings([(p, tuple(x.shape)) for p, x in tree_leaves(params)],
+                                 mesh, plan)
+    return _map_with_path(
+        lambda path, x: _own(zero.local(x, specs[path], mesh), x, device), params)
 
 
-def whole_shapes(local, mesh, plan: ParallelismConfig, vocab_size: int):
-    """[(leaf path, the shape the leaf has whole)] for this rank's leaves:
-    the tp dim of a sharded leaf is tp times as long.  Only a vocabulary's
-    dim can be left whole by ``sanitize`` (``core.stepfn.check_plan`` has tp
-    divide the heads and d_ff), so a vocabulary table as long as
-    ``vocab_size`` is whole."""
+def _own(part: torch.Tensor, whole: torch.Tensor, device=None) -> torch.Tensor:
+    if device is not None:
+        return part.to(device, memory_format=torch.contiguous_format, copy=True)
+    return whole if part is whole else part.clone(memory_format=torch.contiguous_format)
+
+
+def shard_state(tree, mesh, plan: ParallelismConfig, device=None):
+    """A whole optimizer-state tree (``m``, ``v`` or ``ef``, shaped like the
+    parameters) → this rank's shards under ``zero.opt_shardings``, on
+    ``device`` as for :func:`shard_params`."""
+    from repro_torch.core import zero
+    shapes = [(p, tuple(x.shape)) for p, x in tree_leaves(tree)]
+    specs = zero.opt_shardings(zero.param_shardings(shapes, mesh, plan), shapes, mesh, plan,
+                               len(tree["blocks"]))
+    return _map_with_path(
+        lambda path, x: _own(zero.local(x, specs[path], mesh), x, device), tree)
+
+
+def whole_shapes(local, mesh, plan: ParallelismConfig, vocab_size: int,
+                 d_model: Optional[int] = None):
+    """[(leaf path, the shape the leaf has whole)] for this rank's parameter
+    leaves: the tp dim of a sharded leaf is tp times as long, and under
+    ZeRO-3 its ``embed`` dim (``d_model`` whole) data times.  Only a
+    vocabulary's dim can be left whole by ``sanitize`` under tp
+    (``core.stepfn.check_plan`` has tp divide the heads and d_ff), so a
+    vocabulary table as long as ``vocab_size`` is whole."""
     rules = AxisRules(mesh, axis_mapping(plan))
     tp_axis = rules._present("tp")
-    n = mesh.shape[tp_axis]
+    n, dp = mesh.shape[tp_axis], mesh.shape["data"]
     out = []
     for path, x in tree_leaves(local):
         shape = tuple(x.shape)
@@ -254,18 +257,23 @@ def whole_shapes(local, mesh, plan: ParallelismConfig, vocab_size: int):
             whole = path[-1] in ("embed", "lm_head") and shape[d] == vocab_size
             if ax == tp_axis and n > 1 and not whole:
                 shape = shape[:d] + (shape[d] * n,) + shape[d + 1:]
+            elif ax == "data" and dp > 1:
+                if d_model is None:
+                    raise ValueError("whole_shapes: ZeRO-3 leaves need d_model")
+                if shape[d] != d_model:
+                    shape = shape[:d] + (shape[d] * dp,) + shape[d + 1:]
         out.append((path, shape))
     return out
 
 
-def gather_params(local, mesh, plan: ParallelismConfig, vocab_size: int):
+def gather_params(local, mesh, plan: ParallelismConfig, vocab_size: int,
+                  d_model: Optional[int] = None):
     """The inverse of :func:`shard_params`: this rank's leaves → the whole
     parameters in the reference layout, on every rank (an all-gather per
-    sharded leaf over the tp group)."""
-    from repro_torch.core import tp
-    dims = tp_dims(whole_shapes(local, mesh, plan, vocab_size), mesh, plan)
-    group = mesh.groups["tp"]
+    sharded dim of a leaf, over the tp group or the data line)."""
+    from repro_torch.core import zero
+    specs = zero.param_shardings(whole_shapes(local, mesh, plan, vocab_size, d_model),
+                                 mesh, plan)
     with torch.no_grad():
-        return _map_with_path(
-            lambda path, x: x if dims[path] is None
-            else tp.all_gather(x.detach(), dims[path], group), local)
+        return _map_with_path(lambda path, x: zero.gather(x.detach(), specs[path], mesh), local)
+

@@ -19,12 +19,18 @@ caches and pools in place, where the reference donates them;
 ``make_prefill`` keeps no cache.
 
 ``mesh`` (a ``launch.mesh.RecipeMesh``, as the reference's ``mesh=``) runs
-a step tensor-parallel: each step installs the recipe's axis rules
-(``core.sharding.axis_rules``) around its body, the state holds this
-rank's slices (``core.sharding.shard_params``), the gradient norm and the
-int8 scale are taken over the tp group, and under sequence parallel the
-replicated norms' gradients (partial sums over this rank's positions) are
-all-reduced before anything reads them.  The serving steps gather the
+a step over ``torch.distributed``: each step installs the recipe's axis
+rules (``core.sharding.axis_rules``) around its body.  Under tp the state
+holds this rank's slices (``core.sharding.shard_params``), the int8 scale
+is taken over the tp group, and under sequence parallel the replicated
+norms' gradients (partial sums over this rank's positions) are all-reduced
+before anything reads them.  Over the ``(pod, data)`` plane each rank is a
+data-parallel replica: it takes the reference's rows of the global batch,
+its gradients are summed over the plane into ZeRO's layout
+(``core.zero.Layout``: all-reduced to stage 1, reduce-scattered from stage
+2, per micro-batch under ``overlap_zero``), and AdamW updates this rank's
+shard; the consensus vote runs over the real replicas.  The gradient norm
+sums every distinct piece once over the mesh.  The serving steps gather the
 vocabulary-sharded logits before the argmax.  :func:`check_plan` says
 which plans wait for later parts of the recipe.
 """
@@ -37,7 +43,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch.core import sharding, tp
+from repro_torch.core import sharding, tp, zero
 from repro_torch.core.recipe import ParallelismConfig, axis_mapping
 from repro_torch.core.tree import tree_leaves
 from repro_torch.models import api as model_api
@@ -63,24 +69,17 @@ PARALLEL = "(ROADMAP Queue 1, item 3: the parallel recipe over torch.distributed
 def check_plan(plan: ParallelismConfig, mesh=None, cfg: Optional[ModelConfig] = None) -> None:
     """The plan against the mesh.  Without a mesh tp, dp and pods compute as
     one device, as the reference computes them; pp needs the pipeline.  On
-    a mesh tp runs over it, and what needs ZeRO's sharded states or real
-    replicas raises; tp must divide ``cfg``'s heads, KV heads and d_ff (the
-    port shards whole heads)."""
+    a mesh its tp, data and pod axes must be the plan's tp, dp and pods, and
+    tp must divide ``cfg``'s heads, KV heads and d_ff (the port shards whole
+    heads)."""
     if plan.pp > 1:
         raise NotImplementedError(f"pp={plan.pp}: the pipeline is not ported yet {PARALLEL}")
     if mesh is None:
         return
-    waiting = {"dp": plan.dp > 1, "pods": plan.pods > 1,
-               "zero_stage": plan.zero_stage >= 2, "overlap_zero": plan.overlap_zero,
-               "gather_params_once": plan.gather_params_once}
-    for name, on in waiting.items():
-        if on:
-            raise NotImplementedError(
-                f"{name}={getattr(plan, name)} on a mesh: data parallelism and ZeRO's "
-                f"sharded states are not ported yet {PARALLEL}")
-    if mesh.shape["tp"] != plan.tp:
-        raise ValueError(f"plan tp={plan.tp} but the mesh's tp axis is {mesh.shape['tp']} "
-                         "ranks wide")
+    for name, axis in (("tp", "tp"), ("dp", "data"), ("pods", "pod")):
+        if mesh.shape[axis] != getattr(plan, name):
+            raise ValueError(f"plan {name}={getattr(plan, name)} but the mesh's {axis} axis "
+                             f"is {mesh.shape[axis]} ranks wide")
     if cfg is not None:
         for what in ("n_heads", "n_kv_heads", "d_ff"):
             if getattr(cfg, what) % plan.tp:
@@ -125,16 +124,20 @@ def init_state(cfg: ModelConfig, plan: ParallelismConfig, gen: torch.Generator,
                train_cfg: TrainConfig = TrainConfig(), mesh=None) -> Dict[str, Any]:
     """fp32 parameters from ``gen`` on its device, AdamW moments, step 0.  On
     a mesh every rank draws the whole model from ``gen`` and keeps its
-    slices, so tp = k starts from the bits of tp = 1."""
+    shards (the parameters' under tp and ZeRO-3, ``m``, ``v`` and ``ef``
+    under ZeRO's optimizer specs), so any mesh starts from the bits of one
+    device."""
     check_plan(plan, mesh, cfg)
     params = model_api.init_params(cfg, gen)
+    # m, v and ef are laid out like the parameters: on a mesh ZeRO's shards
+    like = params if mesh is None else sharding.shard_state(params, mesh, plan)
     if mesh is not None:
         params = sharding.shard_params(params, mesh, plan)
-    state = {"params": params, "opt": adamw.init_opt_state(params),
+    state = {"params": params, "opt": adamw.init_opt_state(like),
              "step": torch.zeros((), dtype=torch.int32, device=gen.device),
              "rstat": init_rstat(gen.device)}
     if train_cfg.compression == "int8_ef":
-        state["ef"] = init_error_feedback(params)
+        state["ef"] = init_error_feedback(like)
     return state
 
 
@@ -150,38 +153,133 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
     """Returns train_step(state, batch) → (state, metrics); ``batch`` holds
     tensors on the state's device, optionally ``_chaos_grad_scale`` (the
     fault-injection harness' gradient multiplier, per micro-batch).  On a
-    mesh every tp rank takes the whole batch."""
+    mesh every rank takes the whole global batch and keeps the reference's
+    rows for its replica: of every micro-batch its slice (the GAS path), or
+    its replica's contiguous block (the vote)."""
     check_plan(plan, mesh, cfg)
     rs = train_cfg.resilience
-    if mesh is not None and (rs.consensus_replicas or 1) > 1:
-        raise NotImplementedError(
-            f"consensus_replicas={rs.consensus_replicas} on a mesh: the consensus vote "
-            f"over real replicas is not ported yet {PARALLEL}")
-    # replica groups that vote on a skip: without a mesh only a simulated
-    # fleet (``consensus_replicas``) has more than one
-    n_rep = (rs.consensus_replicas or 1) if rs.enabled and rs.consensus else 1
-    # per leaf (in ``tree_leaves`` order): tp-sharded; under sequence
-    # parallel, a replicated norm leaf whose gradient is a partial sum
-    layout: Dict[str, list] = {}
+    n_plane = 1 if mesh is None else mesh.plane_size
+    if mesh is not None and rs.consensus_replicas and rs.consensus_replicas != n_plane:
+        raise ValueError(
+            f"consensus_replicas={rs.consensus_replicas} on a mesh: the replicas are the "
+            f"mesh's, so it must be 0 or dp*pods={n_plane}")
+    # replica groups that vote on a skip: the mesh's (pod, data) plane, or
+    # without a mesh a simulated fleet (``consensus_replicas``)
+    n_rep = (rs.consensus_replicas or n_plane) if rs.enabled and rs.consensus else 1
+    dp = n_plane > 1
+    # filled on a mesh's first step (under its rules): the ZeRO layout, per
+    # leaf (``tree_leaves`` order) tp-sharded, counted by this rank in the
+    # step's norm (``owned``) and in its replica's (``tp_owned``), and under
+    # sequence parallel the replicated norm leaves whose gradient is a
+    # partial sum
+    layout: Dict[str, Any] = {}
 
     def leaf_layout(params):
-        """Fill ``layout`` on a mesh's first step (under its rules)."""
         if mesh is None or layout:
             return
-        paths = [p for p, _ in tree_leaves(params)]
-        dims = sharding.tp_dims(sharding.whole_shapes(params, mesh, plan, cfg.vocab_size),
-                                mesh, plan)
-        layout["sharded"] = [dims[p] is not None for p in paths]
-        layout["sp_partial"] = [i for i, p in enumerate(paths)
-                                if tp.sequence_parallel() and dims[p] is None
-                                and any("norm" in str(k) for k in p[:-1])]
+        zl = zero.Layout(cfg, plan, mesh, params)
+        layout["zero"] = zl
+        layout["sharded"] = [lf.tp_sharded for lf in zl.leaves]
+        layout["owned"] = [zl.owned(i) for i in range(len(zl.leaves))]
+        layout["tp_owned"] = [lf.tp_sharded or mesh.coords["tp"] == 0 for lf in zl.leaves]
+        layout["sp_partial"] = [i for i, lf in enumerate(zl.leaves)
+                                if tp.sequence_parallel() and not lf.tp_sharded
+                                and any("norm" in str(k) for k in lf.path[:-1])]
+        layout["fsdp"] = any(lf.fsdp_dim is not None for lf in zl.leaves)
+
+    # squares accumulate in f64 wherever a norm must give the same bits
+    # however the gradient is spread: on a mesh, and in the simulated fleet
+    # that stands for one; one device's plain step keeps the reference's f32
+    wide = torch.float64 if mesh is not None or n_rep > 1 else torch.float32
 
     def norm(grads):
-        return adamw.global_norm(grads, layout.get("sharded"))
+        """The norm of the step's gradients (on a mesh: reduced, each
+        distinct piece counted once over the mesh)."""
+        if mesh is None or mesh.size == 1:
+            return adamw.global_norm(grads, wide)
+        return adamw.mesh_norm(grads, layout["owned"],
+                               lambda x: tp.collective("all_reduce", x, None))
 
-    def value_and_grad(leaves, params, batch):
+    def replica_norm(grads):
+        """The norm of one replica's gradient (on a mesh: over its tp
+        group, each replicated leaf counted on tp rank 0)."""
+        if mesh is None:
+            return adamw.global_norm(grads, wide)
+        return adamw.mesh_norm(grads, layout["tp_owned"], tp.all_reduce)
+
+    def finite(grads, *, replica: bool = False) -> torch.Tensor:
+        """Whether a micro-batch's gradient is finite everywhere it is
+        spread: over the mesh, or (``replica``) over this replica's tp
+        group (an f32 sum of squares: only its finiteness is read)."""
+        s = sum(torch.sum(torch.square(g.float())) for g in grads)
+        if mesh is not None and (replica or not dp):
+            s = tp.all_reduce(s)
+        elif mesh is not None and mesh.size > 1:
+            s = tp.collective("all_reduce", s, None)
+        return torch.isfinite(s)
+
+    def rows(x: torch.Tensor, n: int) -> torch.Tensor:
+        """(B, ...) → (n, B/n, ...) micro-batches; on a dp mesh this rank's
+        slice of each (the reference shards the micro-batch dim over
+        ``(pod, data)``)."""
+        if x.shape[0] % n:
+            raise ValueError(f"batch dim {x.shape[0]} not divisible by gas={n}")
+        m = x.reshape(n, x.shape[0] // n, *x.shape[1:])
+        if not dp:
+            return m
+        if m.shape[1] % n_plane:
+            raise ValueError(f"micro-batch of {m.shape[1]} rows not divisible by the "
+                             f"{n_plane} data-parallel replicas")
+        w = m.shape[1] // n_plane
+        return m[:, mesh.plane_index * w:(mesh.plane_index + 1) * w]
+
+    def fractions(batch, n: int) -> Optional[torch.Tensor]:
+        """(n,) this rank's share of each micro-batch's masked-mean loss (its
+        live tokens over the micro-batch's), or None off a dp mesh."""
+        if not dp:
+            return None
+        mask = batch.get("loss_mask")
+        if mask is None:
+            return torch.full((n,), 1.0 / n_plane, dtype=torch.float32,
+                              device=batch["labels"].device)
+        mine = rows(mask, n).to(torch.float32).reshape(n, -1).sum(1)
+        whole = mask.to(torch.float32).reshape(n, -1).sum(1)
+        return torch.clamp_min(mine, 1.0) / torch.clamp_min(whole, 1.0)
+
+    def model_params(params):
+        """(the tree the model runs on, its leaves that take gradients,
+        whether a ZeRO-3 leaf's gradient comes reduced over the data axis).
+        ``gather_params_once`` casts the masters to the compute dtype and
+        gathers them once a step; so does the vote under ZeRO-3, whose
+        verdict needs each replica's whole gradient before any collective.
+        Otherwise ZeRO-3's leaves are gathered as the blocks run."""
+        once = mesh is not None and (plan.gather_params_once
+                                     or (n_rep > 1 and layout["fsdp"]))
+        if not once:
+            return params, [p.requires_grad_() for _, p in tree_leaves(params)], True
+        dtype = cfg.compute_dtype if plan.gather_params_once else None
+        flat = [x.requires_grad_() for x in layout["zero"].gather_all(params, dtype)]
+        return _with_leaves(params, flat), flat, False
+
+    def reduce(grads, data_reduced: bool):
+        """Sum this rank's gradients over the plane into the optimizer
+        state's layout, in place in the list: each local gradient is freed
+        once it is reduced."""
+        if not dp:
+            return grads
+        for i in range(len(grads)):
+            grads[i] = layout["zero"].reduce(grads[i], i, data_reduced=data_reduced)
+        return grads
+
+    def all_reduce_plane(x: torch.Tensor) -> torch.Tensor:
+        return tp.collective("all_reduce", x, layout["zero"].plane) if dp else x
+
+    def value_and_grad(leaves, params, batch, frac=None):
         loss, metrics = model_api.loss_fn(cfg, params, batch,
                                           remat_policy=plan.remat_policy)
+        if frac is not None:
+            loss = loss * frac
+            metrics = {k: v * frac for k, v in metrics.items()}
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         sp_partial = layout.get("sp_partial")
@@ -201,21 +299,38 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
                            dtype=torch.float32, device=batch["labels"].device)
         return w * (n / torch.clamp_min(torch.sum(w), 1.0))
 
-    def accumulate(leaves, params, micros, wn, scale):
+    def accumulate(leaves, params, micros, wn, scale, *, fracs=None, replica=False,
+                   overlap=None):
         """Gradients of the micro-batches ``micros`` accumulated in the
         compute dtype, each scaled by ``scale[i]`` and weighted by ``wn[i]``,
-        a non-finite one dropped.  → (acc, losses, metricses, fins (n,))."""
-        acc = [torch.zeros(p.shape, dtype=cfg.compute_dtype, device=p.device) for p in leaves]
-        zero = torch.zeros((), dtype=cfg.compute_dtype, device=wn.device)
+        a non-finite one dropped.  ``overlap``: reduce-scatter each
+        micro-batch's gradient into a sharded accumulator (``overlap_zero``;
+        the flag holds whether ZeRO-3's leaves come reduced).  Leaf by leaf:
+        each autograd gradient is freed once it is added.
+        → (acc, losses, metricses, fins (n,))."""
+        if overlap is None:
+            acc = [torch.zeros(p.shape, dtype=cfg.compute_dtype, device=p.device)
+                   for p in leaves]
+        else:
+            acc = [None] * len(leaves)
+        zero_ = torch.zeros((), dtype=cfg.compute_dtype, device=wn.device)
         losses, metricses, fins = [], [], []
         for i, mb in enumerate(micros):
-            loss, metrics, g = value_and_grad(leaves, params, mb)
+            loss, metrics, g = value_and_grad(leaves, params, mb,
+                                              None if fracs is None else fracs[i])
             if scale is not None:
                 _scale_(g, scale[i])
-            fin = torch.isfinite(norm(g))
+            fin = finite(g, replica=replica)
             with torch.no_grad():
-                for a, gi in zip(acc, g):
-                    a.add_(torch.where(fin, (gi * wn[i]).to(a.dtype), zero))
+                for j in range(len(g)):
+                    w = torch.where(fin, (g[j] * wn[i]).to(cfg.compute_dtype), zero_)
+                    g[j] = None
+                    if overlap is not None:
+                        w = layout["zero"].reduce(w, j, data_reduced=overlap)
+                    if acc[j] is None:
+                        acc[j] = w
+                    else:
+                        acc[j].add_(w)
             del g
             losses.append(loss)
             metricses.append(metrics)
@@ -227,14 +342,22 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
         ``plan.gas``: with gas > 1 the micro-batches' gradients accumulate in
         the compute dtype, each weighted by its live-token count, and a
         non-finite micro-batch is dropped with the weights renormalized.
-        With ``n_rep > 1`` the consensus path takes over."""
-        leaves = [p.requires_grad_() for _, p in tree_leaves(params)]
+        With ``n_rep > 1`` the consensus path takes over.  On a dp mesh the
+        gradients come back summed over the plane, in ZeRO's layout."""
+        tree, leaves, region = model_params(params)
         if n_rep > 1:
-            return consensus_grads(leaves, params, batch, chaos_scale, rstat)
+            return consensus_grads(leaves, tree, batch, chaos_scale, rstat)
         if plan.gas <= 1:
-            loss, metrics, grads = value_and_grad(leaves, params, batch)
+            frac = fractions(batch, 1)
+            mine = {k: rows(x, 1)[0] for k, x in batch.items()}
+            loss, metrics, grads = value_and_grad(leaves, tree, mine,
+                                                  None if frac is None else frac[0])
             if chaos_scale is not None:
                 _scale_(grads, torch.prod(chaos_scale.to(torch.float32)))
+            if dp:
+                grads = reduce(grads, region)
+                vec = all_reduce_plane(torch.stack([loss] + list(metrics.values())))
+                loss, metrics = vec[0], dict(zip(metrics, vec[1:]))
             usable = torch.isfinite(norm(grads))
             aux = {"usable": usable,
                    "nonfinite_micros": (~usable).to(torch.int32),
@@ -242,17 +365,17 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
                    "bad_micro_bits": (~usable).to(torch.float32)}
             return loss, metrics, grads, aux
         gas = plan.gas
-        for k, x in batch.items():
-            if x.shape[0] % gas:
-                raise ValueError(f"batch dim {x.shape[0]} of {k!r} not divisible by gas={gas}")
-        micro = {k: x.reshape(gas, x.shape[0] // gas, *x.shape[1:]) for k, x in batch.items()}
+        micro = {k: rows(x, gas) for k, x in batch.items()}
         device = batch["labels"].device
         wn = token_weights(batch, gas)
         if chaos_scale is not None:
             chaos_scale = torch.broadcast_to(chaos_scale.to(torch.float32), (gas,))
+        overlap = region if dp and plan.overlap_zero and plan.zero_stage >= 2 else None
         acc, losses, metricses, fins = accumulate(
-            leaves, params, [{k: x[i] for k, x in micro.items()} for i in range(gas)], wn,
-            chaos_scale)
+            leaves, tree, [{k: x[i] for k, x in micro.items()} for i in range(gas)], wn,
+            chaos_scale, fracs=fractions(batch, gas), overlap=overlap)
+        if overlap is None:
+            acc = reduce(acc, region)
         wn_live = wn * fins.to(torch.float32)
         # exactly gas when every micro-batch is finite (sum(wn) == gas)
         denom = torch.where(torch.all(fins), torch.tensor(float(gas), device=device),
@@ -261,13 +384,16 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
             for a in acc:
                 a.copy_((a.to(torch.float32) / denom).to(a.dtype))
 
-        def wmean(xs):
+        def wsum(xs):
             x = torch.stack(xs)
-            return torch.sum(torch.where(fins, x * wn.to(x.dtype), 0.0)) / denom.to(x.dtype)
+            return torch.sum(torch.where(fins, x * wn.to(x.dtype), 0.0))
 
-        metrics = {k: wmean([m[k] for m in metricses]) for k in metricses[0]}
+        sums = [wsum(losses)] + [wsum([m[k] for m in metricses]) for k in metricses[0]]
+        if dp:
+            sums = list(all_reduce_plane(torch.stack(sums)))
+        metrics = {k: s / denom.to(s.dtype) for k, s in zip(metricses[0], sums[1:])}
         usable = torch.any(fins)
-        loss = torch.where(usable, wmean(losses), torch.tensor(float("nan"), device=device))
+        loss = torch.where(usable, sums[0] / denom, torch.tensor(float("nan"), device=device))
         aux = {"usable": usable,
                "nonfinite_micros": torch.sum((~fins).to(torch.int32)),
                "bad_replicas": torch.zeros((), dtype=torch.int32, device=device),
@@ -275,16 +401,23 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
         return loss, metrics, acc, aux
 
     def consensus_grads(leaves, params, batch, chaos_scale, rstat):
-        """The fleet-voted verdict, the reference's ``consensus_grads`` on
-        one device: the batch rows split into ``n_rep`` replica shards of
-        ``gas`` micro-batches; each replica accumulates its own gradients
+        """The fleet-voted verdict, the reference's ``consensus_grads``: the
+        batch rows split into ``n_rep`` replica shards of ``gas``
+        micro-batches; each replica accumulates its own gradients
         (per-micro finite masking inside) and judges them against the shared
         ``rstat`` baseline (every micro non-finite, a non-finite norm, or a
         z-score and multiplicative spike).  A bad replica's contribution is
-        masked before the sum over replicas (the reference's cross-replica
-        reduce), with the weights renormalized over the survivors.  Replicas
-        run one after another; two gradient-sized buffers are live (the
-        replica's and the running sum)."""
+        masked before the sum over replicas, with the weights renormalized
+        over the survivors.
+
+        Without a mesh the replicas run one after another on this device
+        (two gradient-sized buffers live: the replica's and the running
+        sum).  On a mesh each rank is the replica of its plane index: it
+        masks its own gradient before any collective, then one all-reduce
+        carries the vote (its bad flag), its live weight, weighted loss and
+        metrics and its micro-batches' finite flags, and one more (a
+        reduce-scatter from ZeRO-2 on) the gradient sum, so every rank
+        reaches the same verdict."""
         R, gas = n_rep, max(plan.gas, 1)
         for k, x in batch.items():
             if x.shape[0] % (R * gas):
@@ -306,23 +439,27 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
             scale = None
         armed = rstat["n"] >= rs.warmup_steps
         std = torch.sqrt(torch.clamp_min(rstat["var"], 1e-12))
+        zero_ = torch.zeros((), dtype=cfg.compute_dtype, device=device)
 
-        total = [torch.zeros(p.shape, dtype=cfg.compute_dtype, device=p.device) for p in leaves]
+        total = None
         wlosses, wmets, fins_r, bad_r, live_ws = [], [], [], [], []
-        for r in range(R):
+        for r in ([mesh.plane_index] if dp else range(R)):
             g_r, ls, mets, fins = accumulate(
                 leaves, params, [{k: x[r, i] for k, x in micro.items()} for i in range(gas)],
-                wn[r], None if scale is None else scale[r])
+                wn[r], None if scale is None else scale[r], replica=True)
             # local verdict on this replica's per-micro-average gradient
             live_w = torch.sum(wn[r] * fins.to(torch.float32))
-            norm_r = adamw.global_norm(g_r) / torch.clamp_min(live_w, 1e-6)
+            norm_r = replica_norm(g_r) / torch.clamp_min(live_w, 1e-6)
             z_r = (norm_r - rstat["ema"]) / std
             spike_r = armed & (z_r > rs.zscore_threshold) & (norm_r > rs.spike_factor * rstat["ema"])
             bad = (~torch.any(fins)) | (~torch.isfinite(norm_r)) | spike_r
             with torch.no_grad():
                 # mask a bad replica before the reduce: its poison never enters
-                for t, a in zip(total, g_r):
-                    t.add_(torch.where(bad, torch.zeros((), dtype=a.dtype, device=device), a))
+                if total is None:
+                    total = [torch.where(bad, zero_, a) for a in g_r]
+                else:
+                    for t, a in zip(total, g_r):
+                        t.add_(torch.where(bad, zero_, a))
             del g_r
 
             def wsum(xs):
@@ -334,24 +471,44 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
             fins_r.append(fins)
             bad_r.append(bad)
             live_ws.append(live_w)
-        fins, bad_r, live_ws = torch.stack(fins_r), torch.stack(bad_r), torch.stack(live_ws)
-        good_r = ~bad_r
-        n_bad = torch.sum(bad_r.to(torch.int32))              # the fleet vote
+        keys = list(wmets[0])
+        if dp:
+            # the fleet vote and what it weighs, for every replica at once
+            good = ~bad_r[0]
+            onehot = torch.zeros((R, gas), dtype=torch.float32, device=device)
+            onehot[mesh.plane_index] = (~fins_r[0]).to(torch.float32)
+            vec = all_reduce_plane(torch.cat([
+                torch.stack([bad_r[0].to(torch.float32),
+                             torch.where(good, live_ws[0], 0.0),
+                             torch.where(good, wlosses[0], 0.0)]
+                            + [torch.where(good, wmets[0][k], 0.0) for k in keys]),
+                onehot.reshape(-1)]))
+            total = reduce(total, False)
+            n_bad = vec[0].to(torch.int32)
+            live_w, wloss = vec[1], vec[2]
+            sums = dict(zip(keys, vec[3:3 + len(keys)]))
+            fins = vec[3 + len(keys):].reshape(R, gas) == 0
+        else:
+            fins, bad_r, live_ws = torch.stack(fins_r), torch.stack(bad_r), torch.stack(live_ws)
+            good_r = ~bad_r
+            n_bad = torch.sum(bad_r.to(torch.int32))              # the fleet vote
+            live_w = torch.sum(torch.where(good_r, live_ws, 0.0))
+
+            def vote(xs):
+                x = torch.stack(xs)
+                return torch.sum(torch.where(good_r, x, 0.0))
+
+            wloss = vote(wlosses)
+            sums = {k: vote([m[k] for m in wmets]) for k in keys}
         all_clean = torch.all(fins) & (n_bad == 0)
-        live_w = torch.sum(torch.where(good_r, live_ws, 0.0))
         denom = torch.where(all_clean, torch.tensor(float(R * gas), device=device),
                             torch.clamp_min(live_w, 1e-6))
         with torch.no_grad():
             for t in total:
                 t.copy_((t.to(torch.float32) / denom).to(t.dtype))
-
-        def vote(xs):
-            x = torch.stack(xs)
-            return torch.sum(torch.where(good_r, x, 0.0)) / denom.to(x.dtype)
-
-        metrics = {k: vote([m[k] for m in wmets]) for k in wmets[0]}
+        metrics = {k: s / denom.to(s.dtype) for k, s in sums.items()}
         usable = live_w > 0
-        loss = torch.where(usable, vote(wlosses), torch.tensor(float("nan"), device=device))
+        loss = torch.where(usable, wloss / denom, torch.tensor(float("nan"), device=device))
         aux = {"usable": usable,
                "nonfinite_micros": torch.sum((~fins).to(torch.int32)),
                "bad_replicas": n_bad,
@@ -360,27 +517,31 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
 
     def train_step(state, batch):
         with _rules(plan, mesh):
-            return _train_step(state, batch)
+            leaf_layout(state["params"])
+            zl = layout.get("zero")
+            if zl is None or not layout["fsdp"]:
+                return _train_step(state, batch)
+            with zero.fsdp(zl.fsdp_ids(state["params"]), mesh.groups["data"]):
+                return _train_step(state, batch)
 
     def _train_step(state, batch):
         batch = dict(batch)
         chaos_scale = batch.pop("_chaos_grad_scale", None)
         rstat = state["rstat"]
-        leaf_layout(state["params"])
         loss, metrics, grads, aux = grads_and_metrics(state["params"], batch, chaos_scale,
                                                       rstat)
         device = loss.device
 
         # in-step anomaly signals, all on the device
         gnorm = norm(grads)
-        finite = aux["usable"] & torch.isfinite(gnorm)
+        finite_ = aux["usable"] & torch.isfinite(gnorm)
         armed = rstat["n"] >= rs.warmup_steps
         std = torch.sqrt(torch.clamp_min(rstat["var"], 1e-12))
-        z = torch.where(finite, (gnorm - rstat["ema"]) / std,
+        z = torch.where(finite_, (gnorm - rstat["ema"]) / std,
                         torch.tensor(float("inf"), device=device))
         spike = armed & (z > rs.zscore_threshold) & (gnorm > rs.spike_factor * rstat["ema"])
         if rs.enabled:
-            skip = (~finite) | spike
+            skip = (~finite_) | spike
             if n_rep > 1 and not rs.mask_divergent_replicas:
                 skip = skip | (aux["bad_replicas"] > 0)   # one bad replica vetoes
         else:
@@ -392,7 +553,7 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
         ema_new = torch.where(first, gnorm, d * rstat["ema"] + (1 - d) * gnorm)
         var_new = torch.where(first, rstat["var"],
                               d * rstat["var"] + (1 - d) * torch.square(gnorm - rstat["ema"]))
-        accept = (~skip) & finite
+        accept = (~skip) & finite_
         new_rstat = {
             "ema": torch.where(accept, ema_new, rstat["ema"]),
             "var": torch.where(accept, var_new, rstat["var"]),
@@ -401,24 +562,35 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
         }
 
         # skip → zero-update: params, m, v, Adam's step and ef stay as they
-        # were (applied leaf by leaf, in place); the step count advances
+        # were (applied leaf by leaf, in place); the step count advances.
+        # Under ZeRO the update runs on this rank's shard, which is then
+        # gathered back over the plane
         keep = skip if rs.enabled else None
         sharded = layout.get("sharded")
+        zl = layout.get("zero")
+        plane = zl.plane if dp and plan.zero_stage >= 1 else None
         grads = apply_compression(grads, train_cfg.compression, state.get("ef"), skip=keep,
-                                  sharded=sharded)
+                                  sharded=sharded, plane=plane)
         lr = schedule.lr_schedule(state["step"], peak=train_cfg.peak_lr,
                                   warmup=train_cfg.warmup, total=train_cfg.total_steps)
         lr = lr * schedule.rewarm_factor(rstat["rewarm"], rs.rewarm_steps)
-        om = adamw.adamw_update(grads, state["opt"], state["params"], lr, train_cfg.adam,
-                                skip=keep, sharded=sharded)
+        leaves = [p for _, p in tree_leaves(state["params"])]
+        views = [zl.view(p, i) for i, p in enumerate(leaves)] if dp else None
+        # without compression AdamW clips by the norm the gate just took
+        clip = gnorm if train_cfg.compression in (None, "none") else norm(grads)
+        om = adamw.adamw_update(grads, state["opt"], state["params"], lr, clip, train_cfg.adam,
+                                skip=keep, views=views)
         del grads
+        if dp:
+            for i, p in enumerate(leaves):
+                zl.unshard_(p, i)
         new_state = dict(state, step=state["step"] + 1, rstat=new_rstat)
         metrics = dict(metrics, loss=loss, **om)
         metrics.update(
             grad_norm=gnorm,
-            all_finite=finite.to(torch.float32),
+            all_finite=finite_.to(torch.float32),
             skipped=skip.to(torch.float32),
-            gnorm_z=torch.where(armed & finite, z, 0.0),
+            gnorm_z=torch.where(armed & finite_, z, 0.0),
             nonfinite_micros=aux["nonfinite_micros"].to(torch.float32),
             bad_replicas=aux["bad_replicas"].to(torch.float32),
             n_replicas=torch.full((), float(n_rep), dtype=torch.float32, device=device),
@@ -429,13 +601,36 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
     return train_step
 
 
+def _with_leaves(tree, leaves):
+    """``tree`` with its leaves (in ``tree_leaves`` order) replaced."""
+    new = dict(zip((p for p, _ in tree_leaves(tree)), leaves))
+
+    def go(t, path):
+        if isinstance(t, dict):
+            return {k: go(v, path + (k,)) for k, v in t.items()}
+        if isinstance(t, list):
+            return [go(v, path + (i,)) for i, v in enumerate(t)]
+        return new[path]
+
+    return go(tree, ())
+
+
 def make_eval_step(cfg: ModelConfig, plan: ParallelismConfig, mesh=None):
-    """(params, batch) → the loss metrics {"xent", "aux"}, without gradients."""
+    """(params, batch) → the loss metrics {"xent", "aux"}, without gradients;
+    on a mesh every rank evaluates the whole batch (ZeRO-3's leaves
+    gathered as the blocks run)."""
     check_plan(plan, mesh, cfg)
+    layout: Dict[str, Any] = {}
 
     def eval_step(params, batch):
         with torch.no_grad(), _rules(plan, mesh):
-            _, metrics = model_api.loss_fn(cfg, params, batch, remat_policy="none")
+            ids = {}
+            if mesh is not None and plan.zero_stage >= 3 and mesh.shape["data"] > 1:
+                if "zero" not in layout:
+                    layout["zero"] = zero.Layout(cfg, plan, mesh, params)
+                ids = layout["zero"].fsdp_ids(params)
+            with zero.fsdp(ids, None if mesh is None else mesh.groups["data"]):
+                _, metrics = model_api.loss_fn(cfg, params, batch, remat_policy="none")
         return metrics
 
     return eval_step

@@ -22,7 +22,10 @@ sharding rules.  The port does it by hand, in the regions of Megatron-LM
 Every collective of the port goes through :func:`collective`, which counts
 calls and bytes per kind in ``counts`` and ``nbytes`` (the bytes of the
 whole tensor: the all-reduced one, the gathered output, the reduce-scattered
-input).  Without installed rules, or with a tp axis one rank wide, every
+input), and per kind and group in ``by_group`` and ``bytes_by_group``
+(keys ``"<kind>@<group>"``: the mesh axis of the group, ``pod,data`` for a
+``(pod, data)`` plane, ``world`` for the default group); :func:`reset`
+zeroes all four.  Without installed rules, or with a tp axis one rank wide, every
 region is the identity and nothing is called.
 """
 
@@ -37,6 +40,25 @@ from repro_torch.core import sharding
 
 counts: collections.Counter = collections.Counter()
 nbytes: collections.Counter = collections.Counter()
+by_group: collections.Counter = collections.Counter()
+bytes_by_group: collections.Counter = collections.Counter()
+_group_names: dict = {}
+
+
+def reset() -> None:
+    """Zero every collective count."""
+    for c in (counts, nbytes, by_group, bytes_by_group):
+        c.clear()
+
+
+def name_group(group, name: str) -> None:
+    """Label ``group``'s collectives ``name`` in ``by_group`` (the mesh
+    names the groups it creates)."""
+    _group_names[id(group)] = name
+
+
+def group_name(group) -> str:
+    return "world" if group is None else _group_names.get(id(group), "other")
 
 KINDS = ("all_reduce", "all_reduce_max", "all_gather", "reduce_scatter")
 
@@ -92,8 +114,12 @@ def collective(kind: str, x: torch.Tensor, group, *, dim: int = 0) -> torch.Tens
         size_ = x
     else:
         raise ValueError(f"unknown collective {kind!r}; known: {', '.join(KINDS)}")
+    b = size_.numel() * size_.element_size()
+    key = f"{kind}@{group_name(group)}"
     counts[kind] += 1
-    nbytes[kind] += size_.numel() * size_.element_size()
+    nbytes[kind] += b
+    by_group[key] += 1
+    bytes_by_group[key] += b
     return out.movedim(0, dim).contiguous() if dim else out
 
 

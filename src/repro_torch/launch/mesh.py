@@ -7,13 +7,16 @@ the ranks of the initialized default process group out as a
 (consecutive ranks share a TP group), the same ``.devices``, ``.shape`` and
 ``.axis_names`` fields (so ``core.sharding``'s rules read it as the
 reference's read a ``Mesh``), and one process group per line of each axis
-that is wider than one rank, in the default group's backend.  Several ranks
-may share one card: the grid is of ranks, not of devices.
+that is wider than one rank, in the default group's backend, and one group
+for this rank's ``(pod, data)`` plane (``groups[PLANE]``: the ranks that share
+its ``pp`` and ``tp`` coordinates, where ZeRO shards its states, the
+gradients are reduced and the replicas vote).  Several ranks may share one
+card: the grid is of ranks, not of devices.
 
 Typical use, in every rank after ``torch.distributed.init_process_group``::
 
-    mesh = make_recipe_mesh(tp=2, device_type="cuda")
-    plan = ParallelismConfig(tp=2)
+    mesh = make_recipe_mesh(tp=2, device_type="cuda")   # the rest is data parallel
+    plan = ParallelismConfig(tp=2, dp=dist.get_world_size() // 2)
     sess = InferenceSession.from_recipe("granite_3_2b", plan=plan, mesh=mesh,
                                         device="cuda")
 """
@@ -25,16 +28,21 @@ from typing import Dict, Optional
 import numpy as np
 import torch.distributed as dist
 
+from repro_torch.core import tp as tp_mod
 from repro_torch.core.recipe import ParallelismConfig, factorize_production_mesh
 
 AXES = ("pod", "data", "pp", "tp")
+PLANE = ("pod", "data")
 
 
 class RecipeMesh:
     """A ``(pod, data, pp, tp)`` grid of process ranks and this rank's
     place in it.  ``groups[axis]`` is the process group of this rank's line
-    along ``axis`` (None where the axis is one rank wide); ``coords[axis]``
-    is this rank's index along it."""
+    along ``axis`` (None where the axis is one rank wide), ``groups[PLANE]``
+    that of its ``(pod, data)`` plane (None where the plane is one rank), in
+    which a rank's index is ``pod * data + data``, the order of the
+    reference's shards over ``("pod", "data")``; ``coords[axis]`` is this
+    rank's index along an axis."""
 
     axis_names = AXES
 
@@ -58,25 +66,47 @@ class RecipeMesh:
             lines = np.moveaxis(devices, i, -1).reshape(-1, devices.shape[i])
             for line in lines:
                 group = dist.new_group([int(r) for r in line])
+                tp_mod.name_group(group, axis)
                 if self.rank in line:
                     self.groups[axis] = group
+        self.groups[PLANE] = None
+        if self.plane_size > 1:
+            planes = np.moveaxis(devices, (2, 3), (0, 1)).reshape(-1, self.plane_size)
+            for plane in planes:
+                group = dist.new_group([int(r) for r in plane])
+                tp_mod.name_group(group, "pod,data")
+                if self.rank in plane:
+                    self.groups[PLANE] = group
+
+    @property
+    def plane_size(self) -> int:
+        """Ranks in a ``(pod, data)`` plane: the data-parallel replicas."""
+        return self.shape["pod"] * self.shape["data"]
+
+    @property
+    def plane_index(self) -> int:
+        """This rank's replica: ``pod * data + data``."""
+        return self.coords["pod"] * self.shape["data"] + self.coords["data"]
 
     @property
     def size(self) -> int:
         return int(self.devices.size)
 
 
-def make_recipe_mesh(*, pp: int = 1, tp: int = 1, device_type: str = "cuda") -> RecipeMesh:
+def make_recipe_mesh(*, pods: int = 1, pp: int = 1, tp: int = 1,
+                     device_type: str = "cuda") -> RecipeMesh:
     """The default process group's ranks → the logical (pod, data, pp, tp)
-    recipe mesh.
+    recipe mesh, as the reference's ``make_recipe_mesh`` lays out devices.
 
     TP innermost (consecutive ranks, the paper's "TP inside the node"), PP
-    next; the ranks left over fold into the data axis."""
+    next, the pod axis outermost; the ranks left over fold into the data
+    axis."""
     world = dist.get_world_size()
-    if world % (pp * tp):
-        raise ValueError(f"world size {world} not divisible by pp*tp={pp * tp}")
-    plan = ParallelismConfig(tp=tp, pp=pp, dp=world // (pp * tp))
-    grid = factorize_production_mesh(np.arange(world).reshape(plan.dp, pp * tp), plan)
+    if world % (pods * pp * tp):
+        raise ValueError(f"world size {world} not divisible by pods*pp*tp={pods * pp * tp}")
+    plan = ParallelismConfig(tp=tp, pp=pp, pods=pods, dp=world // (pods * pp * tp))
+    ranks = np.arange(world).reshape((pods,) * (pods > 1) + (plan.dp, pp * tp))
+    grid = factorize_production_mesh(ranks, plan)
     return RecipeMesh(grid, device_type=device_type)
 
 

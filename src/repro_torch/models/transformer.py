@@ -17,7 +17,10 @@ residual stream out over the sequence under sequence parallel: then it is
 (B, S/tp, d) between the blocks, the norms run on the slice, and the last
 hidden states are gathered before the unembed.  The logits are this rank's
 slice of the vocabulary when the table is sharded (the reference's
-``constrain(logits, "batch", None, "tp")``).
+``constrain(logits, "batch", None, "tp")``).  Under ZeRO-3 the training
+forward gathers a block's leaves as the block runs (``core.zero.gathered``,
+inside the remat region, so a recompute gathers again) and the leaves
+outside the blocks once a forward.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.core import sharding, tp
+from repro_torch.core import sharding, tp, zero
 from repro_torch.core.tree import tree_map
 from repro_torch.models import layers
 from repro_torch.models.attention import (attention_apply, attention_decode,
@@ -72,6 +75,7 @@ def _mlp_half(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 def block_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 positions: torch.Tensor, *, window,
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    p = zero.gathered(p)
     h = layers.norm_apply(cfg.norm, p["norm1"], x)
     x = x + attention_apply(cfg, p["attn"], h, positions, causal=True,
                             window=window, segment_ids=segment_ids)
@@ -206,6 +210,7 @@ def lm_forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
         raise ValueError(f"remat_policy {remat_policy!r} is not one of "
                          f"{', '.join(REMAT_POLICIES)}")
     block = _remat_block(remat_policy) or block_apply
+    params = zero.gathered_top(params)
     tokens = batch["tokens"]
     x = _seq_layout(_embed(cfg, params, tokens))
     positions = _positions(tokens)

@@ -13,20 +13,24 @@ comment says "no decay on norms/biases"; the stacking defeats it).  Only
 unstacked 1-D leaves such as ``final_norm`` escape.  The port's block leaves
 are per layer, one rank lower, so the rank is taken +1 inside ``blocks``.
 
-Under tensor parallelism the gradient norm (the clip's and the skip
-gate's) is the whole model's: the squares of the tp-sharded leaves are
-summed over the tp group (``core.tp``), each replicated leaf's counted
-once.
+Under tensor parallelism and ZeRO (``core.zero``) the gradient norm (the
+clip's and the skip gate's) is the whole model's: :func:`mesh_norm` sums
+each distinct piece of the gradient once over the ranks it is spread
+across, and the update runs on this rank's shard of ``m``, ``v`` and the
+master weight (``views``).  There squares accumulate in f64 and the norm
+is rounded to f32 once, so a norm summed from a shard's pieces gives the
+bits of one summed from whole leaves (the two f64 sums part in their last
+bits only); :func:`global_norm` takes f32 on one device, as the reference
+does, and f64 where it must give a mesh's bits.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core import tp
 from repro_torch.core.tree import tree_leaves, tree_map
 
 
@@ -46,17 +50,25 @@ def init_opt_state(params) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(leaves, sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor in ``leaves`` (a list), in
-    f32.  ``sharded[i]``: leaf i is this rank's slice of a tp-sharded leaf,
-    whose squares are summed over the tp group as well."""
-    if sharded is None or tp.size() == 1:
-        return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
-    sq = [torch.sum(torch.square(x.float())) for x in leaves]
-    zero = torch.zeros((), dtype=torch.float32, device=sq[0].device)
-    part = sum((q for q, s in zip(sq, sharded) if s), zero)
-    rest = sum((q for q, s in zip(sq, sharded) if not s), zero)
-    return torch.sqrt(tp.all_reduce(part) + rest)
+def _sq_sum(leaves, dtype: torch.dtype, owned: Optional[Sequence[bool]] = None
+            ) -> torch.Tensor:
+    zero = torch.zeros((), dtype=dtype, device=leaves[0].device)
+    return sum((torch.sum(torch.square(x.float()), dtype=dtype)
+                for i, x in enumerate(leaves) if owned is None or owned[i]), zero)
+
+
+def global_norm(leaves, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor in ``leaves`` (a list),
+    accumulated in ``dtype``, as f32."""
+    return torch.sqrt(_sq_sum(leaves, dtype)).float()
+
+
+def mesh_norm(leaves, owned: Sequence[bool], reduce: Callable[[torch.Tensor], torch.Tensor]
+              ) -> torch.Tensor:
+    """The norm of a gradient spread over ranks: each rank sums, in f64, the
+    squares of the leaves it counts (``owned[i]``: one rank of those that
+    hold the same values), and ``reduce`` (an all-reduce) sums the ranks."""
+    return torch.sqrt(reduce(_sq_sum(leaves, torch.float64, owned))).float()
 
 
 def reference_rank(path: Tuple, p: torch.Tensor) -> int:
@@ -64,21 +76,25 @@ def reference_rank(path: Tuple, p: torch.Tensor) -> int:
     return p.dim() + (1 if "blocks" in path else 0)
 
 
-def adamw_update(grads, opt_state, params, lr: torch.Tensor,
+def adamw_update(grads, opt_state, params, lr: torch.Tensor, gnorm: torch.Tensor,
                  cfg: AdamWConfig = AdamWConfig(),
-                 skip: torch.Tensor = None,
-                 sharded: Optional[Sequence[bool]] = None) -> Dict[str, torch.Tensor]:
-    """One AdamW step over the leaves, in place.  ``grads`` is a list in the
-    order of ``tree_leaves(params)``; ``sharded`` as for :func:`global_norm`.
-    Returns the metrics {grad_norm, lr}."""
+                 skip: torch.Tensor = None, *,
+                 views: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+    """One AdamW step over the leaves, in place, clipped by ``gnorm`` (the
+    norm of ``grads``).  ``grads`` is a list in the order of
+    ``tree_leaves(params)``; ``views[i]``: the part of leaf i to update (its
+    ZeRO shard, laid out like ``m``, ``v`` and the gradient), the whole leaf
+    by default.  Returns the metrics {grad_norm, lr}."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads, sharded)
     scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
     b1c = 1.0 - cfg.b1 ** step.to(torch.float32)
     b2c = 1.0 - cfg.b2 ** step.to(torch.float32)
     ms, vs = tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"])
     with torch.no_grad():
-        for (path, p), (_, m), (_, v), g in zip(tree_leaves(params), ms, vs, grads):
+        for i, ((path, p), (_, m), (_, v), g) in enumerate(zip(tree_leaves(params), ms, vs,
+                                                                grads)):
+            if views is not None:
+                p = views[i]
             g = g.to(torch.float32) * scale
             m_new = cfg.b1 * m + (1 - cfg.b1) * g
             v_new = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)

@@ -13,6 +13,15 @@ Where the port differs: the step's metrics (0-d device tensors) are read to
 the host once per step, inside the watchdog's window, so a step's measured
 time includes its device work; a restore lands on the live state's device
 (the store restores onto its template's).
+
+On a mesh (``mesh=``, a ``launch.mesh.RecipeMesh``; every rank runs the
+loop) a checkpoint gathers the sharded state leaf by leaf into host memory
+on rank 0 (``checkpoint.elastic.host_snapshot``), which writes it and
+collects old steps; the ranks meet at a barrier before any of them reads a
+checkpoint and when the loop ends.  A restore reads the whole state on the
+host of every rank and moves only its shards to the device.  The step's
+metrics are the same on every rank, and the measured straggler signal is
+the slowest rank's, so every rank logs the same events.
 """
 
 from __future__ import annotations
@@ -23,10 +32,12 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import RetryPolicy, restore_latest, save_checkpoint
-from repro_torch.checkpoint.elastic import (canonicalize_state, replan_state,
-                                            reshard_state)
+from repro_torch.checkpoint.elastic import (canonicalize_state, host_snapshot,
+                                            replan_state, reshard_state)
+from repro_torch.core import tp
 from repro_torch.core.recipe import ParallelismConfig
 from repro_torch.runtime.chaos import FaultPlan
 from repro_torch.runtime.fleet import FleetController
@@ -78,7 +89,8 @@ def run_training(state, train_step: Callable, batches, loop_cfg: LoopConfig,
                  make_step: Optional[
                      Callable[[ParallelismConfig], Callable]] = None,
                  ckpt_retry: Optional[RetryPolicy] = None,
-                 clock: Callable[[], float] = time.monotonic) -> Dict[str, Any]:
+                 clock: Callable[[], float] = time.monotonic,
+                 mesh=None, cfg=None) -> Dict[str, Any]:
     """Run (or resume) training. ``batches(i)`` → batch dict for data index i.
 
     ``tracker`` is any ``session.tracker.Tracker`` — every logged step's
@@ -102,9 +114,35 @@ def run_training(state, train_step: Callable, batches, loop_cfg: LoopConfig,
     the step via ``make_step(new_plan)``, fast-forward the data
     cursor, resume.  ``make_step`` is required for a re-plan to complete;
     without it the decision is surfaced as ``replan_unavailable``.
+    ``mesh`` and ``cfg`` (the model config: the state's whole shapes) run
+    the loop on every rank of a mesh; the fleet's re-plan is one device's.
     Returns {state, history, resumed_from, stragglers, events, skipped_steps,
     rollbacks, replans, plan, data_offset}.
     """
+    if mesh is not None and fleet is not None:
+        raise NotImplementedError(
+            "the fleet's re-plan onto a smaller mesh is not ported yet (ROADMAP Queue 1, "
+            "item 3: the parallel recipe over torch.distributed)")
+    writes = mesh is None or mesh.rank == 0
+
+    def meet():
+        """On a mesh: every rank waits until rank 0's writes are on disk."""
+        if mesh is not None:
+            dist.barrier()
+
+    def restore(state):
+        """(the newest checkpoint in ``state``'s layout, its extra, its
+        step), or Nones: on a mesh read on the host, each rank keeping its
+        shards."""
+        on_mesh = mesh is not None
+        restored, extra, step = restore_latest(
+            loop_cfg.ckpt_dir, canonicalize_state(state, plan), retry=retry, log=log,
+            fault_hook=read_fault, device="cpu" if on_mesh else None)
+        if restored is not None:
+            restored = reshard_state(restored, plan, mesh=mesh,
+                                     device=state["step"].device if on_mesh else None)
+        return restored, extra, step
+
     rs = resilience if resilience is not None else ResilienceConfig()
     policy = RecoveryPolicy(rs)
     retry = ckpt_retry if ckpt_retry is not None else RetryPolicy()
@@ -121,11 +159,9 @@ def run_training(state, train_step: Callable, batches, loop_cfg: LoopConfig,
     data_offset = 0
     resumed_from = None
     if loop_cfg.ckpt_dir:
-        restored, extra, step = restore_latest(
-            loop_cfg.ckpt_dir, canonicalize_state(state, plan),
-            retry=retry, log=log, fault_hook=read_fault)
+        restored, extra, step = restore(state)
         if restored is not None:
-            state = reshard_state(restored, plan)
+            state = restored
             start_step = int(extra.get("next_step", step))
             data_offset = int(extra.get("data_offset", 0))
             resumed_from = start_step
@@ -185,9 +221,13 @@ def run_training(state, train_step: Callable, batches, loop_cfg: LoopConfig,
         pending_writer = reap_writer(pending_writer, block=True, at_step=step)
         tag = loop_cfg.total_steps + 1_000_000 if emergency else step
         extra = {"next_step": step, "data_offset": data_offset}
+        whole = (canonicalize_state(state, plan) if mesh is None
+                 else host_snapshot(state, plan, mesh=mesh, cfg=cfg, keep=writes))
+        if not writes:
+            return
         try:
             writer = save_checkpoint(
-                loop_cfg.ckpt_dir, tag, canonicalize_state(state, plan),
+                loop_cfg.ckpt_dir, tag, whole,
                 extra=extra, keep=loop_cfg.keep_ckpts,
                 background=loop_cfg.async_ckpt and not emergency,
                 retry=retry, log=log, fault_hook=write_fault)
@@ -222,6 +262,11 @@ def run_training(state, train_step: Callable, batches, loop_cfg: LoopConfig,
             # vs the median — the quantitative signal the deadline thread
             # can't give
             sf = wd.slowdown_factor()
+            if mesh is not None:
+                sf = float(tp.collective("all_reduce_max", torch.tensor(
+                    -1.0 if sf is None else sf, dtype=torch.float64,
+                    device=state["step"].device), None))
+                sf = None if sf < 0 else sf
             if sf is not None and sf > loop_cfg.straggler_factor:
                 emit(step, "straggler", source="measured",
                      elapsed_s=float(wd.last_step_time() or 0.0),
@@ -327,14 +372,13 @@ def run_training(state, train_step: Callable, batches, loop_cfg: LoopConfig,
                 if loop_cfg.ckpt_dir:
                     pending_writer = reap_writer(pending_writer, block=True,
                                                  at_step=step)
-                    restored, extra2, ck = restore_latest(
-                        loop_cfg.ckpt_dir, canonicalize_state(state, plan),
-                        retry=retry, log=log, fault_hook=read_fault)
+                    meet()
+                    restored, extra2, ck = restore(state)
                 if restored is not None:
                     target = int(extra2.get("next_step", ck))
                     jump = (step + 1 - target) + rs.skip_window_margin
                     data_offset += jump
-                    state = reshard_state(restored, plan)
+                    state = restored
                     if rs.rewarm_steps > 0 and "rstat" in state:
                         state["rstat"] = dict(
                             state["rstat"],
@@ -391,6 +435,7 @@ def run_training(state, train_step: Callable, batches, loop_cfg: LoopConfig,
         raise
     finally:
         pending_writer = reap_writer(pending_writer, block=True, at_step=step)
+        meet()
         wd.stop()
         signal.signal(signal.SIGTERM, old_handler)
         if tracker is not None:

@@ -23,6 +23,8 @@ on one device only.
 
 from __future__ import annotations
 
+import dataclasses
+
 from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -39,6 +41,12 @@ from repro_torch.models.config import ModelConfig
 def resolve_config(arch: Union[str, ModelConfig], *, reduced: bool = False) -> ModelConfig:
     cfg = get_config(arch) if isinstance(arch, str) else arch
     return cfg.reduced() if reduced else cfg
+
+
+def _serving(plan: ParallelismConfig) -> ParallelismConfig:
+    """The layout a served rank keeps: tp's slices, whole over the data
+    axis (every replica serves; ZeRO-3's cut is the train state's)."""
+    return dataclasses.replace(plan, zero_stage=min(plan.zero_stage, 1))
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -100,7 +108,7 @@ class InferenceSession:
         with torch.inference_mode():
             params = model_api.init_params(cfg, gen)
             if mesh is not None:
-                params = sharding.shard_params(params, mesh, plan)
+                params = sharding.shard_params(params, mesh, _serving(plan))
             params = tree_map(lambda x: x.to(cfg.compute_dtype), params)
         return cls(cfg, params, device=device, plan=plan, mesh=mesh)
 
@@ -116,7 +124,7 @@ class InferenceSession:
         stepfn.check_plan(plan, mesh, cfg)
         params = tree_map(lambda x: torch.as_tensor(x).to(device), params)
         if mesh is not None:
-            params = sharding.shard_params(params, mesh, plan)
+            params = sharding.shard_params(params, mesh, _serving(plan))
         return cls(cfg, params, device=device, plan=plan, mesh=mesh)
 
     # ------------------------------------------------------------------

@@ -19,11 +19,13 @@ Typical use::
     inf = sess.to_inference()            # serve the trained weights
 
 With ``plan=`` and ``mesh=`` (a ``launch.mesh.RecipeMesh``; every rank
-builds the same session) the train state holds this rank's slices and the
-step runs tensor-parallel; ``to_inference`` gathers the weights back to the
-reference layout.  The checkpointed loop on a mesh waits for ZeRO
-(``run(ckpt_dir=...)`` raises).  The abstract (dry-run) mode has no
-PyTorch counterpart.
+builds the same session) the train state holds this rank's shards (tp's
+slices, ZeRO's shards over the ``(pod, data)`` plane) and the step runs
+over the mesh, every rank taking the same global batch and keeping its
+replica's rows; ``to_inference`` gathers the weights back to the reference
+layout, and ``run(ckpt_dir=...)`` writes and restores the whole canonical
+state (``checkpoint.elastic``).  The fleet's re-plan runs on one device
+only.  The abstract (dry-run) mode has no PyTorch counterpart.
 """
 
 from __future__ import annotations
@@ -155,10 +157,6 @@ class TrainSession:
         if self.state is None:
             raise RuntimeError("this session's run() raised and its state is gone; "
                                "resume through ckpt_dir in a fresh session")
-        if self.mesh is not None and ckpt_dir:
-            raise NotImplementedError(
-                "checkpoints of a tensor-parallel state come with ZeRO's sharded states "
-                f"{stepfn.PARALLEL}")
         if fail_at_step is not None:
             from repro_torch.runtime.chaos import FaultPlan
             chaos = chaos if chaos is not None else FaultPlan()
@@ -181,7 +179,7 @@ class TrainSession:
                            plan=self.plan, log=log, tracker=tracker,
                            resilience=self.train_cfg.resilience, chaos=chaos, fleet=fleet,
                            make_step=make_step if fleet is not None else None,
-                           ckpt_retry=ckpt_retry)
+                           ckpt_retry=ckpt_retry, mesh=self.mesh, cfg=self.cfg)
         self.state = out["state"]
         if out.get("replans"):
             self.plan = out["plan"]
@@ -199,11 +197,12 @@ class TrainSession:
     def to_inference(self, *, plan: Optional[ParallelismConfig] = None,
                      mesh=None) -> InferenceSession:
         """Serve the trained weights: a copy in the reference layout (gathered
-        over the tp group on a mesh) cast to the compute dtype, served on
-        ``mesh`` under ``plan`` (one device by default)."""
+        over tp and the data axis on a mesh) cast to the compute dtype, served
+        on ``mesh`` under ``plan`` (one device by default)."""
         params = self.state["params"]
         if self.mesh is not None:
-            params = sharding.gather_params(params, self.mesh, self.plan, self.cfg.vocab_size)
+            params = sharding.gather_params(params, self.mesh, self.plan, self.cfg.vocab_size,
+                                            self.cfg.d_model)
         params = tree_map(lambda x: x.detach().to(self.cfg.compute_dtype, copy=True), params)
         if mesh is not None:
             return InferenceSession.from_params(self.cfg, params, plan=plan, mesh=mesh,

@@ -18,7 +18,8 @@ Three parts:
   prefill logits (1e-5) and 8 greedy tokens (identical).
 * **The collective counts** per step at tp = 2 for each remat policy, the
   ``gather_params`` / ``shard_params`` round trip, ``to_inference`` and
-  every refusal of the plan on a mesh.
+  every refusal of a plan on a mesh (what waits for a later part of the
+  recipe, and plans the mesh does not match).
 """
 
 import dataclasses
@@ -48,7 +49,7 @@ from repro.session.infer import InferenceSession as RefInference
 from repro.session.train import TrainSession as RefTrainSession
 from repro_torch.checkpoint.bridge import params_from_numpy, state_from_numpy
 from repro_torch.configs import PORTED, get_config
-from repro_torch.core import recipe, sharding, stepfn, tp
+from repro_torch.core import recipe, sharding, stepfn, tp, zero
 from repro_torch.core.recipe import ParallelismConfig
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.data import DataConfig
@@ -72,9 +73,19 @@ CASES = [(f"{a}-tp{n}-{'sp' if sp else 'nosp'}", a, n, sp)
 CASE_IDS = [c[0] for c in CASES]
 REMATS = ("none", "full", "dots")
 PARALLEL = "Queue 1, item 3: the parallel recipe over torch.distributed"
-REFUSALS = ("pp", "dp", "pods", "zero_stage", "overlap_zero", "gather_params_once",
-            "consensus_replicas", "heads", "slot_step", "paged_step", "paged_prefill",
-            "serve", "run_ckpt")
+REFUSALS = ("pp", "dp", "pods", "consensus_replicas", "tp_axis", "fleet", "heads",
+            "slot_step", "paged_step", "paged_prefill", "serve")
+# refused in the world of four, on its tp 2 x dp 2 mesh
+REFUSALS_4 = ("dp_short", "consensus_replicas_3", "rows")
+# what a ValueError names: the mesh's axes against the plan's
+VALUE_ERRORS = {"heads": ("tp=2", "n_kv_heads=3"),
+                "dp": ("plan dp=2", "data axis is 1 ranks wide"),
+                "pods": ("plan pods=2", "pod axis is 1 ranks wide"),
+                "consensus_replicas": ("consensus_replicas=2", "dp*pods=1"),
+                "tp_axis": ("plan tp=1", "tp axis is 2 ranks wide"),
+                "dp_short": ("plan dp=1", "data axis is 2 ranks wide"),
+                "consensus_replicas_3": ("consensus_replicas=3", "dp*pods=2"),
+                "rows": ("not divisible by the 2 data-parallel replicas",)}
 
 
 def _flat(tree):
@@ -109,8 +120,9 @@ def _ref_shapes(arch):
 def test_param_rules_equal_reference(arch, tp_size):
     """Every leaf at full size: ``spec_for_path`` gives the reference's
     logical axes (without its leading ``layers`` axis), the sanitized
-    resolution gives its ``PartitionSpec``, and the dim the port shards is
-    the one that resolution gives the tp axis."""
+    resolution gives its ``PartitionSpec``, and the spec the port places the
+    leaf by (``zero.param_shardings``, which ``shard_params`` cuts) is that
+    resolution."""
     jmesh = jax.sharding.AbstractMesh((1, 1, 1, tp_size), ("pod", "data", "pp", "tp"))
     jrules = jshd.AxisRules(jmesh, jrecipe.axis_mapping(JPlan(tp=tp_size)))
     mesh = _port_mesh(tp_size)
@@ -130,9 +142,9 @@ def test_param_rules_equal_reference(arch, tp_size):
         jspec = jspec + (None,) * (len(leaf.shape) - len(jspec))
         assert spec == (jspec[1:] if stacked else jspec), path
         leaves.append((tuple(ppath.split("/")), shape, spec))
-    dims = sharding.tp_dims([(p, s) for p, s, _ in leaves], mesh, plan)
+    placed = zero.param_shardings([(p, s) for p, s, _ in leaves], mesh, plan)
     for p, _, spec in leaves:
-        assert dims[p] == (spec.index("tp") if "tp" in spec else None), p
+        assert placed[p] == spec, p
 
 
 @pytest.mark.parametrize("sp", [False, True])
@@ -268,6 +280,7 @@ def _rank_main(world, tmp):
         m2 = make_recipe_mesh(tp=2, device_type="cpu")
         extra["mesh_tp2_in_4"] = {"shape": m2.shape, "coords": m2.coords,
                                   "devices": m2.devices.tolist()}
+        extra["refusals"] = _rank_refusals_4(m2)
     (tmp / f"extra{world}_r{rank}.json").write_text(json.dumps(extra))
     dist.barrier()
     dist.destroy_process_group()
@@ -404,10 +417,7 @@ def _rank_refusals(mesh, tmp):
     for key, plan in (("pp", dataclasses.replace(base, pp=2)),
                       ("dp", dataclasses.replace(base, dp=2)),
                       ("pods", dataclasses.replace(base, pods=2)),
-                      ("zero_stage", dataclasses.replace(base, zero_stage=2)),
-                      ("overlap_zero", dataclasses.replace(base, overlap_zero=True)),
-                      ("gather_params_once",
-                       dataclasses.replace(base, gather_params_once=True))):
+                      ("tp_axis", dataclasses.replace(base, tp=1))):
         catch(key, lambda plan=plan: stepfn.make_train_step(cfg, plan, mesh=mesh))
     tcfg = stepfn.TrainConfig(resilience=ResilienceConfig(consensus_replicas=2))
     catch("consensus_replicas", lambda: stepfn.make_train_step(cfg, base, tcfg, mesh=mesh))
@@ -418,9 +428,37 @@ def _rank_refusals(mesh, tmp):
     catch("paged_prefill", lambda: stepfn.make_paged_prefill(cfg, base, mesh))
     inf = InferenceSession.from_recipe(cfg, plan=base, mesh=mesh, device="cpu")
     catch("serve", lambda: inf.serve([np.arange(4)], 2))
+    from repro_torch.runtime.fleet import FleetController
     sess = TrainSession(cfg, plan=base, mesh=mesh, device="cpu",
                         data_cfg=DataConfig(seq_len=SEQ, global_batch=BATCH))
-    catch("run_ckpt", lambda: sess.run(2, ckpt_dir=str(tmp / "ck")))
+    catch("fleet", lambda: sess.run(2, fleet=FleetController(n_replicas=2)))
+    return out
+
+
+def _rank_refusals_4(mesh):
+    """{what: the message it raised} for the plans the tp 2 x dp 2 mesh of a
+    world of four refuses."""
+    from repro_torch.runtime.resilience import ResilienceConfig
+    from repro_torch.session import TrainSession
+    cfg = get_config("granite_3_2b").reduced()
+    out = {}
+
+    def catch(key, fn):
+        try:
+            fn()
+        except (NotImplementedError, ValueError) as e:
+            out[key] = f"{type(e).__name__}: {e}"
+
+    base = ParallelismConfig(tp=2, dp=2, gas=GAS)
+    catch("dp_short", lambda: stepfn.make_train_step(cfg, dataclasses.replace(base, dp=1),
+                                                     mesh=mesh))
+    tcfg = stepfn.TrainConfig(resilience=ResilienceConfig(consensus_replicas=3))
+    catch("consensus_replicas_3", lambda: stepfn.make_train_step(cfg, base, tcfg, mesh=mesh))
+    sess = TrainSession(cfg, plan=base, mesh=mesh, device="cpu",
+                        train_cfg=stepfn.TrainConfig(
+                            resilience=ResilienceConfig(consensus=False)),
+                        data_cfg=DataConfig(seq_len=SEQ, global_batch=2))
+    catch("rows", sess.step)
     return out
 
 
@@ -550,15 +588,20 @@ def test_collective_counts_per_step(worlds, remat, sp):
     assert {k: v[0] for k, v in counts.items()} == want
     act = BATCH // GAS * SEQ * cfg.d_model * 4             # f32 activations
     if not sp:
-        assert counts["all_reduce"][1] >= (counts["all_reduce"][0] - 2 - 2 * GAS) * act
+        assert counts["all_reduce"][1] >= (counts["all_reduce"][0] - 1 - 2 * GAS) * act
 
 
-@pytest.mark.parametrize("what", REFUSALS)
+@pytest.mark.parametrize("what", REFUSALS + REFUSALS_4)
 def test_mesh_refuses_what_waits(worlds, what):
-    msgs = json.loads((worlds.tmp / "extra2_r0.json").read_text())["refusals"]
-    msg = msgs[what]
-    if what == "heads":
-        assert msg.startswith("ValueError") and "tp=2" in msg and "n_kv_heads=3" in msg
+    """What waits for a later part of the recipe raises NotImplementedError
+    naming its ROADMAP item; a plan the mesh's axes do not match, a
+    ``consensus_replicas`` other than the mesh's replicas and a batch the
+    replicas do not divide raise ValueError naming both sides."""
+    world = 4 if what in REFUSALS_4 else 2
+    msg = json.loads((worlds.tmp / f"extra{world}_r0.json").read_text())["refusals"][what]
+    if what in VALUE_ERRORS:
+        assert msg.startswith("ValueError"), msg
+        assert all(part in msg for part in VALUE_ERRORS[what]), msg
     else:
         assert msg.startswith("NotImplementedError") and PARALLEL in msg, msg
 
