@@ -172,9 +172,30 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    resume of ``TrainSession.run`` (bitwise against a run that never
    crashed, the ranks' events equal) and its checkpoint restored on one
    device (the same loss);
-22. prints each phase's seconds, a ``{"planning": {...}}`` line, a
-   ``{"tp": {...}}`` line, a ``{"dp": {...}}`` line, a ``{"kernels": [...]}``
-   line and, last, ``{"ok": true, "device": {...}}``.
+22. (run after 21) pipeline parallelism at pp = 2 as two processes on the
+   one card, as 20 and 21 run them: gpt-3.6b at published width, 8 of 30
+   layers (2 a chunk at vpp 2), 8 x 1024 tokens in 4 micro-batches (mbs
+   2), remat full, bf16 over f32 masters, one counted step (at vpp 1 after
+   a first), at vpp 1, vpp 2 and vpp 2 under remat "stage", then vpp 1 at
+   gas 8 (16 x 1024): each rank's K1-K4 launches exact (K1 2 a layer of its stage a
+   micro-batch, 3 under remat "stage"; K2-K4 1), its messages over the pp
+   line and their bytes exact (``expected_pp_p2p``) beside the cost model's
+   ``t_pp`` bytes, the schedule's activations in flight exact (min(gas, pp -
+   p) for 1F1B, the interleaved formula), peak memory beside
+   ``per_device_bytes``, stage 0's peak at gas 8 within one micro-batch's
+   stash of its peak at gas 4, times labelled as time-sliced ranks; the
+   per-token losses after the first step against pp = 1's (computed first
+   in this process) within 2x bf16's own error; the f32 identities at 4
+   layers (vpp 1 and 2 against one device at the same plan, the stages in
+   one process, and against pp = 1: loss 1e-5 relative, params 1e-5 but
+   for Adam's noise floor) with the leaves every stage holds equal in bits
+   on every rank; pp 2 x dp 2 as four ranks at ZeRO-1 (the f32 identity and
+   a bf16 step, counted).  No checkpoint on the card (the run's disk writes
+   are spent): the pipeline's checkpoint and re-plan are held on the CPU;
+23. prints each phase's seconds, a ``{"planning": {...}}`` line, a
+   ``{"tp": {...}}`` line, a ``{"dp": {...}}`` line, a ``{"pp": {...}}``
+   line, a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+   {...}}``.
 
 Any failure exits non-zero without the last line.  It also exits non-zero
 when CUDA is not available, or when it does not stand in a checkout of the
@@ -292,6 +313,17 @@ DP_VOTES = ("bad0", "bad1", "both")
 DP_SWEEP = (*((z, kw, False) for z, kw in DP_RUNS), (3, {}, True))
 DP_DIR = ROOT / "build" / "chip_smoke_dp"
 DP_LABEL = "ranks time-sliced on one card over gloo: they say nothing of NVLink"
+# phase 22: gpt-3.6b at published width, 8 of its 30 layers (2 a chunk at pp
+# 2 x vpp 2), 8 x 1024 tokens in 4 micro-batches, bf16 over f32 masters;
+# the f32 identities at 4 layers; the memory check at gas 8 (16 x 1024)
+PP = dict(ranks=2, arch="gpt_36b", n_layers=8, f32_layers=4, seq_len=1024, global_batch=8,
+          gas=4, big_gas=8, eval_step=5)
+PP_RUNS = (("pp2", {}), ("pp2-vpp2", {"vpp": 2}),
+           ("pp2-vpp2-stage", {"vpp": 2, "remat_policy": "stage"}),
+           ("pp2-gas8", {"gas": 8, "global_batch": 16}))
+PP_F32 = (("vpp1", {}), ("vpp2", {"vpp": 2}))
+PP_DIR = ROOT / "build" / "chip_smoke_pp"
+PP_LABEL = "ranks time-sliced on one card over gloo: no bubble or NVLink figure"
 
 
 class SmokeFailure(Exception):
@@ -2479,6 +2511,25 @@ def expected_dp_collectives(layout, L: int, G: int, *, vote: bool, remat: str = 
     return {k: v for k, v in out.items() if v}
 
 
+def expected_pp_p2p(pp: int, vpp: int, gas: int, stage: int, tp: int = 1, *, mbs: int,
+                    seq: int, d_model: int, itemsize: int, sp: bool = False):
+    """One train step's point-to-point messages on the rank of pipeline
+    stage ``stage``: ({"send@pp": n, "recv@pp": n}, their bytes).  Each
+    stage runs gas·vpp forwards and as many backwards; every forward but
+    the last chunk's (stage pp-1's last row) sends its activation on, and
+    every backward but chunk 0's (stage 0's first row) sends the input's
+    gradient back, each received once.  A message is one micro-batch's
+    activation: this rank's ``mbs`` rows x ``seq`` positions (``seq / tp``
+    under sequence parallel) x ``d_model``, ``itemsize`` bytes an entry."""
+    total = gas * vpp
+    first, last = stage == 0, stage == pp - 1
+    fwd_out = total - (gas if last else 0)
+    bwd_out = total - (gas if first else 0)
+    n = {"send@pp": fwd_out + bwd_out, "recv@pp": bwd_out + fwd_out}
+    msg = mbs * (seq // tp if sp else seq) * d_model * itemsize
+    return n, {k: v * msg for k, v in n.items()}
+
+
 def expected_serving_collectives(L: int, decode_steps: int, *, vocab_parallel: bool,
                                  sp: bool = False):
     """The collectives of a prefill and ``decode_steps`` decode steps at
@@ -2954,22 +3005,32 @@ def _held_to(np, got, ref, lr):
     tests hold them: a param within 1e-5 + 1e-5 |p|, except Adam's noise
     floor (|m| <= 1e-6 max |m| of its leaf: its update is the sign of a
     rounding error), held to 2 lr and counted; each leaf's ``m`` within
-    1e-5 of its largest entry."""
+    1e-5 of its largest entry.  The same f32 arithmetic as numpy's, done
+    by torch on the card where there is one (a leaf's arrays at a time):
+    numpy took ~18 s a call over 0.6 B entries."""
+    import torch
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
     out = dict(max_param_diff=0.0, floor=0, entries=0, worst_m=0.0, ok=True)
-    for key, p_ref in ref.items():
+    for key in ref:
         if not key.startswith("params/"):
             continue
-        m_ref = ref["opt/m/" + key[len("params/"):]]
-        top = float(np.abs(m_ref).max())
-        d = np.abs(got[key] - p_ref)
-        ok = d <= 1e-5 + 1e-5 * np.abs(p_ref)
-        noise = np.abs(m_ref) <= 1e-6 * top
+        m_key = "opt/m/" + key[len("params/"):]
+        p_ref, m_ref = t(ref[key]), t(ref[m_key])
+        top = float(m_ref.abs().max())
+        d = (t(got[key]) - p_ref).abs()
+        ok = d <= 1e-5 + 1e-5 * p_ref.abs()
+        noise = m_ref.abs() <= 1e-6 * top
         out["ok"] &= bool((ok | (noise & (d <= 2 * lr))).all())
         out["max_param_diff"] = max(out["max_param_diff"], float(d.max()))
         out["floor"] += int((~ok).sum())
-        out["entries"] += d.size
-        dm = float(np.abs(got["opt/m/" + key[len("params/"):]] - m_ref).max())
+        out["entries"] += d.numel()
+        dm = float((t(got[m_key]) - m_ref).abs().max())
         out["worst_m"] = max(out["worst_m"], dm / top if top else dm)
+        del p_ref, m_ref, d, ok, noise
     out["ok"] &= out["floor"] <= 1e-4 * out["entries"] and out["worst_m"] <= 1e-5
     return out
 
@@ -3354,6 +3415,346 @@ def _dp_check(get_config, ref, outs, ranks_s, smi, dp1):
     return summary, launch_runs
 
 
+# ---------------------------------------------------------------------------
+# 22: pipeline parallelism as ranks on the one card
+# ---------------------------------------------------------------------------
+
+def _pp_cfg(get_config, n_layers, dtype=None):
+    cfg = dataclasses.replace(get_config(PP["arch"]), n_layers=n_layers)
+    return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
+
+
+def _pp_session(mods, cfg, *, mesh=None, seed=0, gas=None, global_batch=None, pp=None,
+                **plan_kw):
+    """A TrainSession of phase 22: remat full unless given, gas 4 (mbs 2),
+    1024 tokens a row; ``pp`` stages over ``mesh``, or in this process."""
+    shape = mesh.shape if mesh is not None else {"tp": 1, "data": 1, "pod": 1, "pp": pp}
+    plan_kw.setdefault("remat_policy", "full")
+    plan = mods.ParallelismConfig(gas=gas or PP["gas"], pp=shape["pp"], tp=shape["tp"],
+                                  dp=shape["data"], pods=shape["pod"], **plan_kw)
+    return mods.TrainSession.from_recipe(
+        cfg, seed=seed, plan=plan, mesh=mesh,
+        train_cfg=mods.stepfn.TrainConfig(total_steps=8, warmup=2),
+        data_cfg=mods.DataConfig(seq_len=PP["seq_len"],
+                                 global_batch=global_batch or PP["global_batch"]))
+
+
+def _token_nll(torch, cfg, params, batch):
+    """Per-token losses (B, S) of ``params`` on ``batch`` (one device)."""
+    from repro_torch.models import layers, transformer
+    with torch.no_grad():
+        logits = transformer.lm_forward(cfg, params, batch, remat_policy="none")
+        return (torch.logsumexp(logits, -1) - layers.gold_logit(logits, batch["labels"])).cpu()
+
+
+def phase_pp(torch, get_config, smi):
+    """Pipeline parallelism at pp = 2 as processes on the one card over gloo
+    (``_pp_rank``), and pp 2 x dp 2 as four; the ranks hold their f32 runs
+    to one device themselves (rank 0 computes the one-device runs first).
+    This process first trains pp = 1 one bf16 step and takes its per-token
+    losses after it, in bf16 and on the f32 masters (the floor)."""
+    import torch.multiprocessing as mp
+    mods = _dp_mods()
+    if PP_DIR.exists():
+        shutil.rmtree(PP_DIR)
+    PP_DIR.mkdir(parents=True)
+    cfg, full = _dense_cfg(get_config, dict(arch=PP["arch"], n_layers=PP["n_layers"]))
+    sess = _pp_session(mods, cfg, pp=1)
+    m = {k: float(v) for k, v in sess.step().items()}
+    batch = sess._to_device(sess.batches(PP["eval_step"]))
+    ref = dict(loss=m["loss"], nll=_token_nll(torch, cfg, sess.state["params"], batch),
+               nll_f32=_token_nll(torch, dataclasses.replace(cfg, dtype="float32"),
+                                  sess.state["params"], batch))
+    del sess, batch
+    torch.cuda.empty_cache()
+    log(f"[pp] pp = 1 reference ({_describe(cfg, full)}): the first step's loss "
+        f"{ref['loss']:.6f}; per-token losses after it on batch {PP['eval_step']}")
+    outs = {}
+    t0 = time.perf_counter()
+    for world in (PP["ranks"], 4):
+        import socket
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        tw = time.perf_counter()
+        mp.start_processes(_pp_rank, args=(world, port), nprocs=world, join=True,
+                           start_method="spawn")
+        outs[world] = [torch.load(PP_DIR / f"rank{r}_of{world}.pt", weights_only=False)
+                       for r in range(world)]
+        outs[world][0]["ranks_s"] = time.perf_counter() - tw
+    ranks_s = time.perf_counter() - t0
+    shutil.rmtree(PP_DIR)
+    return _pp_check(get_config, ref, outs, ranks_s, smi)
+
+
+def _pp_rank(rank: int, world: int, port: int) -> None:
+    """One rank of phase 22 (a spawned process): its runs and results to
+    ``PP_DIR/rank<r>_of<world>.pt``."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        out = _pp_rank_runs(torch, np, world)
+        torch.save(out, PP_DIR / f"rank{rank}_of{world}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _own_digest(torch, sess):
+    """The digest of this rank's leaves outside the blocks (every stage
+    holds them)."""
+    return _digest(torch, {k: v for k, v in sess.state["params"].items() if k != "blocks"})
+
+
+def _pass_peaks(torch, pipeline):
+    """Record, for every pipeline pass, the most device memory it held above
+    what was allocated when it began (its stash, the gradients it
+    accumulates and its transients): ``pipeline.run_pipeline`` wrapped in
+    this process (the caller puts the original back).  → the list the
+    wrapper appends to."""
+    peaks, real = [], pipeline.run_pipeline
+
+    def measured(*args, **kw):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        return out
+
+    pipeline.run_pipeline = measured
+    return peaks
+
+
+def _pp_rank_runs(torch, np, world):
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline, tp
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import describe, make_recipe_mesh
+    mods = _dp_mods()
+    rank = dist.get_rank()
+    mesh = make_recipe_mesh(pp=2, device_type="cuda")
+    out = {"mesh": describe(mesh), "stage": mesh.coords["pp"], "coords": dict(mesh.coords)}
+
+    def counted(key, fn):
+        """``fn()`` with the launch and message counts zeroed just before
+        and read just after."""
+        build.launch_counts.clear()
+        tp.reset()
+        res = fn()
+        out[key] = dict(launches=dict(build.launch_counts), collectives=dict(tp.by_group),
+                        bytes=dict(tp.bytes_by_group))
+        return res
+
+    # the f32 identities at 4 layers: one device at the same plan (the
+    # stages in one process) and at pp 1, rank 0 alone; then the mesh
+    f32 = _pp_cfg(get_config, PP["f32_layers"], "float32")
+    runs = PP_F32 if world == PP["ranks"] else (("dp2-z1", {"zero_stage": 1}),)
+    refs = {}
+    if rank == 0:
+        for tag, kw in runs:
+            sess = _pp_session(mods, f32, seed=1, pp=2, **kw)
+            m = sess.step()
+            refs[tag] = dict(loss=float(m["loss"]), lr=float(m["lr"]),
+                             state=_params_and_m(sess))
+            del sess
+        if world == PP["ranks"]:
+            sess = _pp_session(mods, f32, seed=1, pp=1)
+            m = sess.step()
+            refs["pp1"] = dict(loss=float(m["loss"]), lr=float(m["lr"]),
+                               state=_params_and_m(sess))
+            del sess
+        torch.cuda.empty_cache()
+    dist.barrier()
+    for tag, kw in runs:
+        sess = _pp_session(mods, f32, mesh=mesh, seed=1, **kw)
+        m = sess.step()
+        got = _params_and_m(sess, keep=rank == 0)
+        res = dict(loss=float(m["loss"]), skipped=float(m["skipped"]),
+                   shared=_own_digest(torch, sess))
+        for key in (tag, "pp1"):
+            if key in refs:
+                r = refs[key]
+                res[f"vs_{'one' if key == tag else 'pp1'}"] = dict(
+                    ref_loss=r["loss"], **_held_to(np, got, r["state"], r["lr"]))
+        out[f"f32/{tag}"] = res
+        del sess, got
+        torch.cuda.empty_cache()
+    del refs
+
+    # bf16: one counted step (launches, messages, collectives, peak memory,
+    # times); at pp 2 it follows a first, after which the per-token losses
+    # are taken
+    cfg = _pp_cfg(get_config, PP["n_layers"])
+    bf16 = PP_RUNS if world == PP["ranks"] else (("dp2-z1", {"zero_stage": 1}),)
+    for tag, kw in bf16:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sess = _pp_session(mods, cfg, mesh=mesh, **kw)
+        init_peak = torch.cuda.max_memory_allocated()
+        first = None
+        if tag == "pp2":
+            first, _, _ = _timed_step(torch, sess)
+            # per-token losses after the first step, the whole model on rank 0
+            whole = _whole_params(sess)
+            if rank == 0:
+                out["nll"] = _token_nll(torch, cfg, whole,
+                                        sess._to_device(sess.batches(PP["eval_step"])))
+            del whole
+            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        real_run = pipeline.run_pipeline
+        peaks = _pass_peaks(torch, pipeline)
+        try:
+            m, host_s, ev_ms = counted(tag, lambda: _timed_step(torch, sess))
+        finally:
+            pipeline.run_pipeline = real_run
+        # the pass's wrapper reset the peak as the pass began: what is read
+        # here covers the pass and the update, where the step peaks
+        step_peak = torch.cuda.max_memory_allocated()
+        out[tag].update(metrics=m, first_loss=first and first["loss"], step_s=host_s,
+                        event_ms=ev_ms,
+                        init_peak=init_peak, peak_bytes=step_peak, pass_bytes=peaks[0],
+                        in_flight=list(sess.train_step.in_flight), plan=sess.plan)
+        del sess
+    return out
+
+
+def _pp_check(get_config, ref, outs, ranks_s, smi):
+    """Phase 22's checks on the ranks' results; returns (the ``{"pp": ...}``
+    summary, rank 0's counted main-path launches)."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.memory import activation_bytes_per_layer, per_device_bytes
+    two, four = outs[PP["ranks"]], outs[4]
+    cfg = _pp_cfg(get_config, PP["n_layers"])
+    L, d, seq = cfg.n_layers, cfg.d_model, PP["seq_len"]
+    log(f"[pp] {PP['ranks']} ranks ({two[0]['mesh']}) then 4 ({four[0]['mesh']}) ran in "
+        f"{ranks_s:.1f} s ({PP_LABEL})")
+    summary = {"card": smi, "times_label": PP_LABEL, "f32": {}, "messages": {}, "memory": {},
+               "in_flight": {}, "times": {}}
+    # the f32 identities
+    for world, outs_w, runs in ((PP["ranks"], two, PP_F32), (4, four, (("dp2-z1", {}),))):
+        for tag, _ in runs:
+            r = outs_w[0][f"f32/{tag}"]
+            for key in ("vs_one", "vs_pp1"):
+                if key not in r:
+                    continue
+                h = r[key]
+                rel = abs(r["loss"] - h["ref_loss"]) / abs(h["ref_loss"])
+                log(f"[pp] f32 {PP['f32_layers']} layers, {tag} over {world} ranks "
+                    f"{'vs one device, the same plan' if key == 'vs_one' else 'vs pp 1'}: "
+                    f"loss {r['loss']:.7f} vs {h['ref_loss']:.7f} (rel {rel:.3g}); params max "
+                    f"|diff| {h['max_param_diff']:.3g}, {h['floor']} of {h['entries']} past "
+                    f"1e-5 (Adam's noise floor, each within 2 lr); m max |diff| "
+                    f"{h['worst_m']:.3g} of its leaf's largest")
+                require(rel <= 1e-5 and h["ok"] and r["skipped"] == 0.0,
+                        f"f32 {tag} {key}: the pipeline parts from one device ({h})")
+                summary["f32"][f"{tag}/{key}"] = dict(loss_rel=rel,
+                                                      max_param_diff=h["max_param_diff"],
+                                                      floor=h["floor"], m_rel=h["worst_m"])
+            require(all(o[f"f32/{tag}"]["shared"] == r["shared"] for o in outs_w),
+                    f"f32 {tag}: the leaves every stage holds differ in bits between ranks")
+            require(all(o[f"f32/{tag}"]["loss"] == r["loss"] for o in outs_w),
+                    f"f32 {tag}: the ranks' losses differ")
+    # bf16: per-token losses after the first step against pp 1
+    nll = two[0]["nll"]
+    diff = float((nll - ref["nll"]).abs().max())
+    floor = float((ref["nll"] - ref["nll_f32"]).abs().max())
+    log(f"[pp] bf16 per-token loss after one step, (B, S) = {tuple(nll.shape)}: max |pp 2 - "
+        f"pp 1| {diff:.4g}; bf16 noise floor max |pp 1 - pp 1 on the f32 masters| {floor:.4g} "
+        f"(tol: {LOGIT_FLOOR_FACTOR} x floor); first-step loss pp 2 "
+        f"{two[0]['pp2']['first_loss']:.6f} vs pp 1 {ref['loss']:.6f}")
+    require(bool(nll.isfinite().all()) and diff <= LOGIT_FLOOR_FACTOR * floor,
+            f"bf16 per-token losses differ from pp 1 by {diff:.4g}, more than "
+            f"{LOGIT_FLOOR_FACTOR} x bf16's own error {floor:.4g}")
+    summary["bf16_per_token"] = dict(max_diff=diff, floor=floor)
+    # bf16: launches, messages, in flight, memory, times
+    mbs = PP["global_batch"] // PP["gas"]
+    stash = activation_bytes_per_layer(cfg, mbs, seq, remat="full") * (L // PP["ranks"])
+    launch_runs = []
+    for world, outs_w, runs in ((PP["ranks"], two, PP_RUNS), (4, four, (("dp2-z1", {}),))):
+        for tag, _ in runs:
+            for o in outs_w:
+                run = o[tag]
+                plan, p, m = run["plan"], o["stage"], run["metrics"]
+                sched = pipeline.Schedule(plan.pp, plan.vpp, plan.gas)
+                per_layer = 3 if plan.remat_policy == "stage" else 2
+                lp = L // plan.pp
+                want_l = {"flash_fwd": per_layer * lp * plan.gas, "flash_delta": lp * plan.gas,
+                          "flash_dq": lp * plan.gas, "flash_dkv": lp * plan.gas}
+                n, nbytes = expected_pp_p2p(plan.pp, plan.vpp, plan.gas, p, plan.tp,
+                                            mbs=mbs // plan.dp, seq=seq, d_model=d,
+                                            itemsize=cfg.compute_dtype.itemsize,
+                                            sp=plan.sequence_parallel)
+                got_n = {k: run["collectives"].get(k, 0) for k in n}
+                got_b = {k: run["bytes"].get(k, 0) for k in n}
+                supersteps = plan.vpp * plan.gas + plan.pp - 1
+                t_pp = 2.0 * mbs * seq * d * 2.0 * supersteps
+                model = per_device_bytes(cfg, dp=plan.dp, tp=1, pp=plan.pp, mbs=mbs,
+                                         gas=plan.gas, seq=seq, zero_stage=plan.zero_stage,
+                                         remat=plan.remat_policy)
+                flight = sched.in_flight_formula(p)
+                log(f"[pp] bf16 {tag} rank {o['coords']} (stage {p}): loss {m['loss']:.6f}, "
+                    f"skipped {m['skipped']:.0f}; launches {run['launches']} (expected "
+                    f"{want_l}); messages {got_n}, {got_b} B (expected {n}, {nbytes}); the "
+                    f"cost model's t_pp bytes {t_pp:.0f} (2 x mbs x seq x d x 2 B x "
+                    f"{supersteps} supersteps); collectives {run['collectives']}; in flight "
+                    f"{run['in_flight']} (formula {flight}); peak {run['peak_bytes'] / 2**30:.3f}"
+                    f" GiB in the step ({run['init_peak'] / 2**30:.3f} GiB at init; the "
+                    f"pipeline pass {run['pass_bytes'] / 2**30:.3f} GiB above its start), memory "
+                    f"model {model['total'] / 2**30:.3f} GiB (activations "
+                    f"{model['activations'] / 2**30:.3f}); the second step "
+                    f"{run['step_s'] * 1e3:.1f} ms host, {run['event_ms']:.1f} ms CUDA events "
+                    f"({PP_LABEL})")
+                require(math.isfinite(m["loss"]) and m["skipped"] == 0.0, f"bf16 {tag}: {m}")
+                require(run["launches"] == want_l, f"bf16 {tag} stage {p}: launches "
+                        f"{run['launches']}, expected {want_l}")
+                require(got_n == n and got_b == nbytes, f"bf16 {tag} stage {p}: messages "
+                        f"{got_n} {got_b}, expected {n} {nbytes}")
+                require(run["collectives"].get("all_reduce@pp") == 2
+                        and run["collectives"].get("all_reduce@world") == 2,
+                        f"bf16 {tag} stage {p}: collectives {run['collectives']}")
+                require(run["in_flight"] == [flight], f"bf16 {tag} stage {p}: in flight "
+                        f"{run['in_flight']}, the schedule's {flight}")
+                require(run["peak_bytes"] < 80e9, f"bf16 {tag}: peak {run['peak_bytes']} B")
+                require(m["loss"] == outs_w[0][tag]["metrics"]["loss"],
+                        f"bf16 {tag}: the ranks' losses differ")
+                key = f"{tag}/rank{o['coords']['data']}{p}"
+                summary["messages"][key] = dict(calls=got_n, bytes=got_b, t_pp_bytes=t_pp)
+                summary["in_flight"][key] = run["in_flight"][0]
+                summary["memory"][key] = dict(peak_bytes=run["peak_bytes"],
+                                              init_peak=run["init_peak"],
+                                              pass_bytes=run["pass_bytes"],
+                                              model_bytes=model["total"])
+                summary["times"][f"{key} step ms (host, events)"] = [run["step_s"] * 1e3,
+                                                                     run["event_ms"]]
+            launch_runs.append(outs_w[0][tag]["launches"])
+    g4, g8 = two[0]["pp2"]["pass_bytes"], two[0]["pp2-gas8"]["pass_bytes"]
+    s4, s8 = two[0]["pp2"]["peak_bytes"], two[0]["pp2-gas8"]["peak_bytes"]
+    grow = PP["big_gas"] - PP["gas"]
+    log(f"[pp] stage 0 from gas 4 to gas 8: its pipeline pass held at most "
+        f"{g4 / 2**30:.3f} -> {g8 / 2**30:.3f} GiB above its start (+{(g8 - g4) / 2**20:.1f} "
+        f"MiB), the step's peak {s4 / 2**30:.3f} -> {s8 / 2**30:.3f} GiB "
+        f"(+{(s8 - s4) / 2**20:.1f} MiB); one micro-batch's stash {stash / 2**20:.1f} MiB (the "
+        f"memory model: 2 x mbs x seq x d B a layer x {L // PP['ranks']} layers); a schedule "
+        f"that kept every micro-batch would grow by {grow} of them "
+        f"({grow * stash / 2**20:.1f} MiB)")
+    require(g8 - g4 < stash and s8 - s4 < stash,
+            f"stage 0 grew from gas 4 to gas 8 by {g8 - g4} B in the pass and {s8 - s4} B "
+            f"at the step's peak, not less than one micro-batch's stash {stash:.0f} B")
+    summary["memory"]["gas4_to_gas8_stage0"] = dict(pass_growth=g8 - g4,
+                                                    peak_growth=s8 - s4, stash=stash)
+    return summary, launch_runs
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a checkout of "
@@ -3462,6 +3863,7 @@ def main() -> int:
                                     DataConfig, tree_map, smi)
     dp_summary, dp_launches = timed("21 data parallel", phase_dp, torch, get_config, store,
                                     smi)
+    pp_summary, pp_launches = timed("22 pipeline parallel", phase_pp, torch, get_config, smi)
     timing = timed("14 timing", phase_timing, torch, fa, da, rn, smi)
     log(f"[phase] all phases {sum(seconds.values()):.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
@@ -3490,13 +3892,16 @@ def main() -> int:
     # the reference, so no main path launches it
     runs = [serve_launches, train_launches, *stream_launches.values(), *cli_launches,
             eval_launches, *(c for pair in dense_launches.values() for c in pair),
-            *h2o_stream_launches.values(), h2o_train_launches, *tp_launches, *dp_launches]
+            *h2o_stream_launches.values(), h2o_train_launches, *tp_launches, *dp_launches,
+            *pp_launches]
     log(f"[launches] generate {serve_launches}; train step {train_launches}; stream "
         f"{stream_launches}; training CLI (crashed, resumed) {cli_launches}; eval sweep "
         f"{eval_launches}; dense arm (prefill, generate) {dense_launches}; h2o stream "
         f"{h2o_stream_launches}; h2o train step {h2o_train_launches}; tp = 2 rank 0 "
         f"(granite and gpt-3.6b generate, gpt-3.6b prefill, three train steps) {tp_launches}"
-        f"; dp = 2 rank 0 (a step at each of seven ZeRO settings) {dp_launches}")
+        f"; dp = 2 rank 0 (a step at each of seven ZeRO settings) {dp_launches}; pp = 2 "
+        f"rank 0 (stage 0: a step of vpp 1, vpp 2, remat stage, gas 8, and pp 2 x dp 2) "
+        f"{pp_launches}")
     for kr in kernels:
         r = timing[kr["name"]]
         n = sum(c.get(kr["name"], 0) for c in runs)
@@ -3507,6 +3912,7 @@ def main() -> int:
     print(json.dumps({"planning": planning}), flush=True)
     print(json.dumps({"tp": tp_summary}), flush=True)
     print(json.dumps({"dp": dp_summary}), flush=True)
+    print(json.dumps({"pp": pp_summary}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

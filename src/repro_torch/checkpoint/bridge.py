@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Mapping, Tuple, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -141,24 +141,44 @@ def state_leaves(state: Mapping[str, Any], prefix: Tuple[str, ...] = ()
 
 
 def to_host(leaf: Union[torch.Tensor, List[torch.Tensor]],
-            fetch: Callable[[torch.Tensor], torch.Tensor] = torch.Tensor.detach
-            ) -> np.ndarray:
+            fetch: Callable[[torch.Tensor], torch.Tensor] = torch.Tensor.detach,
+            rows: Optional[List[List[int]]] = None) -> np.ndarray:
     """A host copy of one leaf of ``state_leaves`` (per-layer tensors stacked
     on a new first axis); bf16 as 2-byte records.  ``fetch(x)`` is copied in
     place of each tensor ``x``, one at a time (on a mesh: ``x`` gathered
-    whole)."""
+    whole).  ``rows``: the i-th tensor's fetch holds several layers (the
+    pipeline stages' i-th, gathered over the ``pp`` line), which land at
+    layers ``rows[i]``."""
     xs = leaf if isinstance(leaf, list) else [leaf]
+    n = len(xs) if rows is None else sum(map(len, rows))
     t = None
     for i, x in enumerate(xs):
         x = fetch(x)
         if t is None:
-            lead = (len(xs),) if isinstance(leaf, list) else ()
-            t = torch.empty(lead + tuple(x.shape), dtype=x.dtype)
-        (t[i] if isinstance(leaf, list) else t).copy_(x)
+            lead = (n,) if isinstance(leaf, list) else ()
+            t = torch.empty(lead + tuple(x.shape[rows is not None:]), dtype=x.dtype)
+        if rows is not None:
+            t[rows[i]] = x.cpu()
+        else:
+            (t[i] if isinstance(leaf, list) else t).copy_(x)
         del x
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(BF16_RECORD)
     return t.numpy()
+
+
+def _stacked_block(key: str) -> bool:
+    parts = key.split("/")
+    return "blocks" in parts[:-1]
+
+
+def unstack_pipeline(flat: Mapping[str, Any], plan) -> Dict[str, Any]:
+    """The reference's pp-stacked tree (``{path: array}``; its block leaves
+    ``(PP, L/PP, ...)`` or ``(VPP, PP, L/(PP·VPP), ...)`` under ``plan``)
+    → the canonical ``(L, ...)`` leaves that ``state_from_numpy`` reads."""
+    lead = 1 if plan.pp == 1 else (2 if plan.vpp == 1 else 3)
+    return {k: (np.asarray(v).reshape((-1,) + np.shape(v)[lead:]) if _stacked_block(k)
+                else v) for k, v in flat.items()}
 
 
 def state_to_numpy(state: Mapping[str, Any]) -> Dict[str, np.ndarray]:

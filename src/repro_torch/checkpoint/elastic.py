@@ -13,9 +13,18 @@ writer), and :func:`reshard_state` keeps this rank's shards of a whole
 state read on the host, moving only those to the device.  No device holds
 the whole state.  So a dp re-plan is the identity on the canonical state: a
 checkpoint written at dp = 2 under ZeRO-3 restores at dp = 1, into the
-reference, or at any other dp, stage or tp.  Pipeline stacking (``pp > 1``)
-comes with the parallel recipe (ROADMAP Queue 1, item 3: the parallel recipe
-over torch.distributed).
+reference, or at any other dp, stage or tp.
+
+At ``pp > 1`` the one-device state keeps the flat per-layer block list (the
+pipeline indexes its chunks in place, ``core.pipeline``), so a pp or vpp
+re-plan without a mesh is the identity too, where the reference restacks
+its ``(PP, L/PP, ...)`` leaves.  On a mesh a rank holds its stage's layers:
+:func:`host_snapshot` gathers each stage's layers to the writer leaf by leaf
+over the ``pp`` line, and :func:`reshard_state` keeps this stage's layers of
+a whole state.  A checkpoint written at pp = 2 restores at pp = 1, at pp =
+4, and into the reference's store.  Re-planning a live state onto another
+mesh waits for the fleet (ROADMAP Queue 1, item 3: the parallel recipe over
+torch.distributed; its item 3.4).
 """
 
 from __future__ import annotations
@@ -26,22 +35,14 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.bridge import state_leaves, to_host
-from repro_torch.core import sharding
+from repro_torch.core import pipeline, sharding, tp
 from repro_torch.core.tree import tree_map
 from repro_torch.core.recipe import ParallelismConfig
 
 
-def _no_pipeline(plan: ParallelismConfig) -> None:
-    if plan.pp > 1:
-        raise NotImplementedError(
-            f"pp={plan.pp}: pipeline-stacked states come with the parallel recipe "
-            "(ROADMAP Queue 1, item 3: the parallel recipe over torch.distributed)")
-
-
 def canonicalize_state(state: Dict[str, Any], plan: ParallelismConfig) -> Dict[str, Any]:
-    """Remove plan-specific layout before saving (none for pp == 1 on one
-    device; a mesh's state goes through :func:`host_snapshot`)."""
-    _no_pipeline(plan)
+    """Remove plan-specific layout before saving: none on one device, at
+    any pp (a mesh's state goes through :func:`host_snapshot`)."""
     return state
 
 
@@ -61,10 +62,14 @@ def host_snapshot(state: Dict[str, Any], plan: ParallelismConfig, *, mesh, cfg,
     ``cfg`` (the model config) gives the whole shapes.  ``[]`` where not
     ``keep``."""
     from repro_torch.core import zero
-    _no_pipeline(plan)
     shapes = sharding.whole_shapes(state["params"], mesh, plan, cfg.vocab_size, cfg.d_model)
     p_specs = zero.param_shardings(shapes, mesh, plan)
-    o_specs = zero.opt_shardings(p_specs, shapes, mesh, plan, len(state["params"]["blocks"]))
+    o_specs = zero.opt_shardings(p_specs, shapes, mesh, plan, cfg.n_layers)
+    stages = pipeline.split_stages(mesh, plan)
+    rows = None
+    if stages:
+        per = [pipeline.stage_layers(cfg.n_layers, plan, p) for p in range(plan.pp)]
+        rows = [[per[p][i] for p in range(plan.pp)] for i in range(len(per[0]))]
     specs = {}
     for path, _ in shapes:
         key = _reference_leaf(path)
@@ -77,8 +82,13 @@ def host_snapshot(state: Dict[str, Any], plan: ParallelismConfig, *, mesh, cfg,
             spec = specs.get(key)
             fetch = torch.Tensor.detach if spec is None else (
                 lambda x, spec=spec: zero.gather(x.detach(), spec, mesh))
+            split = stages and isinstance(leaf, list)
+            if split:
+                # this stage's i-th layer beside every other stage's
+                fetch = (lambda x, f=fetch:
+                         tp.collective("all_gather", f(x)[None], mesh.groups["pp"]))
             if keep:
-                out.append((key, to_host(leaf, fetch)))
+                out.append((key, to_host(leaf, fetch, rows if split else None)))
             else:
                 for x in (leaf if isinstance(leaf, list) else [leaf]):
                     fetch(x)
@@ -91,7 +101,6 @@ def reshard_state(state: Dict[str, Any], new_plan: ParallelismConfig, *,
     on a mesh, this rank's shards, each moved to ``device`` (the state's
     own by default) as a copy: a whole state read on the host reaches the
     device as shards only."""
-    _no_pipeline(new_plan)
     if mesh is None:
         return state
     out = tree_map(lambda x: x if device is None else x.to(device),
@@ -108,5 +117,6 @@ def reshard_state(state: Dict[str, Any], new_plan: ParallelismConfig, *,
 
 def replan_state(state: Dict[str, Any], old_plan: ParallelismConfig,
                  new_plan: ParallelismConfig) -> Dict[str, Any]:
-    """Convert a live (one-device) train state between plans in one hop."""
+    """Convert a live (one-device) train state between plans in one hop (at
+    any pp and vpp the identity: the state keeps the flat block list)."""
     return reshard_state(canonicalize_state(state, old_plan), new_plan)

@@ -68,7 +68,8 @@ class ParallelismConfig:
         if self.vpp > 1 and self.gas % self.pp:
             raise ValueError(
                 f"interleaved schedule needs gas % pp == 0 "
-                f"(gas={self.gas}, pp={self.pp})")
+                f"(gas={self.gas}, pp={self.pp}) — micro-batches flow through "
+                f"the chunk ring in rounds of pp")
         if devices is not None and self.world != devices:
             raise ValueError(f"world={self.world} != devices={devices}")
 

@@ -14,7 +14,9 @@ the dims the resolved and sanitized spec shards (the ``tp`` axis, and under
 ZeRO-3 the data axis), :func:`shard_state` does the same for an optimizer
 state under ZeRO's specs (``core.zero``), and :func:`gather_params` is the
 first's inverse (``checkpoint.elastic.host_snapshot`` gathers a whole
-state to the host leaf by leaf).  The model code asks the rules that
+state to the host leaf by leaf; at pp > 1 a rank keeps its stage's blocks
+only, ``core.pipeline.keep_stage``, and :func:`gather_params` gathers the
+stages' blocks over the ``pp`` line too).  The model code asks the rules that
 :func:`axis_rules` installs for the tp group (``core.tp``) and does the
 collectives GSPMD would insert.  Everything no-ops when no rules are
 installed: the single-device paths do not change by a bit.
@@ -213,11 +215,12 @@ def shard_params(params, mesh, plan: ParallelismConfig, device=None):
     shards (tp, and under ZeRO-3 the data axis on its ``embed`` dim), as a
     contiguous copy; a leaf whose dims the mesh does not divide stays
     whole.  ``device``: where the blocks go (the leaves' own by default)."""
-    from repro_torch.core import zero
+    from repro_torch.core import pipeline, zero
     specs = zero.param_shardings([(p, tuple(x.shape)) for p, x in tree_leaves(params)],
                                  mesh, plan)
     return _map_with_path(
-        lambda path, x: _own(zero.local(x, specs[path], mesh), x, device), params)
+        lambda path, x: _own(zero.local(x, specs[path], mesh), x, device),
+        pipeline.keep_stage(params, plan, mesh))
 
 
 def _own(part: torch.Tensor, whole: torch.Tensor, device=None) -> torch.Tensor:
@@ -230,12 +233,13 @@ def shard_state(tree, mesh, plan: ParallelismConfig, device=None):
     """A whole optimizer-state tree (``m``, ``v`` or ``ef``, shaped like the
     parameters) → this rank's shards under ``zero.opt_shardings``, on
     ``device`` as for :func:`shard_params`."""
-    from repro_torch.core import zero
+    from repro_torch.core import pipeline, zero
     shapes = [(p, tuple(x.shape)) for p, x in tree_leaves(tree)]
     specs = zero.opt_shardings(zero.param_shardings(shapes, mesh, plan), shapes, mesh, plan,
                                len(tree["blocks"]))
     return _map_with_path(
-        lambda path, x: _own(zero.local(x, specs[path], mesh), x, device), tree)
+        lambda path, x: _own(zero.local(x, specs[path], mesh), x, device),
+        pipeline.keep_stage(tree, plan, mesh))
 
 
 def whole_shapes(local, mesh, plan: ParallelismConfig, vocab_size: int,
@@ -270,10 +274,15 @@ def gather_params(local, mesh, plan: ParallelismConfig, vocab_size: int,
                   d_model: Optional[int] = None):
     """The inverse of :func:`shard_params`: this rank's leaves → the whole
     parameters in the reference layout, on every rank (an all-gather per
-    sharded dim of a leaf, over the tp group or the data line)."""
-    from repro_torch.core import zero
+    sharded dim of a leaf, over the tp group or the data line, and at pp >
+    1 one over the ``pp`` line per layer of a stage and leaf)."""
+    from repro_torch.core import pipeline, zero
     specs = zero.param_shardings(whole_shapes(local, mesh, plan, vocab_size, d_model),
                                  mesh, plan)
     with torch.no_grad():
-        return _map_with_path(lambda path, x: zero.gather(x.detach(), specs[path], mesh), local)
+        whole = _map_with_path(lambda path, x: zero.gather(x.detach(), specs[path], mesh),
+                               local)
+        if pipeline.split_stages(mesh, plan):
+            whole["blocks"] = pipeline.gather_stages(whole["blocks"], plan, mesh)
+        return whole
 

@@ -33,6 +33,19 @@ shard; the consensus vote runs over the real replicas.  The gradient norm
 sums every distinct piece once over the mesh.  The serving steps gather the
 vocabulary-sharded logits before the argmax.  :func:`check_plan` says
 which plans wait for later parts of the recipe.
+
+At ``pp > 1`` the gradients come from the pipeline (``core.pipeline``: the
+stages in this process without a mesh, one stage a rank over the mesh's
+``pp`` line), as the reference's step takes them from ``pipeline_loss``:
+one global verdict (no vote, ``consensus_replicas`` ignored; the chaos
+scale is the product over the micro-batches, applied to the whole
+gradient; ``usable`` is a finite norm), the gradients accumulated in the
+parameters' dtype (the f32 masters; the gathered bf16 copies under
+``gather_params_once``) with each micro-batch's backward seeded with ``1 /
+Σ mask`` of the whole batch, and the metrics ``{"xent", "aux"}``.  On a
+mesh a rank holds its stage's layers and every leaf outside the blocks;
+those leaves' gradients are summed over the ``pp`` line, so every stage
+keeps the same bits.
 """
 
 from __future__ import annotations
@@ -43,7 +56,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch.core import sharding, tp, zero
+from repro_torch.core import pipeline, sharding, tp, zero
 from repro_torch.core.recipe import ParallelismConfig, axis_mapping
 from repro_torch.core.tree import tree_leaves
 from repro_torch.models import api as model_api
@@ -68,15 +81,17 @@ PARALLEL = "(ROADMAP Queue 1, item 3: the parallel recipe over torch.distributed
 
 def check_plan(plan: ParallelismConfig, mesh=None, cfg: Optional[ModelConfig] = None) -> None:
     """The plan against the mesh.  Without a mesh tp, dp and pods compute as
-    one device, as the reference computes them; pp needs the pipeline.  On
-    a mesh its tp, data and pod axes must be the plan's tp, dp and pods, and
-    tp must divide ``cfg``'s heads, KV heads and d_ff (the port shards whole
+    one device, as the reference computes them, and pp runs every stage in
+    this process.  At pp > 1 ``plan.validate`` holds for ``cfg``'s layers
+    (pp·vpp divides them; gas % pp == 0 when vpp > 1).  On a mesh its tp,
+    pp, data and pod axes must be the plan's tp, pp, dp and pods, and tp
+    must divide ``cfg``'s heads, KV heads and d_ff (the port shards whole
     heads)."""
-    if plan.pp > 1:
-        raise NotImplementedError(f"pp={plan.pp}: the pipeline is not ported yet {PARALLEL}")
+    if plan.pp > 1 and cfg is not None:
+        plan.validate(cfg.n_layers)
     if mesh is None:
         return
-    for name, axis in (("tp", "tp"), ("dp", "data"), ("pods", "pod")):
+    for name, axis in (("tp", "tp"), ("pp", "pp"), ("dp", "data"), ("pods", "pod")):
         if mesh.shape[axis] != getattr(plan, name):
             raise ValueError(f"plan {name}={getattr(plan, name)} but the mesh's {axis} axis "
                              f"is {mesh.shape[axis]} ranks wide")
@@ -159,13 +174,16 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
     check_plan(plan, mesh, cfg)
     rs = train_cfg.resilience
     n_plane = 1 if mesh is None else mesh.plane_size
-    if mesh is not None and rs.consensus_replicas and rs.consensus_replicas != n_plane:
+    if (mesh is not None and plan.pp == 1 and rs.consensus_replicas
+            and rs.consensus_replicas != n_plane):
         raise ValueError(
             f"consensus_replicas={rs.consensus_replicas} on a mesh: the replicas are the "
             f"mesh's, so it must be 0 or dp*pods={n_plane}")
     # replica groups that vote on a skip: the mesh's (pod, data) plane, or
-    # without a mesh a simulated fleet (``consensus_replicas``)
-    n_rep = (rs.consensus_replicas or n_plane) if rs.enabled and rs.consensus else 1
+    # without a mesh a simulated fleet (``consensus_replicas``); the
+    # pipeline keeps one global verdict
+    n_rep = (rs.consensus_replicas or n_plane) if (rs.enabled and rs.consensus
+                                                   and plan.pp == 1) else 1
     dp = n_plane > 1
     # filled on a mesh's first step (under its rules): the ZeRO layout, per
     # leaf (``tree_leaves`` order) tp-sharded, counted by this rank in the
@@ -173,6 +191,8 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
     # sequence parallel the replicated norm leaves whose gradient is a
     # partial sum
     layout: Dict[str, Any] = {}
+    # at pp > 1: the most activations each local stage kept in the last step
+    in_flight: List[int] = []
 
     def leaf_layout(params):
         if mesh is None or layout:
@@ -186,6 +206,9 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
                                 if tp.sequence_parallel() and not lf.tp_sharded
                                 and any("norm" in str(k) for k in lf.path[:-1])]
         layout["fsdp"] = any(lf.fsdp_dim is not None for lf in zl.leaves)
+        # the leaves every stage holds (outside the blocks)
+        layout["shared"] = [i for i, lf in enumerate(zl.leaves)
+                            if pipeline.split_stages(mesh, plan) and lf.path[0] != "blocks"]
 
     # squares accumulate in f64 wherever a norm must give the same bits
     # however the gradient is spread: on a mesh, and in the simulated fleet
@@ -274,6 +297,15 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
     def all_reduce_plane(x: torch.Tensor) -> torch.Tensor:
         return tp.collective("all_reduce", x, layout["zero"].plane) if dp else x
 
+    def summed(grads, which, reduce_):
+        """``grads[i]`` for i in ``which`` replaced by ``reduce_`` of them
+        (one collective for all)."""
+        if which:
+            flat = reduce_(torch.cat([grads[i].reshape(-1) for i in which]))
+            for i, g in zip(which, flat.split([grads[i].numel() for i in which])):
+                grads[i] = g.view_as(grads[i])
+        return grads
+
     def value_and_grad(leaves, params, batch, frac=None):
         loss, metrics = model_api.loss_fn(cfg, params, batch,
                                           remat_policy=plan.remat_policy)
@@ -282,12 +314,8 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
             metrics = {k: v * frac for k, v in metrics.items()}
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        sp_partial = layout.get("sp_partial")
-        if sp_partial:
-            # one all-reduce for every norm's partial sums over the positions
-            flat = tp.all_reduce(torch.cat([grads[i].reshape(-1) for i in sp_partial]))
-            for i, g in zip(sp_partial, flat.split([grads[i].numel() for i in sp_partial])):
-                grads[i] = g.view_as(grads[i])
+        # one all-reduce for every norm's partial sums over the positions
+        grads = summed(grads, layout.get("sp_partial"), tp.all_reduce)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def token_weights(batch, n: int) -> torch.Tensor:
@@ -345,6 +373,8 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
         With ``n_rep > 1`` the consensus path takes over.  On a dp mesh the
         gradients come back summed over the plane, in ZeRO's layout."""
         tree, leaves, region = model_params(params)
+        if plan.pp > 1:
+            return pipeline_grads(leaves, tree, region, batch, chaos_scale)
         if n_rep > 1:
             return consensus_grads(leaves, tree, batch, chaos_scale, rstat)
         if plan.gas <= 1:
@@ -399,6 +429,36 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
                "bad_replicas": torch.zeros((), dtype=torch.int32, device=device),
                "bad_micro_bits": _micro_bits(~fins)}
         return loss, metrics, acc, aux
+
+    def pipeline_grads(leaves, params, region, batch, chaos_scale):
+        """The gradients of ``Σ nll·mask / Σ mask`` over the whole batch
+        through the pipeline's schedule (this rank's rows of each
+        micro-batch on a dp mesh), the reference's one global verdict."""
+        micro = pipeline.split_micros(batch, plan.gas, mesh)
+        denom = pipeline.denominator(batch)
+        for p in leaves:
+            p.grad = None
+        out = pipeline.run_pipeline(cfg, plan, params,
+                                    [{k: x[i] for k, x in micro.items()}
+                                     for i in range(plan.gas)],
+                                    seed=1.0 / denom, mesh=mesh)
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
+        for p in leaves:
+            p.grad = None
+        grads = summed(grads, layout.get("sp_partial"), tp.all_reduce)
+        grads = reduce(grads, region)
+        grads = summed(grads, layout.get("shared"),
+                       lambda x: tp.collective("all_reduce", x, mesh.groups["pp"]))
+        if chaos_scale is not None:
+            _scale_(grads, torch.prod(chaos_scale.to(torch.float32)))
+        loss = pipeline.reduce_sum(out["sum"], mesh) / denom
+        usable = torch.isfinite(norm(grads))
+        aux = {"usable": usable,
+               "nonfinite_micros": (~usable).to(torch.int32),
+               "bad_replicas": torch.zeros((), dtype=torch.int32, device=usable.device),
+               "bad_micro_bits": (~usable).to(torch.float32)}
+        in_flight[:] = out["in_flight"]
+        return loss, {"xent": loss, "aux": torch.zeros_like(loss)}, grads, aux
 
     def consensus_grads(leaves, params, batch, chaos_scale, rstat):
         """The fleet-voted verdict, the reference's ``consensus_grads``: the
@@ -569,8 +629,9 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
         sharded = layout.get("sharded")
         zl = layout.get("zero")
         plane = zl.plane if dp and plan.zero_stage >= 1 else None
+        line = mesh.groups["pp"] if pipeline.split_stages(mesh, plan) else None
         grads = apply_compression(grads, train_cfg.compression, state.get("ef"), skip=keep,
-                                  sharded=sharded, plane=plane)
+                                  sharded=sharded, plane=plane, line=line)
         lr = schedule.lr_schedule(state["step"], peak=train_cfg.peak_lr,
                                   warmup=train_cfg.warmup, total=train_cfg.total_steps)
         lr = lr * schedule.rewarm_factor(rstat["rewarm"], rs.rewarm_steps)
@@ -598,6 +659,7 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
             lr=lr)
         return new_state, metrics
 
+    train_step.in_flight = in_flight
     return train_step
 
 
@@ -618,7 +680,9 @@ def _with_leaves(tree, leaves):
 def make_eval_step(cfg: ModelConfig, plan: ParallelismConfig, mesh=None):
     """(params, batch) → the loss metrics {"xent", "aux"}, without gradients;
     on a mesh every rank evaluates the whole batch (ZeRO-3's leaves
-    gathered as the blocks run)."""
+    gathered as the blocks run).  At pp > 1 the batch goes through the
+    pipeline's forwards (``core.pipeline.pipeline_loss``; on a mesh each
+    replica its rows, the loss summed over the mesh)."""
     check_plan(plan, mesh, cfg)
     layout: Dict[str, Any] = {}
 
@@ -630,7 +694,10 @@ def make_eval_step(cfg: ModelConfig, plan: ParallelismConfig, mesh=None):
                     layout["zero"] = zero.Layout(cfg, plan, mesh, params)
                 ids = layout["zero"].fsdp_ids(params)
             with zero.fsdp(ids, None if mesh is None else mesh.groups["data"]):
-                _, metrics = model_api.loss_fn(cfg, params, batch, remat_policy="none")
+                if plan.pp > 1:
+                    _, metrics = pipeline.pipeline_loss(cfg, params, batch, plan, mesh=mesh)
+                else:
+                    _, metrics = model_api.loss_fn(cfg, params, batch, remat_policy="none")
         return metrics
 
     return eval_step
@@ -644,6 +711,7 @@ def make_serve_step(cfg: ModelConfig, plan: Optional[ParallelismConfig] = None, 
     One position a row: no sequence parallel."""
     plan = plan or ParallelismConfig()
     check_plan(plan, mesh, cfg)
+    no_pipeline_mesh("the serve step", mesh)
 
     def serve_step(params, token, t, caches):
         with _rules(plan, mesh, seq=None):
@@ -663,6 +731,7 @@ def make_prefill(cfg: ModelConfig, plan: Optional[ParallelismConfig] = None, mes
     autograd graph, as the reference's ``make_prefill``."""
     plan = plan or ParallelismConfig()
     check_plan(plan, mesh, cfg)
+    no_pipeline_mesh("the prefill", mesh)
 
     def prefill(params, batch):
         with torch.no_grad(), _rules(plan, mesh):
@@ -677,6 +746,7 @@ def make_prefill_cache(cfg: ModelConfig, plan: Optional[ParallelismConfig] = Non
     (B, V), caches), the caches filled with the prompt's K/V."""
     plan = plan or ParallelismConfig()
     check_plan(plan, mesh, cfg)
+    no_pipeline_mesh("the prefill", mesh)
 
     def prefill_cache(params, batch, caches):
         with _rules(plan, mesh):
@@ -691,6 +761,13 @@ def one_device(what: str, mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(f"{what} on a mesh: the continuous-batching steps under "
                                   f"tensor parallelism are not ported yet {PARALLEL}")
+
+
+def no_pipeline_mesh(what: str, mesh) -> None:
+    """Serving runs on one device or over tp: a mesh with a ``pp`` axis
+    goes to :func:`one_device`'s refusal."""
+    if mesh is not None and mesh.shape["pp"] > 1:
+        one_device(f"{what} over pipeline stages", mesh)
 
 
 def make_slot_serve_step(cfg: ModelConfig, plan: Optional[ParallelismConfig] = None,

@@ -19,13 +19,20 @@ sharding rules.  The port does it by hand, in the regions of Megatron-LM
   ``softmax - onehot`` on the local shard), and :func:`gather_vocab` for the
   logits a sampler reads.
 
-Every collective of the port goes through :func:`collective`, which counts
+Every collective of the port goes through :func:`collective`, and every
+point-to-point message (the pipeline's activations and their gradients)
+through :func:`send` and :func:`recv`; they count
 calls and bytes per kind in ``counts`` and ``nbytes`` (the bytes of the
 whole tensor: the all-reduced one, the gathered output, the reduce-scattered
 input), and per kind and group in ``by_group`` and ``bytes_by_group``
 (keys ``"<kind>@<group>"``: the mesh axis of the group, ``pod,data`` for a
-``(pod, data)`` plane, ``world`` for the default group); :func:`reset`
-zeroes all four.  Without installed rules, or with a tp axis one rank wide, every
+``(pod, data)`` plane, ``world`` for the default group; ``send@pp`` and
+``recv@pp`` for the messages, with the bytes of the message); :func:`reset`
+zeroes all four.  Over gloo, whose backend table lists ``send``/``recv`` for
+CPU tensors only, a CUDA message goes through pinned host buffers that are
+reused from pass to pass; over NCCL it is sent as it is.  A send is posted
+and not waited (:func:`wait_sends` waits for them all), a receive is
+waited.  Without installed rules, or with a tp axis one rank wide, every
 region is the identity and nothing is called.
 """
 
@@ -114,13 +121,84 @@ def collective(kind: str, x: torch.Tensor, group, *, dim: int = 0) -> torch.Tens
         size_ = x
     else:
         raise ValueError(f"unknown collective {kind!r}; known: {', '.join(KINDS)}")
-    b = size_.numel() * size_.element_size()
+    _count(kind, group, size_.numel() * size_.element_size())
+    return out.movedim(0, dim).contiguous() if dim else out
+
+
+def _count(kind: str, group, b: int) -> None:
     key = f"{kind}@{group_name(group)}"
     counts[kind] += 1
     nbytes[kind] += b
     by_group[key] += 1
     bytes_by_group[key] += b
-    return out.movedim(0, dim).contiguous() if dim else out
+
+
+class _Pinned:
+    """Pinned host buffers by (shape, dtype), each back in the pool once
+    the message it carried is through: gloo's path for CUDA tensors."""
+
+    def __init__(self):
+        self.free: dict = collections.defaultdict(list)
+        self.sent: list = []          # (work, the tensor it sends, its pool key or None)
+
+    def take(self, shape, dtype) -> torch.Tensor:
+        self.reap(block=False)
+        key = (tuple(shape), dtype)
+        if self.free[key]:
+            return self.free[key].pop()
+        return torch.empty(key[0], dtype=dtype, pin_memory=True)
+
+    def reap(self, *, block: bool) -> None:
+        keep = []
+        for work, buf, key in self.sent:
+            if block:
+                work.wait()
+            elif not work.is_completed():
+                keep.append((work, buf, key))
+                continue
+            if key is not None:
+                self.free[key].append(buf)
+        self.sent = keep
+
+
+_pinned = _Pinned()
+
+
+def _staged(x: torch.Tensor, group) -> bool:
+    """Whether a message of ``x`` over ``group`` goes through the host."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def send(x: torch.Tensor, peer: int, group, tag: int) -> None:
+    """Post ``x`` to global rank ``peer`` over ``group`` (not waited)."""
+    x = x.detach().contiguous()
+    key = None
+    if _staged(x, group):
+        buf = _pinned.take(x.shape, x.dtype)
+        buf.copy_(x)
+        x, key = buf, (tuple(x.shape), x.dtype)
+    _pinned.sent.append((dist.isend(x, peer, group=group, tag=tag), x, key))
+    _count("send", group, x.numel() * x.element_size())
+
+
+def recv(shape, dtype: torch.dtype, device, peer: int, group, tag: int) -> torch.Tensor:
+    """The message of ``shape`` and ``dtype`` from global rank ``peer`` over
+    ``group``, on ``device``."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if _staged(out, group):
+        buf = _pinned.take(shape, dtype)
+        dist.recv(buf, peer, group=group, tag=tag)
+        out.copy_(buf)
+        _pinned.free[(tuple(shape), dtype)].append(buf)
+    else:
+        dist.recv(out, peer, group=group, tag=tag)
+    _count("recv", group, out.numel() * out.element_size())
+    return out
+
+
+def wait_sends() -> None:
+    """Wait for every posted :func:`send`."""
+    _pinned.reap(block=True)
 
 
 def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:

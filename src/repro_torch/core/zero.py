@@ -11,13 +11,16 @@ The rules (``_zero_axes``, ``zero_shard``, ``param_shardings``,
 ``opt_shardings``, ``grad_constraint``) are the reference's, resolved to
 plain tuples over a ``launch.mesh.RecipeMesh`` as ``core.sharding`` resolves
 tp's: a spec has one entry per dim of a leaf, ``None``, an axis name or a
-tuple of them.  The reference applies ``zero_shard`` to a stacked ``(L,
-*leaf)`` block leaf; the port's block leaves are per layer, so the rule sees
-``(L, *leaf)`` and the dim it picks maps back to the leaf.  Where it picks
-L (a 1-D leaf whose one dim carries the tp axis, even one rank wide:
-qwen1.5's ``bq``/``bk``/``bv``) the reference spreads whole layers of the
-state over the plane; the port keeps such a leaf's state whole on every
-rank instead (120 KB a layer at qwen1.5's full width).
+tuple of them.  The reference applies ``zero_shard`` to a stacked block
+leaf: ``(L, *leaf)``, at pp > 1 ``(PP, L/PP, *leaf)`` or ``(VPP, PP,
+L/(PP·VPP), *leaf)`` with the stage axis on ``pp``
+(``core.pipeline.stack_shape``); the port's block leaves are per layer, so
+the rule sees the stacked shape and the dim it picks maps back to the leaf.
+Where it picks a stacking axis (a 1-D leaf whose one dim carries the tp
+axis, even one rank wide: qwen1.5's ``bq``/``bk``/``bv``) the reference
+spreads whole layers of the state over the plane; the port keeps such a
+leaf's state whole on every rank instead (120 KB a layer at qwen1.5's full
+width).
 
 The port places the shards itself (:class:`Layout`, one record a leaf):
 
@@ -47,7 +50,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from repro_torch.core import sharding, tp
+from repro_torch.core import pipeline, sharding, tp
 from repro_torch.core.recipe import ParallelismConfig, axis_mapping
 from repro_torch.core.tree import tree_leaves
 
@@ -103,21 +106,24 @@ def param_shardings(shapes, mesh, plan: ParallelismConfig) -> Dict[Tuple, Spec]:
 def opt_shardings(p_specs: Dict[Tuple, Spec], shapes, mesh, plan: ParallelismConfig,
                   n_layers: int) -> Dict[Tuple, Spec]:
     """Optimizer-state specs: the parameters' plus the ZeRO axes (stage ≥ 1),
-    chosen on the reference's stacked ``(n_layers, *leaf)`` shape for a block
-    leaf.  Where the rule picks the layer axis the leaf keeps the
-    parameter's spec."""
+    chosen on the reference's stacked shape for a block leaf (``(n_layers,
+    *leaf)``, or pp-stacked under ``plan``).  Where the rule picks a
+    stacking axis the leaf keeps the parameter's spec."""
     if plan.zero_stage < 1:
         return dict(p_specs)
     axes = _zero_axes(mesh, plan)
+    lead = pipeline.stack_shape(n_layers, plan)
+    lead_spec = sharding.sanitize(sharding.AxisRules(mesh, axis_mapping(plan)).resolve(
+        pipeline.stack_axes(plan)), lead, mesh)
     out = {}
     for path, shape in shapes:
         spec = tuple(p_specs[path]) + (None,) * (len(shape) - len(p_specs[path]))
         if _stacked(path):
-            got = zero_shard((None,) + spec, (n_layers,) + tuple(shape), mesh, axes)
-            if got[0] is not None:
+            got = zero_shard(lead_spec + spec, lead + tuple(shape), mesh, axes)
+            if tuple(got[:len(lead)]) != lead_spec:
                 out[path] = spec
                 continue
-            got = tuple(got[1:])
+            got = tuple(got[len(lead):])
         else:
             got = tuple(zero_shard(spec, tuple(shape), mesh, axes))
         out[path] = got + (None,) * (len(shape) - len(got))
@@ -207,7 +213,7 @@ class Layout:
         self.plan, self.mesh = plan, mesh
         shapes = sharding.whole_shapes(params, mesh, plan, cfg.vocab_size, cfg.d_model)
         p_specs = param_shardings(shapes, mesh, plan)
-        o_specs = opt_shardings(p_specs, shapes, mesh, plan, len(params["blocks"]))
+        o_specs = opt_shardings(p_specs, shapes, mesh, plan, cfg.n_layers)
         g_specs = grad_constraint(p_specs, o_specs, plan)
         self.shapes = shapes
         self.leaves: List[SimpleNamespace] = []
@@ -284,10 +290,15 @@ class Layout:
     def owned(self, i: int) -> bool:
         """Whether this rank counts leaf ``i``'s reduced gradient in a norm:
         one rank of those holding the same values (the plane axes its layout
-        does not cut, and tp unless cut)."""
+        does not cut, tp unless cut, and the first stage for a leaf every
+        stage holds)."""
         lf, mesh = self.leaves[i], self.mesh
         cut = {a for e in lf.o_spec for a in live_axes(mesh, e)}
-        return all(mesh.coords[a] == 0 for a in PLANE + ("tp",)
+        if lf.path[0] != "blocks":
+            cut.discard("pp")
+        else:
+            cut.add("pp")
+        return all(mesh.coords[a] == 0 for a in PLANE + ("tp", "pp")
                    if mesh.shape[a] > 1 and a not in cut)
 
 

@@ -154,16 +154,21 @@ def gold_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
 
 
+def token_nll(logits: torch.Tensor, labels: torch.Tensor,
+              vocab_size: Optional[int] = None) -> torch.Tensor:
+    """Per-token ``logsumexp(logits) - logits[label]``; logits narrower than
+    ``vocab_size`` are this rank's slice of the vocabulary
+    (``core.tp.vocab_cross_entropy``)."""
+    if vocab_size is not None and logits.shape[-1] != vocab_size:
+        return tp.vocab_cross_entropy(logits, labels)
+    return torch.logsumexp(logits, dim=-1) - gold_logit(logits, labels)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
                   vocab_size: Optional[int] = None) -> torch.Tensor:
-    """Mean token cross-entropy. logits fp32 (..., V); labels int (...,).
-    Logits narrower than ``vocab_size`` are this rank's slice of the
-    vocabulary (``core.tp.vocab_cross_entropy``)."""
-    if vocab_size is not None and logits.shape[-1] != vocab_size:
-        nll = tp.vocab_cross_entropy(logits, labels)
-    else:
-        nll = torch.logsumexp(logits, dim=-1) - gold_logit(logits, labels)
+    """Mean token cross-entropy. logits fp32 (..., V); labels int (...,)."""
+    nll = token_nll(logits, labels, vocab_size)
     if mask is not None:
         mask = mask.to(nll.dtype)
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

@@ -131,7 +131,7 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
-def _positions(tokens: torch.Tensor) -> torch.Tensor:
+def positions(tokens: torch.Tensor) -> torch.Tensor:
     B, S = tokens.shape
     return torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
 
@@ -147,6 +147,12 @@ def _seq_layout(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"sequence parallel: S={x.shape[1]} is not divisible by "
                          f"tp={tp.size()}")
     return sharding.constrain(x, "batch", "seq", None)
+
+
+def embed_stream(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedded tokens in the residual stream's layout (the first
+    stage's input)."""
+    return _seq_layout(_embed(cfg, params, tokens))
 
 
 def _gather_seq(x: torch.Tensor) -> torch.Tensor:
@@ -193,6 +199,20 @@ def _remat_block(policy: str):
     return functools.partial(checkpoint, block_apply, use_reentrant=False)
 
 
+def block_fn(policy: str):
+    """``block_apply`` as ``policy`` runs it (see :func:`lm_forward`)."""
+    return _remat_block(policy) or block_apply
+
+
+def nll_sum(cfg: ModelConfig, params: Params, x: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The last hidden states (the residual stream's layout) → ``Σ nll·mask``
+    (or ``Σ nll``), in f32: the pipeline's last chunk banks this."""
+    logits = _logits(cfg, params, x, seq_sharded=tp.sequence_parallel())
+    nll = layers.token_nll(logits, labels, cfg.vocab_size)
+    return torch.sum(nll) if mask is None else torch.sum(nll * mask.to(nll.dtype))
+
+
 def lm_forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
                remat_policy: str = "full", last_only: bool = False) -> torch.Tensor:
     """→ fp32 logits (B, S, V), or (B, 1, V) when ``last_only`` (the hidden
@@ -209,14 +229,14 @@ def lm_forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {remat_policy!r} is not one of "
                          f"{', '.join(REMAT_POLICIES)}")
-    block = _remat_block(remat_policy) or block_apply
+    block = block_fn(remat_policy)
     params = zero.gathered_top(params)
     tokens = batch["tokens"]
-    x = _seq_layout(_embed(cfg, params, tokens))
-    positions = _positions(tokens)
+    x = embed_stream(cfg, params, tokens)
+    pos = positions(tokens)
     segment_ids = batch.get("segment_ids")
     for bp in params["blocks"]:
-        x = block(cfg, bp, x, positions, window=cfg.swa_window, segment_ids=segment_ids)
+        x = block(cfg, bp, x, pos, window=cfg.swa_window, segment_ids=segment_ids)
     if last_only:
         return _logits(cfg, params, _gather_seq(x)[:, -1:])
     return _logits(cfg, params, x, seq_sharded=tp.sequence_parallel())
@@ -262,9 +282,9 @@ def lm_prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     layer_plan(cfg)
     tokens = batch["tokens"]
     x = _seq_layout(_embed(cfg, params, tokens))
-    positions = _positions(tokens)
+    pos = positions(tokens)
     for bp, c in zip(params["blocks"], caches["blocks"]):
-        x, _ = block_prefill(cfg, bp, x, positions, c, window=cfg.swa_window,
+        x, _ = block_prefill(cfg, bp, x, pos, c, window=cfg.swa_window,
                              segment_ids=batch.get("segment_ids"))
     x = _gather_seq(x)
     lengths = batch.get("lengths")

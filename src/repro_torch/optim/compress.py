@@ -11,7 +11,8 @@ the layer index to take the same max, and under tensor parallelism the max
 of a tp-sharded leaf is taken over the tp group too (one all-reduce for
 every such leaf together).  Under ZeRO the gradients and ``ef`` are this
 rank's shards (``ef`` is laid out like ``m``), and one more all-reduce
-takes every max over the ``(pod, data)`` plane."""
+takes every max over the ``(pod, data)`` plane; on a pipeline's mesh, where
+a rank holds one stage's layers, one more over the ``pp`` line."""
 
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ def _reference_leaf(path: Tuple) -> Tuple:
 
 
 def _int8_ef(grads: List[torch.Tensor], ef_state, skip,
-             sharded: Optional[Sequence[bool]], plane) -> List[torch.Tensor]:
+             sharded: Optional[Sequence[bool]], plane, line) -> List[torch.Tensor]:
     leaves = tree_leaves(ef_state)
     # one scale per reference leaf; g + e is formed again in the second pass
     # rather than kept, so only one leaf's temporaries live at a time
@@ -50,10 +51,12 @@ def _int8_ef(grads: List[torch.Tensor], ef_state, skip,
         if keys:
             whole = tp.all_reduce(torch.stack([amax[k] for k in keys]), op="max")
             amax.update(zip(keys, whole.unbind(0)))
-    if plane is not None:
-        keys = list(amax)
-        whole = tp.collective("all_reduce_max", torch.stack([amax[k] for k in keys]), plane)
-        amax.update(zip(keys, whole.unbind(0)))
+    for group in (plane, line):
+        if group is not None:
+            keys = list(amax)
+            whole = tp.collective("all_reduce_max", torch.stack([amax[k] for k in keys]),
+                                  group)
+            amax.update(zip(keys, whole.unbind(0)))
     out = []
     for g, (path, e) in zip(grads, leaves):
         g = g.to(torch.float32) + e
@@ -68,12 +71,12 @@ def _int8_ef(grads: List[torch.Tensor], ef_state, skip,
 def apply_compression(grads: List[torch.Tensor], kind: Optional[str], ef_state=None,
                       skip: Optional[torch.Tensor] = None,
                       sharded: Optional[Sequence[bool]] = None,
-                      plane=None) -> List[torch.Tensor]:
+                      plane=None, line=None) -> List[torch.Tensor]:
     """→ the (de)compressed gradient list.  With ``int8_ef`` the ``ef`` leaves
     take their new residuals in place, unless ``skip`` (a 0-d bool) is set;
     ``sharded[i]``: leaf i is this rank's slice of a tp-sharded leaf;
     ``plane``: the process group over which the gradients are ZeRO
-    shards."""
+    shards; ``line``: the ``pp`` line over which the blocks are spread."""
     if kind is None or kind == "none":
         return grads
     if kind == "bf16":
@@ -82,5 +85,5 @@ def apply_compression(grads: List[torch.Tensor], kind: Optional[str], ef_state=N
         if ef_state is None:
             raise ValueError("int8_ef compression needs the ef state")
         with torch.no_grad():
-            return _int8_ef(grads, ef_state, skip, sharded, plane)
+            return _int8_ef(grads, ef_state, skip, sharded, plane, line)
     raise ValueError(f"unknown compression {kind!r}")

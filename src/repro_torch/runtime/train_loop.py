@@ -115,14 +115,16 @@ def run_training(state, train_step: Callable, batches, loop_cfg: LoopConfig,
     cursor, resume.  ``make_step`` is required for a re-plan to complete;
     without it the decision is surfaced as ``replan_unavailable``.
     ``mesh`` and ``cfg`` (the model config: the state's whole shapes) run
-    the loop on every rank of a mesh; the fleet's re-plan is one device's.
+    the loop on every rank of a mesh; the fleet's re-plan is one device's
+    (there, at any pp: a re-plan that halves the pipeline keeps the flat
+    block list, ``checkpoint.elastic.replan_state``).
     Returns {state, history, resumed_from, stragglers, events, skipped_steps,
     rollbacks, replans, plan, data_offset}.
     """
     if mesh is not None and fleet is not None:
         raise NotImplementedError(
             "the fleet's re-plan onto a smaller mesh is not ported yet (ROADMAP Queue 1, "
-            "item 3: the parallel recipe over torch.distributed)")
+            "item 3: the parallel recipe over torch.distributed; its item 3.4, the fleet)")
     writes = mesh is None or mesh.rank == 0
 
     def meet():

@@ -103,6 +103,7 @@ class InferenceSession:
         cfg = resolve_config(arch, reduced=reduced)
         plan = plan if plan is not None else ParallelismConfig()
         stepfn.check_plan(plan, mesh, cfg)
+        stepfn.no_pipeline_mesh("serving", mesh)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         with torch.inference_mode():
@@ -122,6 +123,7 @@ class InferenceSession:
         device = resolve_device(device)
         plan = plan if plan is not None else ParallelismConfig()
         stepfn.check_plan(plan, mesh, cfg)
+        stepfn.no_pipeline_mesh("serving", mesh)
         params = tree_map(lambda x: torch.as_tensor(x).to(device), params)
         if mesh is not None:
             params = sharding.shard_params(params, mesh, _serving(plan))

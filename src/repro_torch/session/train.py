@@ -22,10 +22,13 @@ With ``plan=`` and ``mesh=`` (a ``launch.mesh.RecipeMesh``; every rank
 builds the same session) the train state holds this rank's shards (tp's
 slices, ZeRO's shards over the ``(pod, data)`` plane) and the step runs
 over the mesh, every rank taking the same global batch and keeping its
-replica's rows; ``to_inference`` gathers the weights back to the reference
-layout, and ``run(ckpt_dir=...)`` writes and restores the whole canonical
-state (``checkpoint.elastic``).  The fleet's re-plan runs on one device
-only.  The abstract (dry-run) mode has no PyTorch counterpart.
+replica's rows; at pp > 1 a rank holds its stage's layers and runs its
+stage of the pipeline (``core.pipeline``).  ``to_inference`` gathers the
+weights back to the reference layout (over the ``pp`` line too), and
+``run(ckpt_dir=...)`` writes and restores the whole canonical state
+(``checkpoint.elastic``).  Without a mesh pp > 1 runs every stage in this
+process.  The fleet's re-plan runs on one device only.  The abstract
+(dry-run) mode has no PyTorch counterpart.
 """
 
 from __future__ import annotations
@@ -197,8 +200,9 @@ class TrainSession:
     def to_inference(self, *, plan: Optional[ParallelismConfig] = None,
                      mesh=None) -> InferenceSession:
         """Serve the trained weights: a copy in the reference layout (gathered
-        over tp and the data axis on a mesh) cast to the compute dtype, served
-        on ``mesh`` under ``plan`` (one device by default)."""
+        over tp, the data axis and the ``pp`` line on a mesh) cast to the
+        compute dtype, served on ``mesh`` under ``plan`` (one device by
+        default)."""
         params = self.state["params"]
         if self.mesh is not None:
             params = sharding.gather_params(params, self.mesh, self.plan, self.cfg.vocab_size,

@@ -522,8 +522,12 @@ def test_refusal_messages_name_their_roadmap_items():
         registry.family_of(dataclasses.replace(cfg, family="moe"))
     with pytest.raises(NotImplementedError, match=families):
         transformer.layer_plan(dataclasses.replace(cfg, family="ssm"))
+    from types import SimpleNamespace
+    from repro_torch.runtime.fleet import FleetController
+    from repro_torch.runtime.train_loop import LoopConfig, run_training
     with pytest.raises(NotImplementedError, match=parallel):
-        elastic.canonicalize_state({}, ParallelismConfig(pp=2))
+        run_training({}, None, None, LoopConfig(total_steps=1), mesh=object(),
+                     fleet=FleetController(2))
     with pytest.raises(NotImplementedError, match=parallel):
-        stepfn.check_plan(ParallelismConfig(pp=2))
+        stepfn.no_pipeline_mesh("the serve step", SimpleNamespace(shape={"pp": 2}))
     assert parallel in " ".join(elastic.__doc__.split())

@@ -79,6 +79,7 @@ REFUSALS = ("pp", "dp", "pods", "consensus_replicas", "tp_axis", "fleet", "heads
 REFUSALS_4 = ("dp_short", "consensus_replicas_3", "rows")
 # what a ValueError names: the mesh's axes against the plan's
 VALUE_ERRORS = {"heads": ("tp=2", "n_kv_heads=3"),
+                "pp": ("plan pp=2", "pp axis is 1 ranks wide"),
                 "dp": ("plan dp=2", "data axis is 1 ranks wide"),
                 "pods": ("plan pods=2", "pod axis is 1 ranks wide"),
                 "consensus_replicas": ("consensus_replicas=2", "dp*pods=1"),
@@ -621,7 +622,8 @@ def test_recipe_mesh_in_a_world_of_four(worlds):
 
 def test_without_a_mesh_tp_computes_as_one_device():
     """tp = 2 without a mesh: the same bits as tp = 1 (the reference
-    computes it on one device too); pp still waits for the pipeline."""
+    computes it on one device too); a pipeline whose stages do not divide
+    the layers is refused."""
     dc = DataConfig(seq_len=SEQ, global_batch=BATCH)
     from repro_torch.session import TrainSession
     a = TrainSession.from_recipe("gpt_36b", reduced=True, device="cpu", data_cfg=dc)
@@ -631,5 +633,5 @@ def test_without_a_mesh_tp_computes_as_one_device():
     assert all(torch.equal(ma[k], mb[k]) for k in ma)
     assert all(torch.equal(x, y) for (_, x), (_, y) in zip(tree_leaves(a.state["params"]),
                                                          tree_leaves(b.state["params"])))
-    with pytest.raises(NotImplementedError, match=PARALLEL):
-        stepfn.check_plan(ParallelismConfig(pp=2))
+    with pytest.raises(ValueError, match="does not divide n_layers=2"):
+        stepfn.check_plan(ParallelismConfig(pp=3), cfg=get_config("gpt_36b").reduced())

@@ -13,6 +13,7 @@ all-NaN step), the data pipeline, and the hand-off to serving.  Tolerances:
 loss 1e-5 relative, gradients 5e-4, params after three steps 1e-5.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -134,20 +135,21 @@ def _check_loss_and_grads(arch, path, packed, remat):
 
 
 def test_unported_remat_policies_and_plans_raise():
-    """pp (so remat "stage" inside a pipeline) still raises; an unknown
-    remat policy raises; tp, dp (and pods) and the simulated-replica
-    consensus are accepted without a mesh, as the reference accepts them:
-    tp = 2 without a mesh trains exactly as tp = 1."""
+    """A pipeline the layers or the interleaved schedule do not admit
+    raises, as the reference's ``validate`` does; an unknown remat policy
+    raises; tp, dp (and pods) and the simulated-replica consensus are
+    accepted without a mesh, as the reference accepts them: tp = 2 without
+    a mesh trains exactly as tp = 1."""
     cfg = get_config("granite_3_2b").reduced()
     sess = TrainSession(cfg, device="cpu", data_cfg=_data()[1])
     with pytest.raises(ValueError, match="remat_policy"):
         ttf.lm_loss(cfg, sess.state["params"], sess._to_device(sess.batches(0)),
                     remat_policy="offload")
-    with pytest.raises(NotImplementedError, match="the pipeline is not ported yet"):
-        TrainSession(cfg, plan=ParallelismConfig(pp=2, gas=2, remat_policy="stage"),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="the pipeline is not ported yet"):
-        TrainSession(cfg, plan=ParallelismConfig(pp=2), device="cpu")
+    with pytest.raises(ValueError, match="gas % pp == 0"):
+        TrainSession(dataclasses.replace(cfg, n_layers=4), device="cpu",
+                     plan=ParallelismConfig(pp=2, gas=3, vpp=2, remat_policy="stage"))
+    with pytest.raises(ValueError, match="does not divide n_layers=2"):
+        TrainSession(cfg, plan=ParallelismConfig(pp=4), device="cpu")
     tp2 = TrainSession(cfg, plan=ParallelismConfig(tp=2), device="cpu", data_cfg=_data()[1])
     m1, m2 = sess.step(), tp2.step()
     assert all(torch.equal(m1[k], m2[k]) for k in m1)
