@@ -192,7 +192,23 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    on every rank; pp 2 x dp 2 as four ranks at ZeRO-1 (the f32 identity and
    a bf16 step, counted).  No checkpoint on the card (the run's disk writes
    are spent): the pipeline's checkpoint and re-plan are held on the CPU;
-23. prints each phase's seconds, a ``{"planning": {...}}`` line, a
+23. (run after 22) the MoE family at published width, bf16:
+   olmoe-1b-7b at full depth (16 layers): ``generate`` of 4 x 128
+   prompts, 32 new tokens (K5 once a layer a position: the prompt goes in
+   through the decode scan, no K1), ``prefill(last_only=False)`` (K1 once
+   a layer) with the kernels, their plain versions and the plain versions
+   on an f32 copy (phase 5's rule), the routing choices that differ
+   between those paths counted, a stream of 8 requests on 4 slots (K5 a
+   layer a decode step and a layer a prompt token at admission); 3 training
+   steps at 4 of its 16 layers, 4 x 1024, remat full (phase 9's checks,
+   the load-balance loss finite and > 0, peak memory beside
+   ``per_device_bytes``) and ``EvalSession.perplexity``; the f32 identities
+   of 6 and 10 at 2 layers; then deepseek-moe-16b at full depth (28
+   layers): the block-by-block build, ``generate`` of 4 x 64 prompts, 16
+   new tokens, and ``prefill``, launches exact, peak memory of the build
+   and of the run beside 80 GB; ms a decode step and a training step; two
+   bf16 runs of 2 olmoe steps (2 layers) equal in bits;
+24. prints each phase's seconds, a ``{"planning": {...}}`` line, a
    ``{"tp": {...}}`` line, a ``{"dp": {...}}`` line, a ``{"pp": {...}}``
    line, a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
    {...}}``.
@@ -260,6 +276,13 @@ H2O_STREAM = dict(arch="h2o_danube_3_4b", prompt_lens=(4100, 4300, 4166, 4233),
 # 4608 tokens in 2 micro-batches: the window binds in K1-K4 at D 120
 TRAIN_H2O = dict(arch="h2o_danube_3_4b", n_layers=4, seq_len=4608, global_batch=2, gas=2,
                  steps=3)
+# phase 23: the MoE family.  olmoe served at full depth, its stream's 8
+# prompt lengths distinct (each admission its own decode scan), trained at
+# 4 of 16 layers (~1.78 B parameters); deepseek served at full depth
+MOE = dict(arch="olmoe_1b_7b", batch=4, prompt_len=128, new_tokens=32, slots=4,
+           stream_lens=(19, 32, 11, 45, 25, 38, 6, 51), stream_gens=(24, 8, 16, 8, 32, 8, 12, 16))
+TRAIN_OLMOE = dict(arch="olmoe_1b_7b", n_layers=4, seq_len=1024, global_batch=4, gas=1, steps=3)
+MOE_BIG = dict(arch="deepseek_moe_16b", batch=4, prompt_len=64, new_tokens=16)
 # the GEMM sweep of the planning phase: bf16 (M x K) @ (K x N), granite's
 # MLP up-projection, M from 16 to 16384 in powers of two
 GEMM = dict(k=2048, n=8192, ms=tuple(2**i for i in range(4, 15)))
@@ -1031,14 +1054,7 @@ def phase_slice(torch, np, build, fa, da, InferenceSession, tree_map):
         f"({dec_s / (N - 1) * 1e3:.2f} ms/step at batch {B}); "
         f"max_memory_allocated {peak} B")
     for name, prof, wall in (("prefill", prof_pre, pre_s), ("decode", prof_dec, dec_s)):
-        if prof["device_ms"] == 0:
-            log(f"[profile] {name}: device time not measured (no device events)")
-            continue
-        log(f"[profile] {name}: device busy {prof['device_ms']:.2f} ms of {wall * 1e3:.2f} ms "
-            f"unprofiled wall ({prof['device_ms'] / (wall * 1e3):.1%}); profiled wall "
-            f"{prof['wall_ms']:.2f} ms")
-        for ms, count, key in prof["top"]:
-            log(f"[profile] {name}:   {ms:8.3f} ms  {count:5d}x  {key}")
+        _log_profile(name, prof, wall * 1e3)
     del sess, caches, logits, logits_k, logits_p, logits_f
     torch.cuda.empty_cache()
     return counts
@@ -1383,6 +1399,276 @@ def phase_dense_stream(torch, np, build, InferenceSession, smi):
     return launches
 
 
+@contextlib.contextmanager
+def routing(replay=None):
+    """Inside this block every MoE routing appends its expert ids (T, k) to
+    the list it yields.  Given ``replay`` (such a list from another run of
+    the same calls), the i-th routing takes ``replay[i]``'s experts in place
+    of its own top-k, its gate weights renormalized from its own router
+    probabilities as ``moe.route`` does: two runs then send every token to
+    the same experts and differ by their arithmetic alone."""
+    import torch
+    from repro_torch.models import moe
+    seen, real = [], moe.route
+
+    def route(cfg, router, xf):
+        probs, idx, gate_w = real(cfg, router, xf)
+        if replay is not None:
+            idx = replay[len(seen)]
+            gate_w = torch.gather(probs, 1, idx)
+            gate_w = gate_w / torch.clamp_min(gate_w.sum(-1, keepdim=True), 1e-9)
+        seen.append(idx)
+        return probs, idx, gate_w
+
+    moe.route = route
+    try:
+        yield seen
+    finally:
+        moe.route = real
+
+
+def route_flips(routes) -> str:
+    """How many (token, slot) expert choices differ between the kernel path
+    and the plain path, and between the plain path in bf16 and in f32 (a
+    flip near a tie sends a token to another expert)."""
+    out = []
+    for a, b in (("kernel", "plain"), ("plain", "plain f32")):
+        n = sum(x.numel() for x in routes[a])
+        d = sum(int((x.sort(-1).values != y.sort(-1).values).sum())
+                for x, y in zip(routes[a], routes[b]))
+        out.append(f"{a} vs {b}: {d} of {n} choices differ ({d / max(n, 1):.3g})")
+    return "; ".join(out)
+
+
+def phase_moe(torch, np, build, get_config, InferenceSession, tree_map, smi):
+    """Phase 23's serving part (the training part is ``phase_train`` with
+    ``TRAIN_OLMOE``): olmoe at full depth, then deepseek at full depth.
+    Returns the counted runs' launches."""
+    runs = []
+    spec = MOE
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sess = InferenceSession.from_recipe(spec["arch"], seed=0)
+    torch.cuda.synchronize()
+    cfg = sess.cfg
+    L, B, P, N, V = cfg.n_layers, spec["batch"], spec["prompt_len"], spec["new_tokens"], \
+        cfg.vocab_size
+    build_peak = torch.cuda.max_memory_allocated()
+    log(f"[moe] {_describe(cfg, L)}; {cfg.n_experts} experts of {cfg.moe_d_ff} (top "
+        f"{cfg.top_k}, {cfg.n_shared_experts} shared, {cfg.first_k_dense} dense first), "
+        f"{cfg.dtype}; build {time.perf_counter() - t0:.1f} s, peak {build_peak} B "
+        f"({build_peak / 1e9:.2f} GB) for {2 * cfg.n_params() / 1e9:.2f} GB of bf16 weights")
+    prompts = np.random.RandomState(0).randint(0, V, size=(B, P)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    toks = sess.generate(prompts, N)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = dict(build.launch_counts)
+    want = {"decode_attention": L * (P + N - 1)}
+    out = toks.cpu().numpy()
+    log(f"[moe] {cfg.name} generate {tuple(toks.shape)} in {gen_s:.2f} s (first call, the "
+        f"prompt through the decode scan); launches {counts}, expected {want}; peak "
+        f"{torch.cuda.max_memory_allocated()} B")
+    require(counts == want, f"{cfg.name} generate launched {counts}, expected {want}")
+    require(out.shape == (B, P + N) and bool((out[:, :P] == prompts).all())
+            and bool(((out >= 0) & (out < V)).all()),
+            f"{cfg.name} generate returned {out.shape} tokens, altered or out of range")
+    runs.append(counts)
+    dec_ms, prof = _decode_ms(torch, sess, prompts, N)
+    log(f"[moe] {cfg.name} decode: {dec_ms:.3f} ms a step at batch {B} (host clock, mean of "
+        f"{N - 1} steps after the decode-scan prefill); {smi}")
+    _log_profile("moe decode", prof, dec_ms * (N - 1))
+
+    # the counted prefill routes as a user's does; the held ones (kernels,
+    # plain f32) replay the plain bf16 run's experts, so a routing flip near
+    # a tie moves neither the difference nor the floor
+    batch = {"tokens": prompts}
+    routes = {}
+    build.launch_counts.clear()
+    with routing() as routes["kernel"]:
+        lk = sess.prefill(batch, last_only=False)
+    torch.cuda.synchronize()
+    pre = dict(build.launch_counts)
+    require(pre == {"flash_fwd": L}, f"{cfg.name} prefill launched {pre}, expected K1 {L}")
+    require(tuple(lk.shape) == (B, P, V) and bool(lk.isfinite().all()),
+            f"{cfg.name} prefill gave {tuple(lk.shape)}, or non-finite logits")
+    runs.append(pre)
+    with plain_versions(), routing() as routes["plain"]:
+        lp = sess.prefill(batch, last_only=False)
+    with routing(replay=routes["plain"]):
+        lk = sess.prefill(batch, last_only=False)
+    with plain_versions():
+        sess32 = InferenceSession(dataclasses.replace(cfg, dtype="float32"),
+                                  tree_map(lambda x: x.float(), sess.params), device=sess.device)
+        with routing() as routes["plain f32"]:
+            sess32.prefill(batch, last_only=False)
+        with routing(replay=routes["plain"]):
+            lf = sess32.prefill(batch, last_only=False)
+        del sess32
+    torch.cuda.empty_cache()
+    log(f"[moe] {cfg.name} prefill routing, each run its own: {route_flips(routes)}")
+    hold_to_floor("moe", f"{cfg.name} prefill logits (B, S, V) = {tuple(lk.shape)}, every run "
+                  f"routed as the plain bf16 run", lk, lp, lf)
+    del lk, lp, lf, routes
+    torch.cuda.empty_cache()
+
+    rs = np.random.RandomState(3)
+    lens, gens = spec["stream_lens"], list(spec["stream_gens"])
+    stream = [rs.randint(1, V, size=n).astype(np.int32) for n in lens]
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    outs, st = sess.serve(stream, gens, n_slots=spec["slots"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = dict(build.launch_counts)
+    want = {"decode_attention": L * (st.decode_steps + sum(lens))}
+    log(f"[moe] {cfg.name} stream: {st.requests} requests on {spec['slots']} slots, "
+        f"{st.generated_tokens} tokens, {st.decode_steps} decode steps, {st.prefill_tokens} "
+        f"prompt tokens through the decode scan, in {wall:.2f} s (host clock); launches {c}, "
+        f"expected {want}")
+    require(c == want, f"{cfg.name} stream launched {c}, expected {want}")
+    require(st.requests == len(stream) and st.generated_tokens == sum(gens)
+            and st.prefill_tokens == sum(lens), f"{cfg.name} stream served {st}")
+    for pr, m, o in zip(stream, gens, outs):
+        require(len(o) == len(pr) + m and bool((o[:len(pr)] == pr).all()),
+                f"{cfg.name} stream: a request came back with {len(o)} tokens")
+    runs.append(c)
+    del sess, toks
+    torch.cuda.empty_cache()
+
+    # deepseek-moe-16b: 32.8 GB of bf16 weights, built a block at a time
+    spec = MOE_BIG
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sess = InferenceSession.from_recipe(spec["arch"], seed=0)
+    torch.cuda.synchronize()
+    cfg = sess.cfg
+    L, B, P, N, V = cfg.n_layers, spec["batch"], spec["prompt_len"], spec["new_tokens"], \
+        cfg.vocab_size
+    build_peak = torch.cuda.max_memory_allocated()
+    log(f"[moe] {_describe(cfg, L)}; {cfg.n_experts} experts of {cfg.moe_d_ff} (top "
+        f"{cfg.top_k}, {cfg.n_shared_experts} shared, {cfg.first_k_dense} dense first of d_ff "
+        f"{cfg.d_ff}); build {time.perf_counter() - t0:.1f} s, peak {build_peak} B "
+        f"({build_peak / 1e9:.2f} GB; the card has 80 GB) for {2 * cfg.n_params() / 1e9:.2f} "
+        f"GB of bf16 weights")
+    require(build_peak < 80e9, f"{cfg.name} build peak {build_peak} B")
+    prompts = np.random.RandomState(0).randint(0, V, size=(B, P)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    build.launch_counts.clear()
+    toks = sess.generate(prompts, N)
+    torch.cuda.synchronize()
+    counts = dict(build.launch_counts)
+    want = {"decode_attention": L * (P + N - 1)}
+    require(counts == want, f"{cfg.name} generate launched {counts}, expected {want}")
+    out = toks.cpu().numpy()
+    require(out.shape == (B, P + N) and bool((out[:, :P] == prompts).all())
+            and bool(((out >= 0) & (out < V)).all()),
+            f"{cfg.name} generate returned {out.shape} tokens, altered or out of range")
+    runs.append(counts)
+    build.launch_counts.clear()
+    lk = sess.prefill({"tokens": prompts}, last_only=False)
+    torch.cuda.synchronize()
+    pre = dict(build.launch_counts)
+    require(pre == {"flash_fwd": L}, f"{cfg.name} prefill launched {pre}, expected K1 {L}")
+    require(tuple(lk.shape) == (B, P, V) and bool(lk.isfinite().all()),
+            f"{cfg.name} prefill gave {tuple(lk.shape)}, or non-finite logits")
+    runs.append(pre)
+    first = float((toks[:, P] == lk[:, -1].argmax(-1).to(torch.int32)).float().mean())
+    run_peak = torch.cuda.max_memory_allocated()
+    dec_ms, _ = _decode_ms(torch, sess, prompts, N, profile=False)
+    log(f"[moe] {cfg.name}: generate launches {counts}, prefill launches {pre} (expected K5 "
+        f"{L * (P + N - 1)}, K1 {L}); first generated token = the prefill's argmax in "
+        f"{first:.2f} of rows (reported: the decode scan and the parallel prefill route and "
+        f"round differently); run peak {run_peak} B ({run_peak / 1e9:.2f} GB of the card's 80 "
+        f"GB); decode {dec_ms:.3f} ms a step at batch {B} (host clock); {smi}")
+    require(run_peak < 80e9, f"{cfg.name} run peak {run_peak} B")
+    del sess, toks, lk
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_moe_repeat(torch, get_config, TrainSession, stepfn, ParallelismConfig, DataConfig):
+    """olmoe at full width, 2 layers, bf16: two runs of 2 steps from one
+    seed give the same losses and parameters bit for bit (no atomics in the
+    MoE layer, forward or backward: a resume must not change training)."""
+    from repro_torch.core.tree import tree_leaves
+    cfg = dataclasses.replace(get_config(MOE["arch"]), n_layers=2)
+
+    def run():
+        sess = TrainSession.from_recipe(
+            cfg, seed=1, plan=ParallelismConfig(remat_policy="full"),
+            train_cfg=stepfn.TrainConfig(total_steps=2, warmup=1),
+            data_cfg=DataConfig(seq_len=256, global_batch=4))
+        losses = [float(sess.step()["loss"]) for _ in range(2)]
+        return losses, [x.detach().clone() for _, x in tree_leaves(sess.state["params"])]
+
+    (la, pa), (lb, pb) = run(), run()
+    same = la == lb and all(torch.equal(a, b) for a, b in zip(pa, pb))
+    log(f"[moe] {cfg.name} at full width, 2 layers, bf16, two runs of 2 steps: losses {la} and "
+        f"{lb}; every parameter equal in bits: {same}")
+    require(same, "two MoE training runs from one seed differ")
+    del pa, pb
+    torch.cuda.empty_cache()
+
+
+def _moe_memory(get_config, measured):
+    """Phase 23's training peak beside ``core.memory.per_device_bytes``."""
+    from repro_torch.core.memory import per_device_bytes
+    cfg, _ = _dense_cfg(get_config, TRAIN_OLMOE)
+    spec = TRAIN_OLMOE
+    est = per_device_bytes(cfg, dp=1, tp=1, pp=1, mbs=spec["global_batch"] // spec["gas"],
+                           gas=spec["gas"], seq=spec["seq_len"], remat="full")
+    log(f"[olmoe train] peak {measured['peak_bytes']} B ({measured['peak_bytes'] / 1e9:.2f} GB) "
+        f"beside per_device_bytes {est['total']:.4g} B (params {est['params']:.4g}, grads "
+        f"{est['grads']:.4g}, optimizer {est['optimizer']:.4g}, activations "
+        f"{est['activations']:.4g}, logits {est['logits']:.4g}; ratio "
+        f"{measured['peak_bytes'] / est['total']:.3f}) and the card's 80 GB; profiled step "
+        f"{measured['device_ms']:.2f} ms of device time")
+
+
+def _decode_ms(torch, sess, prompts, N, profile=True):
+    """(ms a decode step, host clock, mean over N - 1 steps after the
+    prefill; the profile of those steps, or None)."""
+    B, P = prompts.shape
+    pt = torch.from_numpy(prompts).cuda()
+    with torch.inference_mode():
+        caches = sess.init_cache(B, P + N)
+        logits, caches = sess.prefill_cache_step(sess.params, {"tokens": pt}, caches)
+        tok0 = logits.argmax(-1).to(torch.int32)
+
+        def decode():
+            tok = tok0
+            for t in range(P, P + N - 1):
+                tok, _ = sess.serve_step(sess.params, tok, t, caches)
+
+        decode()                                # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / (N - 1) * 1e3
+        prof = profile_window(torch, decode, top=12) if profile else None
+    return ms, prof
+
+
+def _log_profile(name, prof, wall_ms):
+    """A profiled window's device time beside the unprofiled wall time, and
+    its kernels that took most of it."""
+    if prof is None:
+        return
+    if prof["device_ms"] == 0:
+        log(f"[profile] {name}: device time not measured (no device events)")
+        return
+    log(f"[profile] {name}: device busy {prof['device_ms']:.2f} ms of {wall_ms:.2f} ms "
+        f"unprofiled wall ({prof['device_ms'] / wall_ms:.1%}); profiled wall "
+        f"{prof['wall_ms']:.2f} ms")
+    for ms, count, key in prof["top"]:
+        log(f"[profile] {name}:   {ms:8.3f} ms  {count:5d}x  {key}")
+
+
 def hold_to_floor(tag: str, what: str, kern, plain, plain_f32) -> float:
     """Phase 5's rule for bf16 outputs of a deep random model: max |kernel -
     plain| at most ``LOGIT_FLOOR_FACTOR`` times bf16's own error, max |plain
@@ -1462,10 +1748,14 @@ def phase_train(torch, build, get_config, TrainSession, stepfn, ParallelismConfi
         counts = dict(build.launch_counts)
         launches = counts if launches is None else launches
         loss, skipped = float(metrics["loss"]), float(metrics["skipped"])
+        aux = float(metrics["aux"])
         losses.append(loss)
-        log(f"[{tag}] step {i}: loss {loss:.6f}, grad_norm {float(metrics['grad_norm']):.4f}, "
-            f"lr {float(metrics['lr']):.3g}, skipped {skipped:.0f}, {walls[-1] * 1e3:.1f} ms"
-            f"{' (profiled)' if last else ''}; launches {counts}")
+        log(f"[{tag}] step {i}: loss {loss:.6f}, aux {aux:.6f}, grad_norm "
+            f"{float(metrics['grad_norm']):.4f}, lr {float(metrics['lr']):.3g}, skipped "
+            f"{skipped:.0f}, {walls[-1] * 1e3:.1f} ms{' (profiled)' if last else ''}; launches "
+            f"{counts}")
+        if cfg.family == "moe":
+            require(math.isfinite(aux) and aux > 0, f"step {i}: load-balance loss {aux}")
         require(all(counts.get(k, 0) == n for k, n in want.items()),
                 f"step {i}: launches {counts}, expected {want} per step")
         require(math.isfinite(loss) and skipped == 0.0, f"step {i}: loss {loss}, skipped {skipped}")
@@ -1502,15 +1792,26 @@ def phase_train(torch, build, get_config, TrainSession, stepfn, ParallelismConfi
     batch = sess._to_device(host_batch)
     mask = batch["loss_mask"].float()
 
-    def token_nll(c, plain):
+    routes = {}
+
+    def token_nll(c, plain, key, replay=None):
         ctx = plain_versions() if plain else contextlib.nullcontext()
-        with torch.no_grad(), ctx:
+        with torch.no_grad(), ctx, routing(replay) as seen:
             logits = transformer.lm_forward(c, sess.state["params"], batch, remat_policy="none")
+            routes[key] = seen
             return torch.logsumexp(logits, -1) - layers.gold_logit(logits, batch["labels"])
 
+    f32 = dataclasses.replace(cfg, dtype="float32")
     xent_eval = float(sess.evaluate(host_batch)["xent"])
-    nll_k, nll_p = token_nll(cfg, False), token_nll(cfg, True)
-    nll_f = token_nll(dataclasses.replace(cfg, dtype="float32"), True)
+    nll_k, nll_p = token_nll(cfg, False, "kernel"), token_nll(cfg, True, "plain")
+    nll_f = token_nll(f32, True, "plain f32")
+    xent_k = float((nll_k * mask).sum() / mask.sum())
+    if cfg.family == "moe":
+        # as phase 23's prefill: the held runs replay the plain bf16 run's experts
+        log(f"[{tag}] per-token losses' routing, each run its own: {route_flips(routes)}")
+        nll_k = token_nll(cfg, False, "kernel, replayed", replay=routes["plain"])
+        nll_f = token_nll(f32, True, "plain f32, replayed", replay=routes["plain"])
+        log(f"[{tag}] the per-token losses held below: every run routed as the plain bf16 run")
     xent = {n: float((x * mask).sum() / mask.sum())
             for n, x in (("kernel", nll_k), ("plain", nll_p), ("plain f32", nll_f))}
     diff = float((nll_k - nll_p).abs().max())
@@ -1521,8 +1822,8 @@ def phase_train(torch, build, get_config, TrainSession, stepfn, ParallelismConfi
         f"{diff:.4g}, bf16 noise floor max |plain - plain f32| {floor:.4g} (tol: kernel - "
         f"plain <= {LOGIT_FLOOR_FACTOR} x floor); std of the differences "
         f"{float((nll_k - nll_p).std()):.3g} and {float((nll_p - nll_f).std()):.3g}")
-    require(math.isfinite(xent_eval) and abs(xent_eval - xent["kernel"]) <= 1e-5 * xent_eval,
-            f"evaluate() gave {xent_eval}, its per-token losses {xent['kernel']}")
+    require(math.isfinite(xent_eval) and abs(xent_eval - xent_k) <= 1e-5 * xent_eval,
+            f"evaluate() gave {xent_eval}, its per-token losses {xent_k}")
     require(diff <= LOGIT_FLOOR_FACTOR * floor,
             f"per-token losses differ from the plain path by {diff:.4g}, more than "
             f"{LOGIT_FLOOR_FACTOR} x bf16's own error {floor:.4g}")
@@ -1535,7 +1836,7 @@ def phase_train(torch, build, get_config, TrainSession, stepfn, ParallelismConfi
     return launches, dict(device_ms=prof["device_ms"], peak_bytes=peak)
 
 
-def phase_eval(torch, build, EvalSession, sess, floor):
+def phase_eval(torch, build, EvalSession, sess, floor, spec=TRAIN):
     """On phase 9's session: ``EvalSession.from_train_session`` (the
     training weights in place, no copy), ``perplexity`` over 2 batches (the
     first with the pipeline's ``loss_mask``, the second without it: every
@@ -1548,8 +1849,8 @@ def phase_eval(torch, build, EvalSession, sess, floor):
     shared = all(a.data_ptr() == b.data_ptr() for (_, a), (_, b) in
                  zip(tree_leaves(ev.params), tree_leaves(sess.state["params"])))
     require(shared, "EvalSession.from_train_session copied the training weights")
-    masked = dict(sess.batches(TRAIN["steps"] + 1))
-    whole = {k: v for k, v in sess.batches(TRAIN["steps"] + 2).items() if k != "loss_mask"}
+    masked = dict(sess.batches(spec["steps"] + 1))
+    whole = {k: v for k, v in sess.batches(spec["steps"] + 2).items() if k != "loss_mask"}
     require("loss_mask" in masked, "the pipeline's batch has no loss_mask")
     L = sess.cfg.n_layers
     build.launch_counts.clear()
@@ -1561,7 +1862,7 @@ def phase_eval(torch, build, EvalSession, sess, floor):
     diff = abs(rep_k["xent"] - rep_p["xent"])
     n_want = float(masked["loss_mask"].sum()) + float(whole["tokens"].size)
     log(f"[eval] EvalSession.from_train_session on {sess.cfg.name} (weights shared: {shared}): "
-        f"perplexity over 2 batches of {TRAIN['global_batch']} x {TRAIN['seq_len']} (one with "
+        f"perplexity over 2 batches of {spec['global_batch']} x {spec['seq_len']} (one with "
         f"its loss_mask; {rep_k['n_tokens']:.0f} tokens): kernels xent {rep_k['xent']:.6f} "
         f"(perplexity {rep_k['perplexity']:.2f}), plain {rep_p['xent']:.6f} (perplexity "
         f"{rep_p['perplexity']:.2f}); |diff| {diff:.3g} (tol {LOGIT_FLOOR_FACTOR} x phase 9's "
@@ -3864,6 +4165,21 @@ def main() -> int:
     dp_summary, dp_launches = timed("21 data parallel", phase_dp, torch, get_config, store,
                                     smi)
     pp_summary, pp_launches = timed("22 pipeline parallel", phase_pp, torch, get_config, smi)
+    moe_launches = timed("23 moe serve", phase_moe, torch, np, build, get_config,
+                         InferenceSession, tree_map, smi)
+    moe_eval = {}
+    moe_train, moe_measured = timed(
+        "23 moe train + eval", phase_train, torch, build, get_config, TrainSession, stepfn,
+        ParallelismConfig, DataConfig, smi, spec=TRAIN_OLMOE, tag="olmoe train",
+        after=lambda sess, floor: moe_eval.update(
+            phase_eval(torch, build, EvalSession, sess, floor, TRAIN_OLMOE)))
+    _moe_memory(get_config, moe_measured)
+    timed("23 moe f32 generate", phase_f32_identity, torch, np, fa, da, get_config,
+          InferenceSession, MOE["arch"], 2)
+    timed("23 moe f32 train", phase_train_f32_identity, torch, fa, da, get_config,
+          TrainSession, stepfn, ParallelismConfig, DataConfig, MOE["arch"], 2)
+    timed("23 moe repeat", phase_moe_repeat, torch, get_config, TrainSession, stepfn,
+          ParallelismConfig, DataConfig)
     timing = timed("14 timing", phase_timing, torch, fa, da, rn, smi)
     log(f"[phase] all phases {sum(seconds.values()):.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
@@ -3893,7 +4209,7 @@ def main() -> int:
     runs = [serve_launches, train_launches, *stream_launches.values(), *cli_launches,
             eval_launches, *(c for pair in dense_launches.values() for c in pair),
             *h2o_stream_launches.values(), h2o_train_launches, *tp_launches, *dp_launches,
-            *pp_launches]
+            *pp_launches, *moe_launches, moe_train, moe_eval]
     log(f"[launches] generate {serve_launches}; train step {train_launches}; stream "
         f"{stream_launches}; training CLI (crashed, resumed) {cli_launches}; eval sweep "
         f"{eval_launches}; dense arm (prefill, generate) {dense_launches}; h2o stream "
@@ -3901,7 +4217,8 @@ def main() -> int:
         f"(granite and gpt-3.6b generate, gpt-3.6b prefill, three train steps) {tp_launches}"
         f"; dp = 2 rank 0 (a step at each of seven ZeRO settings) {dp_launches}; pp = 2 "
         f"rank 0 (stage 0: a step of vpp 1, vpp 2, remat stage, gas 8, and pp 2 x dp 2) "
-        f"{pp_launches}")
+        f"{pp_launches}; MoE (olmoe generate, prefill, stream; deepseek generate, prefill) "
+        f"{moe_launches}; olmoe train step {moe_train}; olmoe eval sweep {moe_eval}")
     for kr in kernels:
         r = timing[kr["name"]]
         n = sum(c.get(kr["name"], 0) for c in runs)

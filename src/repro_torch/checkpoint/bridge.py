@@ -3,7 +3,8 @@ port's, and the port's train states back into the reference's layout.
 
 The reference names each leaf by its ``/``-joined pytree path
 (``repro/checkpoint/store.py:_flatten``): ``embed``, ``blocks/attn/wq``,
-``blocks/mlp/w_gate``, ``final_norm/scale``, ... and, in a train state,
+``blocks/mlp/w_gate``, ``blocks/moe/router``, ``pre_blocks/0/mlp/w_up``
+(a MoE config's unstacked dense layers), ``final_norm/scale``, ... and, in a train state,
 ``params/...``, ``opt/m/...``, ``opt/v/...``, ``opt/step``, ``step``,
 ``rstat/...`` and ``ef/...``.  Its stacked ``blocks`` leaves are (L, ...)
 wherever they stand, and become the port's list of L per-layer dicts.  A
@@ -54,7 +55,8 @@ def _to_tensor(arr: np.ndarray, dtype: str = "") -> torch.Tensor:
 def _insert(tree: Dict[str, Any], parts, t: torch.Tensor, key: str, device) -> None:
     """Set a copy of leaf ``t`` on ``device`` at ``parts``; below a
     ``blocks`` node the stacked leaf is split along its first axis into the
-    per-layer dicts."""
+    per-layer dicts, and a numbered node (``pre_blocks/<i>``, a list the
+    reference keeps unstacked) is entry i of a list."""
     for i, p in enumerate(parts[:-1]):
         if p == BLOCKS:
             blocks = tree.setdefault(BLOCKS, [{} for _ in range(t.shape[0])])
@@ -62,6 +64,12 @@ def _insert(tree: Dict[str, Any], parts, t: torch.Tensor, key: str, device) -> N
                 raise ValueError(f"{key}: {t.shape[0]} layers, expected {len(blocks)}")
             for layer, sub in zip(blocks, t.unbind(0)):
                 _insert(layer, parts[i + 1:], sub, key, device)
+            return
+        if parts[i + 1].isdigit():
+            entries = tree.setdefault(p, [])
+            j = int(parts[i + 1])
+            entries.extend({} for _ in range(j + 1 - len(entries)))
+            _insert(entries[j], parts[i + 2:], t, key, device)
             return
         tree = tree.setdefault(p, {})
     tree[parts[-1]] = t.to(device, copy=True)
@@ -124,13 +132,18 @@ def load_reference_checkpoint(directory: Union[str, Path]) -> Dict[str, torch.Te
 def state_leaves(state: Mapping[str, Any], prefix: Tuple[str, ...] = ()
                  ) -> List[Tuple[str, Union[torch.Tensor, List[torch.Tensor]]]]:
     """[(reference path, leaf)] of a port tree in the reference's leaf order
-    (dict keys sorted at every level).  Below a ``blocks`` list a leaf is
-    the list of its L per-layer tensors, which the reference stacks."""
+    (dict keys sorted at every level, list entries in order).  Below a
+    ``blocks`` list a leaf is the list of its L per-layer tensors, which the
+    reference stacks; another list (``pre_blocks``) is unstacked, its
+    entries numbered in the path."""
     out: List[Tuple[str, Any]] = []
     for k in sorted(state):
         v, path = state[k], prefix + (k,)
         if isinstance(v, dict):
             out += state_leaves(v, path)
+        elif isinstance(v, list) and k != BLOCKS:
+            for i, entry in enumerate(v):
+                out += state_leaves(entry, path + (str(i),))
         elif isinstance(v, list):
             layers = [dict(state_leaves(layer, path)) for layer in v]
             out += [(key, [layer[key] for layer in layers]) for key, _ in

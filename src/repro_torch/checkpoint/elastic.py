@@ -62,9 +62,11 @@ def host_snapshot(state: Dict[str, Any], plan: ParallelismConfig, *, mesh, cfg,
     ``cfg`` (the model config) gives the whole shapes.  ``[]`` where not
     ``keep``."""
     from repro_torch.core import zero
-    shapes = sharding.whole_shapes(state["params"], mesh, plan, cfg.vocab_size, cfg.d_model)
-    p_specs = zero.param_shardings(shapes, mesh, plan)
-    o_specs = zero.opt_shardings(p_specs, shapes, mesh, plan, cfg.n_layers)
+    hints = zero.family_hints(cfg)
+    shapes = sharding.whole_shapes(state["params"], mesh, plan, cfg.vocab_size, cfg.d_model,
+                                   hints=hints)
+    p_specs = zero.param_shardings(shapes, mesh, plan, hints=hints)
+    o_specs = zero.opt_shardings(p_specs, shapes, mesh, plan, zero.n_stacked(cfg))
     stages = pipeline.split_stages(mesh, plan)
     rows = None
     if stages:
@@ -96,22 +98,26 @@ def host_snapshot(state: Dict[str, Any], plan: ParallelismConfig, *, mesh, cfg,
 
 
 def reshard_state(state: Dict[str, Any], new_plan: ParallelismConfig, *,
-                  mesh=None, device=None) -> Dict[str, Any]:
+                  mesh=None, device=None, cfg=None) -> Dict[str, Any]:
     """Canonical state → layout for ``new_plan`` (inverse of canonicalize):
     on a mesh, this rank's shards, each moved to ``device`` (the state's
     own by default) as a copy: a whole state read on the host reaches the
-    device as shards only."""
+    device as shards only.  ``cfg`` (the model config) gives its family's
+    placement hints (none without it: the dense stack's)."""
     if mesh is None:
         return state
+    from repro_torch.core import zero
+    hints = () if cfg is None else zero.family_hints(cfg)
     out = tree_map(lambda x: x if device is None else x.to(device),
                    {k: v for k, v in state.items() if k not in ("params", "opt", "ef")})
     out["opt"] = {k: v if device is None else v.to(device)
                   for k, v in state["opt"].items() if k not in ("m", "v")}
     for key in ("m", "v"):
-        out["opt"][key] = sharding.shard_state(state["opt"][key], mesh, new_plan, device)
+        out["opt"][key] = sharding.shard_state(state["opt"][key], mesh, new_plan, device,
+                                               hints=hints)
     if "ef" in state:
-        out["ef"] = sharding.shard_state(state["ef"], mesh, new_plan, device)
-    out["params"] = sharding.shard_params(state["params"], mesh, new_plan, device)
+        out["ef"] = sharding.shard_state(state["ef"], mesh, new_plan, device, hints=hints)
+    out["params"] = sharding.shard_params(state["params"], mesh, new_plan, device, hints=hints)
     return out
 
 

@@ -1,6 +1,6 @@
 """Config registry: ``get_config("<arch-id>")``, mirroring ``repro.configs``.
 
-Only the dense decoder configs are ported so far; the other families'
+The dense decoder and MoE configs are ported so far; the other families'
 configs come with the port of their model code.
 """
 
@@ -45,7 +45,7 @@ ALIASES: Dict[str, str] = {
 }
 
 PORTED: List[str] = ["granite_3_2b", "phi3_mini_38b", "qwen15_32b", "h2o_danube_3_4b",
-                     "gpt_36b", "gpt_20b", "gpt_175b"]
+                     "gpt_36b", "gpt_20b", "gpt_175b", "olmoe_1b_7b", "deepseek_moe_16b"]
 
 
 def get_config(name: str) -> ModelConfig:
@@ -54,7 +54,7 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown architecture {name!r}; known: {', '.join(ARCH_IDS)}")
     if mod_name not in PORTED:
         raise NotImplementedError(
-            f"{mod_name} is not ported yet: this slice serves the dense "
+            f"{mod_name} is not ported yet: the port serves the dense and MoE "
             f"decoders {', '.join(PORTED)}; the other model families come "
             "with a later PR (ROADMAP Queue 1, item 4: other families)")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")

@@ -128,6 +128,12 @@ def split_stages(mesh, plan: ParallelismConfig) -> bool:
     return mesh is not None and plan.pp > 1
 
 
+def holds_layer(layer: int, n_layers: int, plan: ParallelismConfig, mesh) -> bool:
+    """Whether this rank of ``mesh`` holds block ``layer`` of ``n_layers``."""
+    return not split_stages(mesh, plan) or layer in stage_layers(n_layers, plan,
+                                                                 mesh.coords["pp"])
+
+
 def keep_stage(tree: Dict[str, Any], plan: ParallelismConfig, mesh) -> Dict[str, Any]:
     """A whole tree (params, ``m``, ``v`` or ``ef``) → the one this rank of
     ``mesh`` holds: its stage's blocks in chunk order, every other leaf
@@ -323,7 +329,7 @@ def _stage_fns(cfg, plan: ParallelismConfig, params, micros: List[Dict[str, torc
     def run(c: int, m: int, x: torch.Tensor) -> torch.Tensor:
         seg = micros[m].get("segment_ids")
         for bp in layers_of(c):
-            x = inner(cfg, bp, x, pos[m], window=cfg.swa_window, segment_ids=seg)
+            x, _ = inner(cfg, bp, x, pos[m], window=cfg.swa_window, segment_ids=seg)
         return x
 
     def chunk(c: int, m: int, x: torch.Tensor) -> torch.Tensor:

@@ -209,18 +209,22 @@ def _map_with_path(fn, tree, path=()):
     return fn(path, tree)
 
 
-def shard_params(params, mesh, plan: ParallelismConfig, device=None):
+def shard_params(params, mesh, plan: ParallelismConfig, device=None, *, prefix: Tuple = (),
+                 hints: Tuple = ()):
     """Whole parameters (every rank holds the same) → this rank's: each leaf
     keeps this rank's block along the dims its resolved and sanitized spec
     shards (tp, and under ZeRO-3 the data axis on its ``embed`` dim), as a
     contiguous copy; a leaf whose dims the mesh does not divide stays
-    whole.  ``device``: where the blocks go (the leaves' own by default)."""
+    whole.  ``device``: where the blocks go (the leaves' own by default).
+    ``prefix``: ``params`` is the part of a tree at that path (one block,
+    say: ``("blocks", 3)``), which no pipeline stage splits.  ``hints``:
+    the model family's placement rules (``zero.family_hints``)."""
     from repro_torch.core import pipeline, zero
-    specs = zero.param_shardings([(p, tuple(x.shape)) for p, x in tree_leaves(params)],
-                                 mesh, plan)
+    specs = zero.param_shardings([(prefix + p, tuple(x.shape))
+                                  for p, x in tree_leaves(params)], mesh, plan, hints=hints)
+    tree = params if prefix else pipeline.keep_stage(params, plan, mesh)
     return _map_with_path(
-        lambda path, x: _own(zero.local(x, specs[path], mesh), x, device),
-        pipeline.keep_stage(params, plan, mesh))
+        lambda path, x: _own(zero.local(x, specs[prefix + path], mesh), x, device), tree)
 
 
 def _own(part: torch.Tensor, whole: torch.Tensor, device=None) -> torch.Tensor:
@@ -229,36 +233,43 @@ def _own(part: torch.Tensor, whole: torch.Tensor, device=None) -> torch.Tensor:
     return whole if part is whole else part.clone(memory_format=torch.contiguous_format)
 
 
-def shard_state(tree, mesh, plan: ParallelismConfig, device=None):
+def shard_state(tree, mesh, plan: ParallelismConfig, device=None, *, hints: Tuple = ()):
     """A whole optimizer-state tree (``m``, ``v`` or ``ef``, shaped like the
     parameters) → this rank's shards under ``zero.opt_shardings``, on
-    ``device`` as for :func:`shard_params`."""
+    ``device`` and with ``hints`` as for :func:`shard_params`."""
     from repro_torch.core import pipeline, zero
     shapes = [(p, tuple(x.shape)) for p, x in tree_leaves(tree)]
-    specs = zero.opt_shardings(zero.param_shardings(shapes, mesh, plan), shapes, mesh, plan,
-                               len(tree["blocks"]))
+    specs = zero.opt_shardings(zero.param_shardings(shapes, mesh, plan, hints=hints), shapes,
+                               mesh, plan, len(tree["blocks"]))
     return _map_with_path(
         lambda path, x: _own(zero.local(x, specs[path], mesh), x, device),
         pipeline.keep_stage(tree, plan, mesh))
 
 
 def whole_shapes(local, mesh, plan: ParallelismConfig, vocab_size: int,
-                 d_model: Optional[int] = None):
+                 d_model: Optional[int] = None, *, hints: Tuple = ()):
     """[(leaf path, the shape the leaf has whole)] for this rank's parameter
     leaves: the tp dim of a sharded leaf is tp times as long, and under
     ZeRO-3 its ``embed`` dim (``d_model`` whole) data times.  Only a
-    vocabulary's dim can be left whole by ``sanitize`` under tp
-    (``core.stepfn.check_plan`` has tp divide the heads and d_ff), so a
-    vocabulary table as long as ``vocab_size`` is whole."""
+    vocabulary's dim and a MoE block's expert dim can be left whole by
+    ``sanitize`` under tp (``core.stepfn.check_plan`` has tp divide the
+    heads and the widths), so a vocabulary table as long as ``vocab_size``
+    is whole, and so is an expert stack with as many experts as its
+    (replicated) router has columns.  ``hints`` as for
+    :func:`shard_params`."""
     rules = AxisRules(mesh, axis_mapping(plan))
     tp_axis = rules._present("tp")
     n, dp = mesh.shape[tp_axis], mesh.shape["data"]
+    leaves = tree_leaves(local)
+    routers = {path[:-1]: x.shape[-1] for path, x in leaves if path[-1] == "router"}
     out = []
-    for path, x in tree_leaves(local):
+    for path, x in leaves:
         shape = tuple(x.shape)
-        spec = rules.resolve(spec_for_path("/".join(map(str, path)), shape))
+        logical = spec_for_path("/".join(map(str, path)), shape, extra_rules=hints)
+        spec = rules.resolve(logical)
         for d, ax in enumerate(spec):
-            whole = path[-1] in ("embed", "lm_head") and shape[d] == vocab_size
+            whole = ((path[-1] in ("embed", "lm_head") and shape[d] == vocab_size)
+                     or (logical[d] == "expert" and shape[d] == routers.get(path[:-1])))
             if ax == tp_axis and n > 1 and not whole:
                 shape = shape[:d] + (shape[d] * n,) + shape[d + 1:]
             elif ax == "data" and dp > 1:
@@ -271,14 +282,15 @@ def whole_shapes(local, mesh, plan: ParallelismConfig, vocab_size: int,
 
 
 def gather_params(local, mesh, plan: ParallelismConfig, vocab_size: int,
-                  d_model: Optional[int] = None):
+                  d_model: Optional[int] = None, *, hints: Tuple = ()):
     """The inverse of :func:`shard_params`: this rank's leaves → the whole
     parameters in the reference layout, on every rank (an all-gather per
     sharded dim of a leaf, over the tp group or the data line, and at pp >
-    1 one over the ``pp`` line per layer of a stage and leaf)."""
+    1 one over the ``pp`` line per layer of a stage and leaf).  ``hints`` as
+    for :func:`shard_params`."""
     from repro_torch.core import pipeline, zero
-    specs = zero.param_shardings(whole_shapes(local, mesh, plan, vocab_size, d_model),
-                                 mesh, plan)
+    specs = zero.param_shardings(whole_shapes(local, mesh, plan, vocab_size, d_model,
+                                              hints=hints), mesh, plan, hints=hints)
     with torch.no_grad():
         whole = _map_with_path(lambda path, x: zero.gather(x.detach(), specs[path], mesh),
                                local)

@@ -31,8 +31,10 @@ its gradients are summed over the plane into ZeRO's layout
 2, per micro-batch under ``overlap_zero``), and AdamW updates this rank's
 shard; the consensus vote runs over the real replicas.  The gradient norm
 sums every distinct piece once over the mesh.  The serving steps gather the
-vocabulary-sharded logits before the argmax.  :func:`check_plan` says
-which plans wait for later parts of the recipe.
+vocabulary-sharded logits before the argmax.  A MoE config routes as the
+reference's steps route: under ``moe_groups(dp·pods)`` on a mesh
+(``_routing``), the eval step in one group.  :func:`check_plan` says which
+plans wait for later parts of the recipe.
 
 At ``pp > 1`` the gradients come from the pipeline (``core.pipeline``: the
 stages in this process without a mesh, one stage a rank over the mesh's
@@ -60,6 +62,7 @@ from repro_torch.core import pipeline, sharding, tp, zero
 from repro_torch.core.recipe import ParallelismConfig, axis_mapping
 from repro_torch.core.tree import tree_leaves
 from repro_torch.models import api as model_api
+from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw, schedule
 from repro_torch.optim.compress import apply_compression, init_error_feedback
@@ -77,6 +80,7 @@ class TrainConfig:
 
 
 PARALLEL = "(ROADMAP Queue 1, item 3: the parallel recipe over torch.distributed)"
+MOE_PP = "(ROADMAP Queue 1, item 3.6: MoE under pp)"
 
 
 def check_plan(plan: ParallelismConfig, mesh=None, cfg: Optional[ModelConfig] = None) -> None:
@@ -85,9 +89,14 @@ def check_plan(plan: ParallelismConfig, mesh=None, cfg: Optional[ModelConfig] = 
     this process.  At pp > 1 ``plan.validate`` holds for ``cfg``'s layers
     (pp·vpp divides them; gas % pp == 0 when vpp > 1).  On a mesh its tp,
     pp, data and pod axes must be the plan's tp, pp, dp and pods, and tp
-    must divide ``cfg``'s heads, KV heads and d_ff (the port shards whole
-    heads)."""
+    must divide ``cfg``'s heads, KV heads and d_ff, and a MoE config's
+    ``moe_d_ff`` (the port shards whole heads and whole columns).  A MoE
+    config at pp > 1 waits for a later PR (the load-balance loss through
+    the schedule)."""
     if plan.pp > 1 and cfg is not None:
+        if cfg.family == "moe":
+            raise NotImplementedError(f"{cfg.name} at pp={plan.pp}: the MoE family under "
+                                      f"pipeline parallelism is not ported yet {MOE_PP}")
         plan.validate(cfg.n_layers)
     if mesh is None:
         return
@@ -96,7 +105,8 @@ def check_plan(plan: ParallelismConfig, mesh=None, cfg: Optional[ModelConfig] = 
             raise ValueError(f"plan {name}={getattr(plan, name)} but the mesh's {axis} axis "
                              f"is {mesh.shape[axis]} ranks wide")
     if cfg is not None:
-        for what in ("n_heads", "n_kv_heads", "d_ff"):
+        for what in ("n_heads", "n_kv_heads", "d_ff") + (
+                ("moe_d_ff",) if cfg.family == "moe" else ()):
             if getattr(cfg, what) % plan.tp:
                 raise ValueError(f"{cfg.name}: tp={plan.tp} does not divide {what}="
                                  f"{getattr(cfg, what)} (the port shards whole heads and "
@@ -109,6 +119,24 @@ def _rules(plan: ParallelismConfig, mesh, **override):
     if mesh is None:
         return contextlib.nullcontext()
     return sharding.axis_rules(mesh, dict(axis_mapping(plan), **override))
+
+
+def _routing(mesh, *, own_rows: bool = False, groups: Optional[int] = None):
+    """The MoE routing groups of a step, as the reference's ``moe_groups(dp
+    ·pods)``: without a mesh one group (or ``groups``); on a mesh a step
+    that holds the whole batch on every rank routes it in dp·pods groups,
+    and one that holds this rank's rows (``own_rows``: the training step's
+    GAS path) routes them as its one group, its load-balance statistics
+    averaged over the ``(pod, data)`` plane."""
+    stack = contextlib.ExitStack()
+    if own_rows and mesh is not None:
+        stack.enter_context(moe.moe_groups(1))
+        stack.enter_context(moe.routing_plane(zero.group_of(mesh, zero.PLANE),
+                                              mesh.plane_size))
+    else:
+        stack.enter_context(moe.moe_groups(
+            groups if groups is not None else (1 if mesh is None else mesh.plane_size)))
+    return stack
 
 
 def _whole_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
@@ -145,9 +173,10 @@ def init_state(cfg: ModelConfig, plan: ParallelismConfig, gen: torch.Generator,
     check_plan(plan, mesh, cfg)
     params = model_api.init_params(cfg, gen)
     # m, v and ef are laid out like the parameters: on a mesh ZeRO's shards
-    like = params if mesh is None else sharding.shard_state(params, mesh, plan)
+    hints = zero.family_hints(cfg)
+    like = params if mesh is None else sharding.shard_state(params, mesh, plan, hints=hints)
     if mesh is not None:
-        params = sharding.shard_params(params, mesh, plan)
+        params = sharding.shard_params(params, mesh, plan, hints=hints)
     state = {"params": params, "opt": adamw.init_opt_state(like),
              "step": torch.zeros((), dtype=torch.int32, device=gen.device),
              "rstat": init_rstat(gen.device)}
@@ -576,7 +605,9 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
         return loss, metrics, total, aux
 
     def train_step(state, batch):
-        with _rules(plan, mesh):
+        # the vote's replica holds its micro-batches whole (the reference
+        # routes them in dp·pods groups); the GAS path this rank's rows
+        with _rules(plan, mesh), _routing(mesh, own_rows=n_rep == 1):
             leaf_layout(state["params"])
             zl = layout.get("zero")
             if zl is None or not layout["fsdp"]:
@@ -682,12 +713,13 @@ def make_eval_step(cfg: ModelConfig, plan: ParallelismConfig, mesh=None):
     on a mesh every rank evaluates the whole batch (ZeRO-3's leaves
     gathered as the blocks run).  At pp > 1 the batch goes through the
     pipeline's forwards (``core.pipeline.pipeline_loss``; on a mesh each
-    replica its rows, the loss summed over the mesh)."""
+    replica its rows, the loss summed over the mesh).  A MoE batch routes
+    as one group on a mesh too: the reference's eval step sets no groups."""
     check_plan(plan, mesh, cfg)
     layout: Dict[str, Any] = {}
 
     def eval_step(params, batch):
-        with torch.no_grad(), _rules(plan, mesh):
+        with torch.no_grad(), _rules(plan, mesh), _routing(None):
             ids = {}
             if mesh is not None and plan.zero_stage >= 3 and mesh.shape["data"] > 1:
                 if "zero" not in layout:
@@ -703,18 +735,22 @@ def make_eval_step(cfg: ModelConfig, plan: ParallelismConfig, mesh=None):
     return eval_step
 
 
-def make_serve_step(cfg: ModelConfig, plan: Optional[ParallelismConfig] = None, mesh=None):
+def make_serve_step(cfg: ModelConfig, plan: Optional[ParallelismConfig] = None, mesh=None, *,
+                    per_row: bool = False):
     """One greedy decode step: (params, token (B,), t, caches) →
     (next token (B,) int32, caches); ``t`` is an int, or a (B,) int32
     tensor of one position per row.  ``torch.argmax`` takes the first
     maximum, as ``jnp.argmax`` does; on a mesh over the gathered logits.
-    One position a row: no sequence parallel."""
+    One position a row: no sequence parallel.  A MoE config routes the
+    batch as one group (dp·pods on a mesh), or with ``per_row`` each row
+    alone."""
     plan = plan or ParallelismConfig()
     check_plan(plan, mesh, cfg)
     no_pipeline_mesh("the serve step", mesh)
 
     def serve_step(params, token, t, caches):
-        with _rules(plan, mesh, seq=None):
+        with _rules(plan, mesh, seq=None), _routing(
+                mesh, groups=token.shape[0] if per_row else None):
             logits, caches = model_api.decode_step(cfg, params, token, t, caches)
             return _whole_logits(cfg, logits).argmax(dim=-1).to(torch.int32), caches
 
@@ -734,7 +770,7 @@ def make_prefill(cfg: ModelConfig, plan: Optional[ParallelismConfig] = None, mes
     no_pipeline_mesh("the prefill", mesh)
 
     def prefill(params, batch):
-        with torch.no_grad(), _rules(plan, mesh):
+        with torch.no_grad(), _rules(plan, mesh), _routing(mesh):
             return _whole_logits(cfg, model_api.forward(cfg, params, batch,
                                                         last_only=last_only))
 
@@ -748,8 +784,12 @@ def make_prefill_cache(cfg: ModelConfig, plan: Optional[ParallelismConfig] = Non
     check_plan(plan, mesh, cfg)
     no_pipeline_mesh("the prefill", mesh)
 
+    # a family without the parallel prefill ingests the prompt through the
+    # decode scan: one position a row, no sequence parallel
+    scan = {} if model_api.family_of(cfg).supports_padded_prefill(cfg) else {"seq": None}
+
     def prefill_cache(params, batch, caches):
-        with _rules(plan, mesh):
+        with _rules(plan, mesh, **scan), _routing(mesh):
             logits, caches = model_api.prefill_cache(cfg, params, batch, caches)
             return _whole_logits(cfg, logits), caches
 
@@ -779,9 +819,11 @@ def make_slot_serve_step(cfg: ModelConfig, plan: Optional[ParallelismConfig] = N
     the (B,) int32 positions as they are (one launch per layer, no loop over
     slots, no host sync), so this is ``make_serve_step`` called with a
     tensor for ``t``: (params, tokens (B,), ts (B,), caches) → (next (B,)
-    int32, caches).  One device only."""
+    int32, caches).  As in the vmap, a MoE config routes each slot's token
+    alone (one token a group: capacity 1, nothing dropped).  One device
+    only."""
     one_device("the slot step", mesh)
-    return make_serve_step(cfg)
+    return make_serve_step(cfg, per_row=True)
 
 
 def make_paged_serve_step(cfg: ModelConfig, plan: Optional[ParallelismConfig] = None,

@@ -282,6 +282,40 @@ class _Split(torch.autograd.Function):
         return collective("all_gather", dy, ctx.g, dim=ctx.dim), None, None
 
 
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim: int, g):
+        ctx.dim, ctx.g = dim, g
+        return collective("all_gather", x, g, dim=dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return collective("reduce_scatter", dy, ctx.g, dim=ctx.dim), None, None
+
+
+class _SumBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return collective("all_reduce", x, g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return collective("all_reduce", dy, ctx.g), None
+
+
+def gather_dim(x: torch.Tensor, dim: int, g) -> torch.Tensor:
+    """Every rank's ``x`` of ``g`` concatenated along ``dim``; the backward
+    reduce-scatters (each rank's consumer a partial sum of the gradient)."""
+    return _GatherDim.apply(x, dim, g)
+
+
+def sum_over(x: torch.Tensor, g) -> torch.Tensor:
+    """Σ of ``x`` over ``g`` where every rank's loss reads the sum: the
+    backward sums the cotangents too."""
+    return _SumBoth.apply(x, g)
+
+
 def copy_to_tp(x: torch.Tensor) -> torch.Tensor:
     """Enter a column-parallel product from a whole ``x``."""
     return x if size() == 1 else _CopyToTP.apply(x, group())

@@ -92,13 +92,29 @@ def _stacked(path: Tuple) -> bool:
     return len(path) > 1 and path[0] == "blocks"
 
 
-def param_shardings(shapes, mesh, plan: ParallelismConfig) -> Dict[Tuple, Spec]:
+def family_hints(cfg) -> Tuple:
+    """``param_sharding_hints`` of ``cfg``'s family (the reference's
+    ``zero.family_hints``)."""
+    from repro_torch.models import api
+    return tuple(api.family_of(cfg).param_sharding_hints(cfg))
+
+
+def n_stacked(cfg) -> int:
+    """The layers of the reference's stacked ``blocks`` (its unstacked
+    ``pre_blocks`` apart)."""
+    return cfg.n_layers - cfg.first_k_dense
+
+
+def param_shardings(shapes, mesh, plan: ParallelismConfig, *, hints: Tuple = ()
+                    ) -> Dict[Tuple, Spec]:
     """{leaf path: spec} from ``[(path, whole shape)]``: the recipe's logical
-    axes resolved and sanitized (under ZeRO-3 ``embed`` resolves to the data
+    axes, the family's ``hints`` (:func:`family_hints`) matched first,
+    resolved and sanitized (under ZeRO-3 ``embed`` resolves to the data
     axis)."""
     rules = sharding.AxisRules(mesh, axis_mapping(plan))
     return {path: sharding.sanitize(
-                rules.resolve(sharding.spec_for_path("/".join(map(str, path)), shape)),
+                rules.resolve(sharding.spec_for_path("/".join(map(str, path)), shape,
+                                                     extra_rules=hints)),
                 shape, mesh)
             for path, shape in shapes}
 
@@ -211,9 +227,11 @@ class Layout:
 
     def __init__(self, cfg, plan: ParallelismConfig, mesh, params):
         self.plan, self.mesh = plan, mesh
-        shapes = sharding.whole_shapes(params, mesh, plan, cfg.vocab_size, cfg.d_model)
-        p_specs = param_shardings(shapes, mesh, plan)
-        o_specs = opt_shardings(p_specs, shapes, mesh, plan, cfg.n_layers)
+        hints = family_hints(cfg)
+        shapes = sharding.whole_shapes(params, mesh, plan, cfg.vocab_size, cfg.d_model,
+                                       hints=hints)
+        p_specs = param_shardings(shapes, mesh, plan, hints=hints)
+        o_specs = opt_shardings(p_specs, shapes, mesh, plan, n_stacked(cfg))
         g_specs = grad_constraint(p_specs, o_specs, plan)
         self.shapes = shapes
         self.leaves: List[SimpleNamespace] = []
@@ -321,17 +339,6 @@ def fsdp(dims: Dict[int, int], group):
         _fsdp.dims, _fsdp.group = old
 
 
-class _GatherShard(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, dim: int, group):
-        ctx.dim, ctx.group = dim, group
-        return tp.collective("all_gather", x, group, dim=dim)
-
-    @staticmethod
-    def backward(ctx, dy):
-        return tp.collective("reduce_scatter", dy, ctx.group, dim=ctx.dim), None, None
-
-
 def gathered(tree):
     """``tree`` with every leaf that ZeRO-3 cut gathered whole over the data
     axis (the backward reduce-scatters its gradient); ``tree`` itself when
@@ -343,7 +350,7 @@ def gathered(tree):
     if isinstance(tree, list):
         return [gathered(v) for v in tree]
     d = _fsdp.dims.get(id(tree))
-    return tree if d is None else _GatherShard.apply(tree, d, _fsdp.group)
+    return tree if d is None else tp.gather_dim(tree, d, _fsdp.group)
 
 
 def gathered_top(params):

@@ -13,11 +13,14 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import family_of, register_family
 
 register_family("dense", transformer.DecoderOnlyLM())
+register_family("moe", transformer.MoELM())
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> Any:
-    """fp32 parameters on ``gen``'s device."""
-    return family_of(cfg).init_params(cfg, gen)
+def init_params(cfg: ModelConfig, gen: torch.Generator, *, finish=None) -> Any:
+    """fp32 parameters on ``gen``'s device; ``finish(path, part)`` takes
+    each part (a block, the embedding, ...) as it is drawn (see
+    ``transformer.lm_init``)."""
+    return family_of(cfg).init_params(cfg, gen, finish=finish)
 
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,

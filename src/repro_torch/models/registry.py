@@ -1,6 +1,6 @@
 """Model-family registry, mirroring ``repro.models.registry``: ``api``
-dispatches on ``cfg.family`` through it.  Only the dense decoder is
-registered so far."""
+dispatches on ``cfg.family`` through it.  The dense decoder and the MoE
+family are registered so far."""
 
 from __future__ import annotations
 

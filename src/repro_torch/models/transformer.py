@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense arm, mirroring ``repro.models.transformer``.
+"""Decoder-only LM, dense and MoE arms, mirroring ``repro.models.transformer``.
 
 Parameters are a dict shaped like the reference's pytree, except that the
 stacked ``blocks`` leaves (L, ...) become a list of L per-layer dicts, and
@@ -7,8 +7,14 @@ the reference's ``lax.scan`` over layers is a Python loop.  Its
 (``remat_policy`` "full", "stage" and "dots"; see :func:`lm_forward`).  Caches are ``{"blocks": [{"k", "v", "pos"},
 ...]}`` and the block-paged pool is ``{"blocks": [{"k", "v"}, ...]}``, one
 (n_pages, page_size, Hkv, hd) pair per layer where the reference stacks
-(L, ...); both are updated in place.  The MoE, hybrid, xLSTM and VLM arms
-are not ported yet.
+(L, ...); both are updated in place.  The MoE arm (``layer_plan``: MoE
+blocks after ``first_k_dense`` dense ones) keeps the reference's
+unstacked ``pre_blocks`` list ahead of ``blocks`` (caches ``{"pre": [...],
+"blocks": [...]}``); its blocks return the load-balance loss beside x,
+summed into ``lm_loss`` with ``AUX_LOSS_COEF``, and it fills its caches by
+the decode scan (:func:`lm_prefill_scan`): capacity routing drops
+different tokens over a whole prompt than one position at a time.  The
+hybrid, xLSTM and VLM arms are not ported yet.
 
 Under tensor parallelism the blocks run ``core.tp``'s regions (in
 ``attention`` and ``layers.mlp_apply``) and the reference's
@@ -35,7 +41,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.core import sharding, tp, zero
 from repro_torch.core.tree import tree_map
-from repro_torch.models import layers
+from repro_torch.models import layers, moe as moe_mod
 from repro_torch.models.attention import (attention_apply, attention_decode,
                                           attention_decode_paged, attention_init,
                                           attention_prefill, attention_prefill_paged,
@@ -44,10 +50,15 @@ from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
 
+AUX_LOSS_COEF = 0.01
+
 
 def layer_plan(cfg: ModelConfig):
     """(scanned kind, number of layers, unstacked prefix) as in the
-    reference; only the dense plan is ported."""
+    reference; the dense and MoE plans are ported."""
+    if cfg.family == "moe":
+        return "moe", cfg.n_layers - cfg.first_k_dense, [
+            (i, "dense") for i in range(cfg.first_k_dense)]
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1, item 4: other families)")
@@ -58,13 +69,17 @@ def layer_plan(cfg: ModelConfig):
 # blocks
 # ---------------------------------------------------------------------------
 
-def block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    return {
+def block_init(gen: torch.Generator, cfg: ModelConfig, *, kind: str = "dense") -> Params:
+    p = {
         "norm1": layers.norm_init(cfg.norm, cfg.d_model, gen.device),
         "attn": attention_init(gen, cfg),
         "norm2": layers.norm_init(cfg.norm, cfg.d_model, gen.device),
-        "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp),
     }
+    if kind == "moe":
+        p["moe"] = moe_mod.moe_init(gen, cfg)
+    else:
+        p["mlp"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp)
+    return p
 
 
 def _mlp_half(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -72,14 +87,24 @@ def _mlp_half(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return x + layers.mlp_apply(p["mlp"], h, gated=cfg.gated_mlp, act=cfg.act)
 
 
+def _moe_half(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    h = layers.norm_apply(cfg.norm, p["norm2"], x)
+    mo, aux = moe_mod.moe_apply(cfg, p["moe"], h)
+    return x + mo, aux
+
+
 def block_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 positions: torch.Tensor, *, window,
-                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                segment_ids: Optional[torch.Tensor] = None, kind: str = "dense"):
+    """→ (x, the block's load-balance loss: an f32 scalar for a MoE block,
+    None for a dense one)."""
     p = zero.gathered(p)
     h = layers.norm_apply(cfg.norm, p["norm1"], x)
     x = x + attention_apply(cfg, p["attn"], h, positions, causal=True,
                             window=window, segment_ids=segment_ids)
-    return _mlp_half(cfg, p, x)
+    if kind == "moe":
+        return _moe_half(cfg, p, x)
+    return _mlp_half(cfg, p, x), None
 
 
 def block_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -91,9 +116,12 @@ def block_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return _mlp_half(cfg, p, x + h), cache
 
 
-def block_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, t, cache, *, window):
+def block_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, t, cache, *, window,
+                 kind: str = "dense"):
     h = layers.norm_apply(cfg.norm, p["norm1"], x)
     h, cache = attention_decode(cfg, p["attn"], h, t, cache, window=window)
+    if kind == "moe":
+        return _moe_half(cfg, p, x + h)[0], cache
     return _mlp_half(cfg, p, x + h), cache
 
 
@@ -118,16 +146,28 @@ def block_prefill_paged(cfg: ModelConfig, p: Params, x: torch.Tensor,
 # model
 # ---------------------------------------------------------------------------
 
-def lm_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """fp32 parameters on the generator's device."""
-    _, n_layers, _ = layer_plan(cfg)
+def lm_init(gen: torch.Generator, cfg: ModelConfig, *, finish=None) -> Params:
+    """fp32 parameters on the generator's device, drawn in the order embed,
+    ``pre_blocks``, ``blocks``, lm_head.  ``finish(path, part)`` (the
+    session's shard-and-cast) takes each part as soon as it is drawn: the
+    embedding, each block, the final norm and the head, so a model is never
+    whole in f32; a block it gives None for (one that another pipeline
+    stage holds) is left out of ``blocks``."""
+    kind, n_layers, pre = layer_plan(cfg)
     if cfg.pos_embed == "learned":
         raise NotImplementedError("learned position embeddings are not ported yet")
-    p: Params = {"embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model)}
-    p["blocks"] = [block_init(gen, cfg) for _ in range(n_layers)]
-    p["final_norm"] = layers.norm_init(cfg.norm, cfg.d_model, gen.device)
+    done = finish or (lambda path, part: part)
+    p: Params = {"embed": done(("embed",),
+                               layers.embed_init(gen, cfg.vocab_size, cfg.d_model))}
+    if pre:
+        p["pre_blocks"] = [done(("pre_blocks", i), block_init(gen, cfg, kind=k))
+                           for i, k in pre]
+    blocks = (done(("blocks", i), block_init(gen, cfg, kind=kind)) for i in range(n_layers))
+    p["blocks"] = [b for b in blocks if b is not None]
+    p["final_norm"] = done(("final_norm",),
+                           layers.norm_init(cfg.norm, cfg.d_model, gen.device))
     if not cfg.tie_embeddings:
-        p["lm_head"] = layers.embed_init(gen, cfg.vocab_size, cfg.d_model)
+        p["lm_head"] = done(("lm_head",), layers.embed_init(gen, cfg.vocab_size, cfg.d_model))
     return p
 
 
@@ -189,7 +229,7 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 def _remat_block(policy: str):
     """``block_apply`` wrapped for ``policy``, or None when nothing is
-    recomputed."""
+    recomputed (a MoE block's routing is recomputed with it)."""
     if policy == "none" or not torch.is_grad_enabled():
         return None
     if policy == "dots":
@@ -225,7 +265,14 @@ def lm_forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     outputs of the block's matmuls and recomputes the rest, the flash
     forward included (``checkpoint_dots_with_no_batch_dims``); ``"none"``
     keeps every activation."""
-    layer_plan(cfg)
+    return _forward(cfg, params, batch, remat_policy=remat_policy, last_only=last_only)[0]
+
+
+def _forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
+             remat_policy: str, last_only: bool = False):
+    """→ (logits, the load-balance loss summed over the blocks: an f32
+    scalar, 0 for a dense stack)."""
+    kind, _, pre = layer_plan(cfg)
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {remat_policy!r} is not one of "
                          f"{', '.join(REMAT_POLICIES)}")
@@ -235,30 +282,42 @@ def lm_forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     x = embed_stream(cfg, params, tokens)
     pos = positions(tokens)
     segment_ids = batch.get("segment_ids")
-    for bp in params["blocks"]:
-        x = block(cfg, bp, x, pos, window=cfg.swa_window, segment_ids=segment_ids)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers_ = ([(bp, k) for bp, (_, k) in zip(params.get("pre_blocks", []), pre)]
+               + [(bp, kind) for bp in params["blocks"]])
+    for bp, k in layers_:
+        x, a = block(cfg, bp, x, pos, window=cfg.swa_window, segment_ids=segment_ids,
+                     kind=k)
+        if a is not None:
+            aux = aux + a
     if last_only:
-        return _logits(cfg, params, _gather_seq(x)[:, -1:])
-    return _logits(cfg, params, x, seq_sharded=tp.sequence_parallel())
+        return _logits(cfg, params, _gather_seq(x)[:, -1:]), aux
+    return _logits(cfg, params, x, seq_sharded=tp.sequence_parallel()), aux
 
 
 def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
             remat_policy: str = "full") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """→ (loss, {"xent", "aux"}); the dense arm has no auxiliary loss, so
-    ``aux`` is 0 and the loss is the masked mean cross-entropy."""
-    logits = lm_forward(cfg, params, batch, remat_policy=remat_policy)
+    """→ (loss, {"xent", "aux"}): the masked mean cross-entropy plus
+    ``AUX_LOSS_COEF`` times the load-balance loss (0 for a dense stack: its
+    loss keeps the cross-entropy's bits)."""
+    logits, aux = _forward(cfg, params, batch, remat_policy=remat_policy)
     xent = layers.cross_entropy(logits, batch["labels"], batch.get("loss_mask"),
                                 vocab_size=cfg.vocab_size)
-    aux = torch.zeros((), dtype=torch.float32, device=xent.device)
-    return xent, {"xent": xent, "aux": aux}
+    return xent + AUX_LOSS_COEF * aux, {"xent": xent, "aux": aux}
 
 
 def lm_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, device,
                   n_kv_heads: Optional[int] = None) -> Dict[str, List]:
-    _, n_layers, _ = layer_plan(cfg)
-    return {"blocks": [cache_init(cfg, batch, max_len, window=cfg.swa_window,
-                                  device=device, n_kv_heads=n_kv_heads)
-                       for _ in range(n_layers)]}
+    _, n_layers, pre = layer_plan(cfg)
+
+    def one():
+        return cache_init(cfg, batch, max_len, window=cfg.swa_window, device=device,
+                          n_kv_heads=n_kv_heads)
+
+    caches = {"blocks": [one() for _ in range(n_layers)]}
+    if pre:
+        caches["pre"] = [one() for _ in pre]
+    return caches
 
 
 def _invalidate_padded_slots(caches, lengths: torch.Tensor) -> None:
@@ -300,11 +359,26 @@ def lm_decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor, t,
                    caches) -> Tuple[torch.Tensor, Any]:
     """token: (B,) int; t: the position being decoded, an int for every row
     or a (B,) int32 tensor of one per row → (logits (B, V), caches)."""
-    layer_plan(cfg)
+    kind, _, pre = layer_plan(cfg)
     x = _embed(cfg, params, token[:, None])
+    for bp, (_, k), c in zip(params.get("pre_blocks", []), pre, caches.get("pre", [])):
+        x, _ = block_decode(cfg, bp, x, t, c, window=cfg.swa_window, kind=k)
     for bp, c in zip(params["blocks"], caches["blocks"]):
-        x, _ = block_decode(cfg, bp, x, t, c, window=cfg.swa_window)
+        x, _ = block_decode(cfg, bp, x, t, c, window=cfg.swa_window, kind=kind)
     return _logits(cfg, params, x)[:, 0], caches
+
+
+def lm_prefill_scan(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+                    caches) -> Tuple[torch.Tensor, Any]:
+    """The reference's decode-scan prefill (``ModelFamily.prefill_cache``):
+    one :func:`lm_decode_step` a prompt position, every row at that
+    position, so capacity routing sees what decode sees.  → (the last
+    position's logits (B, V), caches)."""
+    tokens = batch["tokens"]
+    logits = None
+    for t in range(tokens.shape[1]):
+        logits, caches = lm_decode_step(cfg, params, tokens[:, t], t, caches)
+    return logits, caches
 
 
 # ---------------------------------------------------------------------------
@@ -369,8 +443,8 @@ def lm_paged_prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Te
 class DecoderOnlyLM:
     """Token-in / logits-out decoder stack (dense backbone)."""
 
-    def init_params(self, cfg, gen):
-        return lm_init(gen, cfg)
+    def init_params(self, cfg, gen, *, finish=None):
+        return lm_init(gen, cfg, finish=finish)
 
     def forward(self, cfg, params, batch, *, last_only=False):
         return lm_forward(cfg, params, batch, remat_policy="none", last_only=last_only)
@@ -406,6 +480,11 @@ class DecoderOnlyLM:
         """Positional K/V lists only: exactly the pure-attention stacks."""
         return self.supports_padded_prefill(cfg)
 
+    def param_sharding_hints(self, cfg):
+        """Placement rules matched before ``core.sharding.PARAM_RULES``: none
+        for the dense stack."""
+        return ()
+
     def init_paged_pool(self, cfg, params, n_pages, page_size):
         return lm_paged_pool_init(cfg, n_pages, page_size, device=params["embed"].device)
 
@@ -414,3 +493,18 @@ class DecoderOnlyLM:
 
     def paged_prefill(self, cfg, params, batch, pool, page_tables):
         return lm_paged_prefill(cfg, params, batch, pool, page_tables)
+
+
+class MoELM(DecoderOnlyLM):
+    """Routed-FFN variant (``models.moe`` blocks after ``first_k_dense``
+    dense ones): no padded prefill and no paged pool, as the reference's,
+    and the prompt goes into the caches through the decode scan."""
+
+    def prefill_cache(self, cfg, params, batch, caches):
+        return lm_prefill_scan(cfg, params, batch, caches)
+
+    def supports_padded_prefill(self, cfg):
+        return False
+
+    def param_sharding_hints(self, cfg):
+        return moe_mod.SHARDING_HINTS

@@ -142,7 +142,7 @@ def run_training(state, train_step: Callable, batches, loop_cfg: LoopConfig,
             fault_hook=read_fault, device="cpu" if on_mesh else None)
         if restored is not None:
             restored = reshard_state(restored, plan, mesh=mesh,
-                                     device=state["step"].device if on_mesh else None)
+                                     device=state["step"].device if on_mesh else None, cfg=cfg)
         return restored, extra, step
 
     rs = resilience if resilience is not None else ResilienceConfig()

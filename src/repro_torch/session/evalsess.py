@@ -27,12 +27,11 @@ from typing import Any, Dict, Iterable, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.core import sharding, stepfn
+from repro_torch.core import stepfn
 from repro_torch.core.recipe import ParallelismConfig
-from repro_torch.core.tree import tree_map
 from repro_torch.models import api as model_api
 from repro_torch.models.config import ModelConfig
-from repro_torch.session.infer import resolve_config, resolve_device, to_device
+from repro_torch.session.infer import cast_part, resolve_config, resolve_device, to_device
 
 
 class EvalSession:
@@ -41,7 +40,8 @@ class EvalSession:
                  device: Union[str, torch.device] = "cuda", mesh=None):
         """Without ``params``: fresh weights from ``seed`` on ``device``
         (this rank's slices on a mesh), every leaf cast to the compute
-        dtype.  Given ``params`` are taken as they are (sliced already on a
+        dtype, block by block as ``InferenceSession.from_recipe`` builds
+        them.  Given ``params`` are taken as they are (sliced already on a
         mesh)."""
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -51,10 +51,8 @@ class EvalSession:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             with torch.no_grad():
-                params = model_api.init_params(cfg, gen)
-                if mesh is not None:
-                    params = sharding.shard_params(params, mesh, self.plan)
-                params = tree_map(lambda x: x.to(cfg.compute_dtype), params)
+                params = model_api.init_params(cfg, gen, finish=cast_part(
+                    cfg, None if mesh is None else (mesh, self.plan)))
         self.params = params
         self.eval_step = stepfn.make_eval_step(cfg, self.plan, mesh)
 

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core import sharding, stepfn
+from repro_torch.core import pipeline, sharding, stepfn, zero
 from repro_torch.core.recipe import ParallelismConfig
 from repro_torch.core.tree import tree_map
 from repro_torch.models import api as model_api
@@ -47,6 +47,25 @@ def _serving(plan: ParallelismConfig) -> ParallelismConfig:
     """The layout a served rank keeps: tp's slices, whole over the data
     axis (every replica serves; ZeRO-3's cut is the train state's)."""
     return dataclasses.replace(plan, zero_stage=min(plan.zero_stage, 1))
+
+
+def cast_part(cfg: ModelConfig, placement=None):
+    """``init_params``' ``finish``: a freshly drawn part of the model (a
+    block, the embedding, ...) → this rank's slices of it
+    (``placement = (mesh, plan)``), cast to the compute dtype; None for a
+    block that another pipeline stage holds (drawn all the same, so the
+    generator's sequence is that of one device)."""
+    hints = zero.family_hints(cfg)
+
+    def finish(path, part):
+        if placement is not None:
+            mesh, plan = placement
+            if path[0] == "blocks" and not pipeline.holds_layer(
+                    path[1], zero.n_stacked(cfg), plan, mesh):
+                return None
+            part = sharding.shard_params(part, mesh, plan, prefix=path, hints=hints)
+        return tree_map(lambda x: x.to(cfg.compute_dtype), part)
+    return finish
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -98,7 +117,9 @@ class InferenceSession:
         """Fresh random weights from ``seed``, every leaf (norm scales
         included) cast to the compute dtype as the reference does.  On a
         mesh every rank draws the whole model and keeps its slices before
-        the cast, so tp = k serves the weights of tp = 1."""
+        the cast, so tp = k serves the weights of tp = 1.  Each block is
+        drawn in f32, sliced and cast before the next is drawn, so the
+        build holds one block in f32 beside the compute-dtype model."""
         device = resolve_device(device)
         cfg = resolve_config(arch, reduced=reduced)
         plan = plan if plan is not None else ParallelismConfig()
@@ -107,10 +128,8 @@ class InferenceSession:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         with torch.inference_mode():
-            params = model_api.init_params(cfg, gen)
-            if mesh is not None:
-                params = sharding.shard_params(params, mesh, _serving(plan))
-            params = tree_map(lambda x: x.to(cfg.compute_dtype), params)
+            params = model_api.init_params(cfg, gen, finish=cast_part(
+                cfg, None if mesh is None else (mesh, _serving(plan))))
         return cls(cfg, params, device=device, plan=plan, mesh=mesh)
 
     @classmethod
@@ -126,7 +145,8 @@ class InferenceSession:
         stepfn.no_pipeline_mesh("serving", mesh)
         params = tree_map(lambda x: torch.as_tensor(x).to(device), params)
         if mesh is not None:
-            params = sharding.shard_params(params, mesh, _serving(plan))
+            params = sharding.shard_params(params, mesh, _serving(plan),
+                                           hints=zero.family_hints(cfg))
         return cls(cfg, params, device=device, plan=plan, mesh=mesh)
 
     # ------------------------------------------------------------------

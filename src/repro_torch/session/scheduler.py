@@ -28,7 +28,10 @@ fixed ring of ``n_slots`` cache slots, where
     distinct length.
 
 Slot lifecycle works across a family's cache layout through its
-``cache_slot_axes`` hook (the dense ring caches are all the port has yet).
+``cache_slot_axes`` hook (the ring caches of the dense and MoE stacks,
+MoE's ``pre`` layers' too).  A family without padded prefill (MoE) is not
+bucketed: requests of one prompt length share an admission, which fills
+their caches by the decode scan.
 Greedy decode here is token-for-token identical to running each request
 alone through ``generate()``, and to the reference's scheduler.
 """

@@ -38,7 +38,7 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.core import sharding, stepfn
+from repro_torch.core import sharding, stepfn, zero
 from repro_torch.core.recipe import ParallelismConfig, RecipeAdvisor
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.data import DataConfig, make_dataset
@@ -206,7 +206,8 @@ class TrainSession:
         params = self.state["params"]
         if self.mesh is not None:
             params = sharding.gather_params(params, self.mesh, self.plan, self.cfg.vocab_size,
-                                            self.cfg.d_model)
+                                            self.cfg.d_model,
+                                            hints=zero.family_hints(self.cfg))
         params = tree_map(lambda x: x.detach().to(self.cfg.compute_dtype, copy=True), params)
         if mesh is not None:
             return InferenceSession.from_params(self.cfg, params, plan=plan, mesh=mesh,

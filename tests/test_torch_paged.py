@@ -490,4 +490,4 @@ def test_pool_ops_and_unsupported_family(monkeypatch):
     with pytest.raises(ValueError, match="paged"):
         ContinuousBatchingScheduler(port, n_slots=1, max_len=16, paged=True)
     with pytest.raises(NotImplementedError, match="not ported"):
-        ttf.lm_paged_pool_init(dataclasses.replace(cfg, family="moe"), 3, 4, device="cpu")
+        ttf.lm_paged_pool_init(dataclasses.replace(cfg, family="vlm"), 3, 4, device="cpu")

@@ -462,6 +462,11 @@ RULE_PLANS = [dict(pp=2, vpp=1), dict(pp=2, vpp=2), dict(pp=2, dp=2, zero_stage=
               dict(pp=2, dp=2, zero_stage=3)]
 
 
+# the configs the port pipelines: a MoE config at pp > 1 raises (ROADMAP
+# Queue 1, item 3.6)
+PP_ARCHS = [a for a in PORTED if get_config(a).family != "moe"]
+
+
 @functools.lru_cache(maxsize=None)
 def _stacked_shapes(arch, n_layers, pp, vpp):
     jcfg = dataclasses.replace(jget_config(arch), n_layers=n_layers)
@@ -481,7 +486,7 @@ def _pad(spec, n):
 
 
 @pytest.mark.parametrize("kw", RULE_PLANS, ids=["pp2", "pp2-vpp2", "pp2-dp2-z1", "pp2-dp2-z3"])
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", PP_ARCHS)
 def test_zero_rules_equal_reference_under_pp(arch, kw):
     """``zero.param_shardings``/``opt_shardings`` on the port's per-layer
     leaves equal the reference's specs on its pp-stacked tree (the stacking

@@ -240,6 +240,6 @@ def test_unported_paths_raise():
     (which waits for the parallel recipe), are not ported yet."""
     _, port = _sessions("granite_3_2b")
     assert not hasattr(port, "lower_prefill") and not hasattr(port, "lower_decode")
-    moe = dataclasses.replace(get_config("granite_3_2b").reduced(), family="moe")
+    vlm = dataclasses.replace(get_config("granite_3_2b").reduced(), family="vlm")
     with pytest.raises(NotImplementedError):
-        InferenceSession.from_recipe(moe, device="cpu")
+        InferenceSession.from_recipe(vlm, device="cpu")

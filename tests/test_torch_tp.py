@@ -41,6 +41,7 @@ from repro.configs import get_config as jget_config
 from repro.core import recipe as jrecipe
 from repro.core import sharding as jshd
 from repro.core import stepfn as jstepfn
+from repro.core import zero as jzero
 from repro.core.recipe import ParallelismConfig as JPlan
 from repro.data import DataConfig as JDataConfig
 from repro.models import init_params as jinit_params
@@ -119,7 +120,8 @@ def _ref_shapes(arch):
 @pytest.mark.parametrize("tp_size", [2, 4, 8, 16])
 @pytest.mark.parametrize("arch", PORTED)
 def test_param_rules_equal_reference(arch, tp_size):
-    """Every leaf at full size: ``spec_for_path`` gives the reference's
+    """Every leaf at full size: ``spec_for_path`` (the family's hints
+    first, the MoE family's expert placements) gives the reference's
     logical axes (without its leading ``layers`` axis), the sanitized
     resolution gives its ``PartitionSpec``, and the spec the port places the
     leaf by (``zero.param_shardings``, which ``shard_params`` cuts) is that
@@ -130,12 +132,15 @@ def test_param_rules_equal_reference(arch, tp_size):
     plan = ParallelismConfig(tp=tp_size)
     rules = sharding.AxisRules(mesh, recipe.axis_mapping(plan))
     leaves = []
+    jhints, hints = jzero.family_hints(jget_config(arch)), zero.family_hints(get_config(arch))
+    assert hints == jhints
     for path, leaf in _ref_shapes(arch):
         stacked = path.startswith("blocks/")
-        want = jshd.spec_for_path(path, leaf.shape, stacked_axes=int(stacked))
+        want = jshd.spec_for_path(path, leaf.shape, stacked_axes=int(stacked),
+                                  extra_rules=jhints)
         shape = leaf.shape[1:] if stacked else leaf.shape
         ppath = path.replace("blocks/", "blocks/0/") if stacked else path
-        got = sharding.spec_for_path(ppath, shape)
+        got = sharding.spec_for_path(ppath, shape, extra_rules=hints)
         assert got == (want[1:] if stacked else want), path
         jspec = tuple(jshd.sanitize(jax.sharding.NamedSharding(jmesh, jrules.resolve(want)),
                                     leaf.shape, jmesh).spec)
@@ -143,7 +148,7 @@ def test_param_rules_equal_reference(arch, tp_size):
         jspec = jspec + (None,) * (len(leaf.shape) - len(jspec))
         assert spec == (jspec[1:] if stacked else jspec), path
         leaves.append((tuple(ppath.split("/")), shape, spec))
-    placed = zero.param_shardings([(p, s) for p, s, _ in leaves], mesh, plan)
+    placed = zero.param_shardings([(p, s) for p, s, _ in leaves], mesh, plan, hints=hints)
     for p, _, spec in leaves:
         assert placed[p] == spec, p
 

@@ -169,7 +169,8 @@ def test_zero_rules_equal_reference(arch, zero_stage, reduced):
             port_shapes.append((tuple(path.replace("blocks/", "blocks/0/").split("/"))
                                 if stacked else tuple(path.split("/")),
                                 leaf.shape[1:] if stacked else leaf.shape))
-        pp_ = zero.param_shardings(port_shapes, mesh, plan)
+        pp_ = zero.param_shardings(port_shapes, mesh, plan,
+                                   hints=zero.family_hints(get_config(arch)))
         po = zero.opt_shardings(pp_, port_shapes, mesh, plan, n_layers)
         for (path, leaf), (ppath, shape) in zip(shapes.items(), port_shapes):
             k = 1 if path.startswith("blocks/") else 0
