@@ -13,23 +13,27 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    dim, the others by their template arguments); a spill in the decode
    kernels (K5, K6) or in K7 fails the run;
 3. holds K1 (flash forward) against its plain version on the card, O and lse,
-   over head groupings (h2o-danube's 32/8 among them), head dims 16, 64, 96,
+   over head groupings (h2o-danube's 32/8 and internvl2's 14/2 among them),
+   head dims 16, 64, 96,
    120 and 128, lengths 128/200/500 (ragged to its 128-row tiles), masks and
    dtypes;
    then K2, K3 and K4 (flash backward: delta, dQ, dK and dV) the same way,
    over the edges of their tiles (lengths 200/500/1024, windows of 64 and
-   16, MHA and GQA 4/1, 8/2, 32/8), and two launches of K2, of K3 and of K4
+   16, MHA and GQA 4/1, 8/2, 32/8, 14/2), and two launches of K2, of K3 and
+   of K4
    on equal inputs must give equal bits; K2 alone over a ragged length (1000)
    at head dims 64, 96, 120 and 128, one position, 40 heads, h2o's training
    shape, a long prompt and strided inputs, each launched twice for equal
    bits; and the autograd ``FlashAttention`` against autograd through K1's
    plain version;
-4. holds K5 (decode attention) against its plain version the same way, and
+4. holds K5 (decode attention) against its plain version the same way (GQA
+   groups of 1, 4 and internvl2's 7), and
    over long caches that span many of its splits (4096 and 4100 slots at
    B 1 and 4; full, wrapped, and not full so that whole splits are empty;
    a window that excludes whole splits; g 1 at D 128);
    then K6 (paged decode attention) against its plain version over page
-   sizes 16/64/128, head groupings, head dims, windows and dtypes (pages
+   sizes 16/64/128, head groupings (7 among them), head dims, windows and
+   dtypes (pages
    shuffled, a hole in one table, a position per row; at B = 8, page
    16, with 1024-token histories; and at B = 1 with a 4096-token history
    through pages of 16, 64 and 128), and against K5 on the same K/V laid out
@@ -155,7 +159,7 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    cost model's 4 all-reduces a layer; the compute mode must not be
    ``Exclusive_Process``; times are labelled as two time-sliced ranks;
 21. (run after 20) sharded data parallelism at dp = 2 as two processes on
-   the one card, as 20 runs them: gpt-3.6b at published width, 4 of 30
+   the one card, as 20 runs them: gpt-3.6b at published width, 2 of 30
    layers, 4 x 1024 tokens in 2 micro-batches, remat full, bf16 over f32
    masters, one counted step after a first at ZeRO 0, 1, 2 and 3, then
    ``overlap_zero`` at stage 2 and ``gather_params_once`` at stage 3 (the
@@ -208,7 +212,27 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    new tokens, and ``prefill``, launches exact, peak memory of the build
    and of the run beside 80 GB; ms a decode step and a training step; two
    bf16 runs of 2 olmoe steps (2 layers) equal in bits;
-24. prints each phase's seconds, a ``{"planning": {...}}`` line, a
+24. (run after 23) the VLM family at published width and depth, bf16:
+   internvl2-1b (24 layers, GQA 14/2, vocab 151655) over [256 random vision
+   embeddings; 256 text tokens]: ``prefill`` (K1 once a layer; held to
+   phase 5's rule), the cache-populating prefill of the same batch and 32
+   decode steps (K1 once a layer, K5 once a layer a step), a decode step's
+   host and device time, ``generate`` (text only) at B 8, a stream on 4
+   contiguous slots, ``paged=True`` refused; 3 training steps, 8 x 1024
+   in 2 micro-batches (phase 9's checks; peak memory beside
+   ``per_device_bytes``; the f32 unembed's device time against the step's);
+   K1-K5 at its shapes (a group of 7) timed beside their bounds and plain
+   versions; the f32 identities of 6 and 10 at 2 layers;
+25. (run after 24) the MoE family under pipeline parallelism: olmoe at
+   published width, 4 of 16 layers, pp = 2 as two processes on the one
+   card (as 22), 4 x 1024 tokens in 4 micro-batches, remat full, vpp 1 and
+   2: in f32 the mesh's loss, xent and load-balance loss equal the
+   one-device pipeline's bit for bit; in bf16 one counted step (K1-K4
+   launches and the messages over the pp line exact, in flight, peak
+   memory beside ``per_device_bytes``), then the plain versions and the
+   kernels on the plain run's routes (``routing(replay=)``): loss, xent and
+   aux within 2e-2;
+26. prints each phase's seconds, a ``{"planning": {...}}`` line, a
    ``{"tp": {...}}`` line, a ``{"dp": {...}}`` line, a ``{"pp": {...}}``
    line, a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
    {...}}``.
@@ -283,6 +307,23 @@ MOE = dict(arch="olmoe_1b_7b", batch=4, prompt_len=128, new_tokens=32, slots=4,
            stream_lens=(19, 32, 11, 45, 25, 38, 6, 51), stream_gens=(24, 8, 16, 8, 32, 8, 12, 16))
 TRAIN_OLMOE = dict(arch="olmoe_1b_7b", n_layers=4, seq_len=1024, global_batch=4, gas=1, steps=3)
 MOE_BIG = dict(arch="deepseek_moe_16b", batch=4, prompt_len=64, new_tokens=16)
+# phase 24: the VLM family.  internvl2-1b at full depth (24 layers, GQA 14/2:
+# 7 query heads a KV head) serves [256 vision embeddings; 256 text tokens]:
+# the prefill, the cache-populating prefill and 32 decode steps, generate
+# (text only) at B 8 and a short stream on contiguous slots; it trains at
+# full depth, 8 x 1024 tokens in 2 micro-batches (each 4096 tokens x 151655
+# f32 logits, 2.5 GB before their gradient)
+VLM = dict(arch="internvl2_1b", batch=4, text_len=256, new_tokens=32, gen_batch=8,
+           gen_prompt=128, slots=4, stream_lens=(40, 96, 17, 64, 128, 33),
+           stream_gens=(24, 8, 16, 32, 8, 12))
+TRAIN_VLM = dict(arch="internvl2_1b", seq_len=1024, global_batch=8, gas=2, steps=3)
+# phase 25: the MoE family under pipeline parallelism.  olmoe at full width,
+# 4 of its 16 layers, pp 2 as two ranks on the card over gloo, 4 x 1024
+# tokens in 4 micro-batches, at vpp 1 and 2, remat full
+MOE_PP = dict(ranks=2, arch="olmoe_1b_7b", n_layers=4, seq_len=1024, global_batch=4, gas=4,
+              vpps=(1, 2))
+MOE_PP_DIR = ROOT / "build" / "chip_smoke_moe_pp"
+MOE_PP_LABEL = "two ranks time-sliced on one card over gloo"
 # the GEMM sweep of the planning phase: bf16 (M x K) @ (K x N), granite's
 # MLP up-projection, M from 16 to 16384 in powers of two
 GEMM = dict(k=2048, n=8192, ms=tuple(2**i for i in range(4, 15)))
@@ -320,12 +361,13 @@ TP = dict(ranks=2, batch=2, prompt_len=128, new_tokens=16, prefill=(2, 256), f32
 TP_DIR = ROOT / "build" / "chip_smoke_tp"
 TP_LABEL = "two ranks time-sliced on one card over gloo"
 # phase 21: sharded data parallelism, dp = 2 as two ranks on the one card
-# over gloo (and tp = 2 x dp = 2 as four): gpt-3.6b at published width, 4 of
-# its 30 layers, global batch 4 x 1024 in 2 micro-batches, remat full, bf16
+# over gloo (and tp = 2 x dp = 2 as four): gpt-3.6b at published width, 2 of
+# its 30 layers (4 until phases 24 and 25 took the time), global batch 4 x
+# 1024 in 2 micro-batches, remat full, bf16
 # over f32 masters; the f32 identities at 2 layers; the checkpoint at 1
 # layer and a 4096-token vocabulary (1.5 GB written: the 45 GiB the card's
 # host lets a run write holds no more beside phases 11-13 and 20)
-DP = dict(ranks=2, arch="gpt_36b", n_layers=4, seq_len=1024, global_batch=4, gas=2,
+DP = dict(ranks=2, arch="gpt_36b", n_layers=2, seq_len=1024, global_batch=4, gas=2,
           f32_layers=2, ckpt=dict(n_layers=1, vocab=4096, global_batch=4, steps=3,
                                   ckpt_every=2, fail_at=2))
 DP_RUNS = ((0, {}), (1, {}), (2, {}), (3, {}), (2, {"overlap_zero": True}),
@@ -584,8 +626,9 @@ def phase_flash_sweep(torch, fa):
     gen.manual_seed(1)
     worst = {dt: [0.0, 0.0] for dt in TOL}
     failures, n = [], 0
-    for Hq, Hkv in ((4, 4), (8, 2), (32, 8)):       # (32, 8): granite's and h2o's
-        for D in HEAD_DIMS:
+    # (32, 8): granite's and h2o's; (14, 2): internvl2's group of 7, at its D 64
+    for Hq, Hkv in ((4, 4), (8, 2), (32, 8), (14, 2)):
+        for D in HEAD_DIMS if Hq != 14 else (64,):
             for S in (128, 200, 500):                # 200, 500: ragged to 64 and 128 rows
                 for mask in ("causal", "window64", "none", "segments"):
                     for dtype in (torch.bfloat16, torch.float32):
@@ -634,9 +677,10 @@ def phase_flash_bwd_sweep(torch, fa):
     gen.manual_seed(4)
     worst = {dt: [0.0] * 4 for dt in TOL}
     failures, unequal, n = [], [], 0
+    # (32, 8): granite's, h2o's; (14, 2): internvl2's group of 7
     cases = [(Hq, Hkv, D, S, S, mask)
-             for Hq, Hkv in ((4, 4), (4, 1), (8, 2), (32, 8))   # (32, 8): granite's, h2o's
-             for D in HEAD_DIMS if Hq != 32 or D in (64, 120)
+             for Hq, Hkv in ((4, 4), (4, 1), (8, 2), (32, 8), (14, 2))
+             for D in HEAD_DIMS if (Hq != 32 or D in (64, 120)) and (Hq != 14 or D == 64)
              for S in (200, 500, 1024)
              for mask in ("causal", "window", "window16", "none", "segments")]
     # queries and keys of two lengths (no segment ids then)
@@ -776,17 +820,17 @@ def phase_decode_sweep(torch, da):
     failures, n = [], 0
     cases = []
     for S in (532, 544):
-        for g in (1, 4):
-            for D in HEAD_DIMS:
+        for g in (1, 4, 7):                          # 7: internvl2's group, at its D 64
+            for D in HEAD_DIMS if g != 7 else (64,):
                 for ring in [dict(fill=f) for f in (0, 300, S - 1)] + [dict(t_wrap=2000)]:
                     for window in (None, 128):
                         cases.append((2, S, 2, g, D, ring, window))
     for B in (1, 4):
         for S in (4096, 4100):
-            for g, D in ((4, 64), (1, 128)):
+            for g, D in ((4, 64), (1, 128), (7, 64)):
                 for ring in (dict(fill=S - 1), dict(fill=300), dict(t_wrap=10000)):
                     for window in (None, 1000):
-                        cases.append((B, S, 8, g, D, ring, window))
+                        cases.append((B, S, 8 if g != 7 else 2, g, D, ring, window))
     for B, S, Hkv, g, D, ring, window in cases:
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn((B, 1, g * Hkv, D), generator=gen, device="cuda").to(dtype)
@@ -860,8 +904,8 @@ def phase_paged_sweep(torch, da):
 
     cases = []
     for ps, n_max in ((16, 6), (64, 3), (128, 3)):
-        for g in (1, 4):
-            for D in HEAD_DIMS:
+        for g in (1, 4, 7):                          # 7: internvl2's group, at its D 64
+            for D in HEAD_DIMS if g != 7 else (64,):
                 for window in (None, 8):
                     cases.append(dict(B=4, ps=ps, n_max=n_max, Hkv=2, g=g, D=D, window=window,
                                       ts=[5, 2 * ps, n_max * ps - 1, n_max * ps - 1],
@@ -922,8 +966,8 @@ def phase_paged_sweep(torch, da):
     # K5's per-row form: ring caches holding each row's own history
     worst5, n5, fail5 = {dt: 0.0 for dt in TOL}, 0, []
     B, S, Hkv = 8, 532, 8
-    for g in (1, 4):
-        for D in HEAD_DIMS:
+    for g in (1, 4, 7):
+        for D in HEAD_DIMS if g != 7 else (64,):
             for window in (None, 128):
                 for dtype in (torch.bfloat16, torch.float32):
                     ts = torch.tensor([0, 7, 100, 531, 532, 900, 2000, 311], dtype=torch.int32,
@@ -1612,21 +1656,6 @@ def phase_moe_repeat(torch, get_config, TrainSession, stepfn, ParallelismConfig,
     require(same, "two MoE training runs from one seed differ")
     del pa, pb
     torch.cuda.empty_cache()
-
-
-def _moe_memory(get_config, measured):
-    """Phase 23's training peak beside ``core.memory.per_device_bytes``."""
-    from repro_torch.core.memory import per_device_bytes
-    cfg, _ = _dense_cfg(get_config, TRAIN_OLMOE)
-    spec = TRAIN_OLMOE
-    est = per_device_bytes(cfg, dp=1, tp=1, pp=1, mbs=spec["global_batch"] // spec["gas"],
-                           gas=spec["gas"], seq=spec["seq_len"], remat="full")
-    log(f"[olmoe train] peak {measured['peak_bytes']} B ({measured['peak_bytes'] / 1e9:.2f} GB) "
-        f"beside per_device_bytes {est['total']:.4g} B (params {est['params']:.4g}, grads "
-        f"{est['grads']:.4g}, optimizer {est['optimizer']:.4g}, activations "
-        f"{est['activations']:.4g}, logits {est['logits']:.4g}; ratio "
-        f"{measured['peak_bytes'] / est['total']:.3f}) and the card's 80 GB; profiled step "
-        f"{measured['device_ms']:.2f} ms of device time")
 
 
 def _decode_ms(torch, sess, prompts, N, profile=True):
@@ -4056,6 +4085,455 @@ def _pp_check(get_config, ref, outs, ranks_s, smi):
     return summary, launch_runs
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the VLM family
+# ---------------------------------------------------------------------------
+
+def phase_vlm(torch, np, build, InferenceSession, tree_map, smi):
+    """Phase 24's serving part (the training part is ``phase_train`` with
+    ``TRAIN_VLM``): internvl2-1b at full depth, random bf16 weights from
+    seed 0, its vision positions random embeddings.  Returns the counted
+    runs' launches."""
+    spec = VLM
+    runs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sess = InferenceSession.from_recipe(spec["arch"], seed=0)
+    torch.cuda.synchronize()
+    cfg = sess.cfg
+    L, V, nv, d = cfg.n_layers, cfg.vocab_size, cfg.n_vision_tokens, cfg.d_model
+    B, N = spec["batch"], spec["new_tokens"]
+    S = nv + spec["text_len"]
+    build_peak = torch.cuda.max_memory_allocated()
+    log(f"[vlm] {_describe(cfg, L)}; {nv} vision positions, {cfg.n_heads // cfg.n_kv_heads} "
+        f"query heads a KV head, {cfg.dtype}; build {time.perf_counter() - t0:.1f} s, peak "
+        f"{build_peak} B ({build_peak / 1e9:.3f} GB) for {2 * cfg.n_params() / 1e9:.3f} GB of "
+        f"bf16 weights")
+    rs = np.random.RandomState(0)
+    host = {"tokens": rs.randint(0, V, size=(B, S)).astype(np.int32),
+            "vision_embeds": rs.standard_normal((B, nv, d)).astype(np.float32)}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+
+    # the prefill over [vision; text], counted; held to the plain versions
+    # and to the plain versions on an f32 copy of the weights
+    build.launch_counts.clear()
+    lk = sess.prefill(batch, last_only=False)
+    torch.cuda.synchronize()
+    pre = dict(build.launch_counts)
+    require(pre == {"flash_fwd": L}, f"prefill launched {pre}, expected K1 {L}")
+    require(tuple(lk.shape) == (B, S, V) and bool(lk.isfinite().all()),
+            f"prefill gave {tuple(lk.shape)}, or non-finite logits")
+    runs.append(pre)
+    text = sess.prefill({"tokens": batch["tokens"]}, last_only=False)
+    moved = float((text[:, :nv] - lk[:, :nv]).abs().max())
+    del text
+    require(moved > 0, "the vision embeddings moved no logit of the vision positions")
+    with plain_versions():
+        lp = sess.prefill(batch, last_only=False)
+        sess32 = InferenceSession(dataclasses.replace(cfg, dtype="float32"),
+                                  tree_map(lambda x: x.float(), sess.params), device=sess.device)
+        lf = sess32.prefill(batch, last_only=False)
+        del sess32
+    floor = hold_to_floor("vlm", f"prefill logits over [{nv} vision; {S - nv} text] (B, S, V) = "
+                          f"{tuple(lk.shape)}", lk, lp, lf)
+    last = lk[:, -1].clone()
+    del lk, lp, lf
+    torch.cuda.empty_cache()
+
+    # the cache-populating prefill of the same batch, then N decode steps
+    # (token-only, as the reference's), counted
+    with torch.inference_mode():
+        caches = sess.init_cache(B, S + N)
+        build.launch_counts.clear()
+        logits, caches = sess.prefill_cache_step(sess.params, batch, caches)
+        tok = logits.argmax(-1).to(torch.int32)
+        toks = [tok]
+        for t in range(S, S + N):
+            tok, caches = sess.serve_step(sess.params, tok, t, caches)
+            toks.append(tok)
+        torch.cuda.synchronize()
+    c = dict(build.launch_counts)
+    want = {"flash_fwd": L, "decode_attention": L * N}
+    diff = float((logits - last).abs().max())
+    out = torch.stack(toks, 1).cpu().numpy()
+    log(f"[vlm] cache-populating prefill of the same batch, then {N} decode steps: launches "
+        f"{c} (expected {want}); its last-position logits against the prefill's: max |diff| "
+        f"{diff:.4g} (tol {LOGIT_FLOOR_FACTOR} x floor {floor:.4g})")
+    require(c == want, f"prefill_cache + {N} decode steps launched {c}, expected {want}")
+    require(diff <= LOGIT_FLOOR_FACTOR * floor, f"the cache prefill's logits differ by {diff}")
+    require(bool(((out >= 0) & (out < V)).all()), "decoded ids out of range")
+    runs.append(c)
+
+    # a decode step's host and device time, at the depth just served
+    with torch.inference_mode():
+        caches = sess.init_cache(B, S + N)
+        logits, caches = sess.prefill_cache_step(sess.params, batch, caches)
+        tok0 = logits.argmax(-1).to(torch.int32)
+
+        def decode():
+            tok = tok0
+            for t in range(S, S + N):
+                tok, _ = sess.serve_step(sess.params, tok, t, caches)
+
+        decode()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / N * 1e3
+        prof = profile_window(torch, decode, top=8)
+    dev = prof["device_ms"] / N if prof["device_ms"] else float("nan")
+    log(f"[vlm] decode step at batch {B}, positions {S}-{S + N - 1}: {host_ms:.3f} ms host "
+        f"clock, {dev:.3f} ms device time (profiled, {N} steps); {smi}")
+    _log_profile("vlm decode", prof, host_ms * N)
+    del caches, logits
+    torch.cuda.empty_cache()
+
+    # generate, text only, at B 8
+    P, G = spec["gen_prompt"], spec["gen_batch"]
+    prompts = rs.randint(0, V, size=(G, P)).astype(np.int32)
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    gen = sess.generate(prompts, N)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    c = dict(build.launch_counts)
+    want = {"flash_fwd": L, "decode_attention": L * (N - 1)}
+    g = gen.cpu().numpy()
+    log(f"[vlm] generate (text only) {tuple(gen.shape)} in {gen_s:.2f} s; launches {c} "
+        f"(expected {want})")
+    require(c == want, f"generate launched {c}, expected {want}")
+    require(g.shape == (G, P + N) and bool((g[:, :P] == prompts).all())
+            and bool(((g >= 0) & (g < V)).all()), "generate altered the prompts or ids")
+    runs.append(c)
+
+    # a short stream on contiguous slots; the paged pool refused
+    lens, gens = spec["stream_lens"], list(spec["stream_gens"])
+    stream = [rs.randint(1, V, size=n).astype(np.int32) for n in lens]
+    torch.cuda.reset_peak_memory_stats()
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    outs, st = sess.serve(stream, gens, n_slots=spec["slots"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = dict(build.launch_counts)
+    log(f"[vlm] stream: {st.requests} requests on {spec['slots']} slots, {st.generated_tokens} "
+        f"tokens, {st.decode_steps} decode steps in {wall:.2f} s (host clock); occupancy "
+        f"{st.occupancy:.4f}, stranded_fraction {st.stranded_fraction:.4f}; launches {c}; peak "
+        f"{torch.cuda.max_memory_allocated()} B")
+    require(st.requests == len(stream) and st.generated_tokens == sum(gens),
+            f"the stream served {st}")
+    require(c.get("decode_attention", 0) == L * st.decode_steps,
+            f"K5 launched {c.get('decode_attention', 0)} times, expected {L} x {st.decode_steps}")
+    require(c.get("flash_fwd", 0) > 0 and c["flash_fwd"] % L == 0,
+            f"K1 launched {c.get('flash_fwd', 0)} times, not a positive multiple of {L}")
+    require(c.get("paged_decode_attention", 0) == 0, "K6 ran on slots")
+    for pr, m, o in zip(stream, gens, outs):
+        require(len(o) == len(pr) + m and bool((o[:len(pr)] == pr).all()),
+                f"a request came back with {len(o)} tokens or altered")
+    runs.append(c)
+    try:
+        sess.serve(stream[:2], [2, 2], paged=True)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    log(f"[vlm] serve(paged=True) raises ValueError: {refused[:120]!r}")
+    require("paged" in refused, "the VLM served from the paged pool")
+    del sess, gen
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _train_memory(get_config, measured, spec, tag):
+    """A training phase's peak beside ``core.memory.per_device_bytes``."""
+    from repro_torch.core.memory import per_device_bytes
+    cfg, _ = _dense_cfg(get_config, spec)
+    est = per_device_bytes(cfg, dp=1, tp=1, pp=1, mbs=spec["global_batch"] // spec["gas"],
+                           gas=spec["gas"], seq=spec["seq_len"], remat="full")
+    log(f"[{tag}] peak {measured['peak_bytes']} B ({measured['peak_bytes'] / 1e9:.2f} GB) "
+        f"beside per_device_bytes {est['total']:.4g} B (params {est['params']:.4g}, grads "
+        f"{est['grads']:.4g}, optimizer {est['optimizer']:.4g}, activations "
+        f"{est['activations']:.4g}, logits {est['logits']:.4g}; ratio "
+        f"{measured['peak_bytes'] / est['total']:.3f}) and the card's 80 GB; profiled step "
+        f"{measured['device_ms']:.2f} ms of device time")
+    return est
+
+
+def _unembed_share(torch, get_config, measured, smi):
+    """The unembed's part of phase 24's training step: its forward and
+    backward (the f32 product of the hidden states with the tied table, and
+    the two products of its gradient) at one micro-batch's shape, in device
+    time, times the micro-batches, beside the step's profiled device time."""
+    from repro_torch.models import layers
+    cfg, _ = _dense_cfg(get_config, TRAIN_VLM)
+    T = TRAIN_VLM["global_batch"] // TRAIN_VLM["gas"] * TRAIN_VLM["seq_len"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    x = torch.randn((T, cfg.d_model), generator=gen, device="cuda").to(
+        cfg.compute_dtype).requires_grad_()
+    table = (0.02 * torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                                device="cuda")).requires_grad_()
+    cot = torch.randn((T, cfg.vocab_size), generator=gen, device="cuda")
+
+    def fwd_bwd():
+        torch.autograd.grad(layers.unembed(table, x), (x, table), cot)
+
+    ms = device_ms(torch, fwd_bwd, n=5)
+    step = ms * TRAIN_VLM["gas"]
+    flops = 3 * 2.0 * T * cfg.d_model * cfg.vocab_size
+    share = step / measured["device_ms"] if measured["device_ms"] else float("nan")
+    log(f"[vlm train] the unembed (f32, {T} x {cfg.d_model} by {cfg.d_model} x "
+        f"{cfg.vocab_size}, forward and backward) {ms:.3f} ms of device time a micro-batch, "
+        f"{step:.3f} ms a step of {TRAIN_VLM['gas']}: {share:.1%} of the step's "
+        f"{measured['device_ms']:.2f} ms ({flops / ms / 1e9:.1f} TFLOP/s against the f32 "
+        f"peak {H100_F32_FLOP_PER_S / 1e12:.0f}); {smi}")
+    del x, table, cot
+    torch.cuda.empty_cache()
+    return dict(ms_per_micro=ms, share=share)
+
+
+def _time_group7(torch, fa, da, smi):
+    """K1-K5 at internvl2's shapes (GQA 14/2: 7 query heads a KV head, D
+    64), bf16, in device time (``device_ms``), each beside its bound (phase
+    14's counts of bytes and operations) and its plain version (CUDA
+    events), held to it (2e-2): K1-K4 at one training micro-batch, q
+    (4,1024,14,64) and k/v (4,1024,2,64), causal; K5 at phase 24's decode,
+    q (4,1,14,64) over a full ring of 544 slots.  → {kernel: row}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    B, S, Hq, Hkv, D = 4, 1024, 14, 2, 64
+    q, do = (torch.randn((B, S, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    o, lse = fa.flash_fwd_plain(q, k, v, causal=True)
+    delta = fa.flash_delta_plain(o, do)
+    prod = 2 * B * Hq * D * (S * (S + 1) // 2)            # one (q, k, d) product
+    qb, kb, stats = 2 * q.numel(), 2 * k.numel(), 2 * 4 * lse.numel()
+    R = 544
+    qd = torch.randn((B, 1, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    kr, vr = (torch.randn((B, R, Hkv, D), generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    kpos, t = _ring(torch, B, R, fill=R - 1)
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal=True)[0],
+                      lambda: fa.flash_fwd_plain(q, k, v, causal=True)[0],
+                      bound(2 * qb + 2 * kb + stats / 2, 2 * prod)),
+        "flash_delta": (lambda: fa.flash_delta(o, do), lambda: fa.flash_delta_plain(o, do),
+                        bound(2 * qb + stats / 2, 0)),
+        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, causal=True),
+                     lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, causal=True),
+                     bound(3 * qb + 2 * kb + stats, 3 * prod)),
+        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal=True)[0],
+                      lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, causal=True)[0],
+                      bound(2 * qb + 4 * kb + stats, 4 * prod)),
+        "decode_attention": (lambda: da.decode_attention(qd, kr, vr, kpos, t=t),
+                             lambda: da.decode_attention_plain(qd, kr, vr, kpos, t=t),
+                             bound(2 * (2 * kr.numel() + 2 * qd.numel()) + 4 * kpos.numel(),
+                                   4 * B * Hq * D * R)),
+    }
+    rows = {}
+    for name, (kern, plain, (b_ms, b_by)) in calls.items():
+        err, ok = close(kern(), plain(), TOL["bfloat16"])
+        ms = device_ms(torch, kern)
+        plain_ms = time_ms(torch, plain, iters=5)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          max_abs_err=err)
+        log(f"[vlm kernels] {name} at internvl2's shape (14/2 heads of 64, bf16): device time "
+            f"{ms:.4f} ms, bound {b_ms * 1e3:.2f} us ({b_by}), {ms / b_ms:.1f}x it; plain "
+            f"{plain_ms:.4f} ms (CUDA events); max |kernel - plain| {err:.3g} "
+            f"({rule(TOL['bfloat16'])}); {smi}")
+        require(ok, f"{name} at internvl2's shape disagrees with its plain version: {err}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the MoE family under pipeline parallelism
+# ---------------------------------------------------------------------------
+
+def _moe_pp_session(mods, cfg, vpp, mesh=None):
+    """A TrainSession of phase 25: pp 2 over ``mesh``, or its stages in this
+    process."""
+    plan = mods.ParallelismConfig(pp=2, vpp=vpp, gas=MOE_PP["gas"], remat_policy="full")
+    return mods.TrainSession.from_recipe(
+        cfg, seed=0, plan=plan, mesh=mesh,
+        train_cfg=mods.stepfn.TrainConfig(total_steps=8, warmup=2),
+        data_cfg=mods.DataConfig(seq_len=MOE_PP["seq_len"], global_batch=MOE_PP["global_batch"]))
+
+
+def phase_moe_pp(torch, get_config, smi):
+    """olmoe at pp = 2 as two processes on the one card over gloo
+    (``_moe_pp_rank``), as phase 22 runs them; rank 0 computes the
+    one-device runs itself first."""
+    import socket
+    import torch.multiprocessing as mp
+    if MOE_PP_DIR.exists():
+        shutil.rmtree(MOE_PP_DIR)
+    MOE_PP_DIR.mkdir(parents=True)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    mp.start_processes(_moe_pp_rank, args=(MOE_PP["ranks"], port), nprocs=MOE_PP["ranks"],
+                       join=True, start_method="spawn")
+    outs = [torch.load(MOE_PP_DIR / f"rank{r}.pt", weights_only=False)
+            for r in range(MOE_PP["ranks"])]
+    ranks_s = time.perf_counter() - t0
+    shutil.rmtree(MOE_PP_DIR)
+    return _moe_pp_check(get_config, outs, ranks_s, smi)
+
+
+def _moe_pp_rank(rank: int, world: int, port: int) -> None:
+    """One rank of phase 25 (a spawned process): results to
+    ``MOE_PP_DIR/rank<r>.pt``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        torch.save(_moe_pp_rank_runs(torch), MOE_PP_DIR / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _moe_pp_rank_runs(torch):
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import tp
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import describe, make_recipe_mesh
+    mods = _dp_mods()
+    rank = dist.get_rank()
+    mesh = make_recipe_mesh(pp=2, device_type="cuda")
+    cfg = dataclasses.replace(get_config(MOE_PP["arch"]), n_layers=MOE_PP["n_layers"])
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    out = {"mesh": describe(mesh), "stage": mesh.coords["pp"]}
+    keys = ("loss", "xent", "aux", "skipped")
+
+    def step(sess):
+        m = sess.step()
+        return {k: float(m[k]) for k in keys}
+
+    for vpp in MOE_PP["vpps"]:
+        # f32: the one-device pipeline (its stages in one process) on rank 0,
+        # the other rank waiting; then the mesh
+        one = None
+        if rank == 0:
+            sess = _moe_pp_session(mods, f32, vpp)
+            one = step(sess)
+            del sess
+            torch.cuda.empty_cache()
+        dist.barrier()
+        sess = _moe_pp_session(mods, f32, vpp, mesh)
+        out[f"f32/vpp{vpp}"] = dict(mesh=step(sess), one=one)
+        del sess
+        torch.cuda.empty_cache()
+        # bf16: the counted step (launches, messages, memory, time) as a user
+        # routes; then the plain versions, their routes recorded, and the
+        # kernels again on those routes
+        torch.cuda.reset_peak_memory_stats()
+        sess = _moe_pp_session(mods, cfg, vpp, mesh)
+        init_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.synchronize()
+        build.launch_counts.clear()
+        tp.reset()
+        t0 = time.perf_counter()
+        counted = step(sess)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        run = dict(metrics=counted, launches=dict(build.launch_counts),
+                   collectives=dict(tp.by_group), bytes=dict(tp.bytes_by_group),
+                   peak_bytes=torch.cuda.max_memory_allocated(), init_peak=init_peak,
+                   step_s=host_s, in_flight=list(sess.train_step.in_flight))
+        del sess
+        torch.cuda.empty_cache()
+        with plain_versions(), routing() as seen:
+            run["plain"] = step(_moe_pp_session(mods, cfg, vpp, mesh))
+        torch.cuda.empty_cache()
+        with routing(replay=seen):
+            run["pinned"] = step(_moe_pp_session(mods, cfg, vpp, mesh))
+        del seen
+        torch.cuda.empty_cache()
+        out[f"bf16/vpp{vpp}"] = run
+    return out
+
+
+def _moe_pp_check(get_config, outs, ranks_s, smi):
+    """Phase 25's checks on the ranks' results → rank 0's counted
+    launches."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.memory import per_device_bytes
+    cfg = dataclasses.replace(get_config(MOE_PP["arch"]), n_layers=MOE_PP["n_layers"])
+    full = get_config(MOE_PP["arch"]).n_layers
+    L, gas, seq = cfg.n_layers, MOE_PP["gas"], MOE_PP["seq_len"]
+    mbs = MOE_PP["global_batch"] // gas
+    log(f"[moe pp] {_describe(cfg, full)}; {MOE_PP['ranks']} ranks ({outs[0]['mesh']}) ran in "
+        f"{ranks_s:.1f} s ({MOE_PP_LABEL}); pp 2, gas {gas}, {MOE_PP['global_batch']} x {seq}, "
+        f"remat full")
+    launches = []
+    for vpp in MOE_PP["vpps"]:
+        one = outs[0][f"f32/vpp{vpp}"]["one"]
+        for o in outs:
+            got = o[f"f32/vpp{vpp}"]["mesh"]
+            log(f"[moe pp] f32 vpp {vpp}, stage {o['stage']}: loss {got['loss']!r}, xent "
+                f"{got['xent']!r}, aux {got['aux']!r}; the one-device pipeline loss "
+                f"{one['loss']!r}, xent {one['xent']!r}, aux {one['aux']!r}")
+            require(all(got[k] == one[k] for k in ("loss", "xent", "aux"))
+                    and got["skipped"] == 0.0,
+                    f"f32 vpp {vpp}: the mesh's {got} are not the one-device pipeline's {one}")
+        sched = pipeline.Schedule(2, vpp, gas)
+        model = per_device_bytes(cfg, dp=1, tp=1, pp=2, mbs=mbs, gas=gas, seq=seq,
+                                 remat="full")
+        peaks = []
+        for o in outs:
+            run, p = o[f"bf16/vpp{vpp}"], o["stage"]
+            m = run["metrics"]
+            lp = L // 2
+            want = {"flash_fwd": 2 * lp * gas, "flash_delta": lp * gas, "flash_dq": lp * gas,
+                    "flash_dkv": lp * gas}
+            n, nbytes = expected_pp_p2p(2, vpp, gas, p, mbs=mbs, seq=seq, d_model=cfg.d_model,
+                                        itemsize=cfg.compute_dtype.itemsize)
+            got_n = {k: run["collectives"].get(k, 0) for k in n}
+            got_b = {k: run["bytes"].get(k, 0) for k in n}
+            rel = {k: abs(run["pinned"][k] - run["plain"][k]) / abs(run["plain"][k])
+                   for k in ("loss", "xent", "aux")}
+            peaks.append(run["peak_bytes"])
+            log(f"[moe pp] bf16 vpp {vpp}, stage {p}: loss {m['loss']:.6f}, xent "
+                f"{m['xent']:.6f}, aux {m['aux']:.6f}, skipped {m['skipped']:.0f}; launches "
+                f"{run['launches']} (expected {want}); messages {got_n}, {got_b} B (expected "
+                f"{n}, {nbytes}); in flight {run['in_flight']} (formula "
+                f"{sched.in_flight_formula(p)}); the routing pinned to the plain run's: "
+                f"kernels loss {run['pinned']['loss']:.6f}, xent {run['pinned']['xent']:.6f}, "
+                f"aux {run['pinned']['aux']:.6f}, plain {run['plain']['loss']:.6f}, "
+                f"{run['plain']['xent']:.6f}, {run['plain']['aux']:.6f} (relative "
+                f"differences {', '.join(f'{k} {v:.3g}' for k, v in rel.items())}; "
+                f"{rule(TOL['bfloat16'])}); peak {run['peak_bytes'] / 1e9:.3f} GB in the step "
+                f"({run['init_peak'] / 1e9:.3f} GB at init), memory model "
+                f"{model['total'] / 1e9:.3f} GB; the step {run['step_s'] * 1e3:.1f} ms host "
+                f"(the first: it also warms up; {MOE_PP_LABEL})")
+            require(math.isfinite(m["loss"]) and m["skipped"] == 0.0
+                    and math.isfinite(m["aux"]) and m["aux"] > 0, f"bf16 vpp {vpp}: {m}")
+            require(run["launches"] == want, f"bf16 vpp {vpp} stage {p}: launches "
+                    f"{run['launches']}, expected {want}")
+            require(got_n == n and got_b == nbytes, f"bf16 vpp {vpp} stage {p}: messages "
+                    f"{got_n} {got_b}, expected {n} {nbytes}")
+            require(run["in_flight"] == [sched.in_flight_formula(p)],
+                    f"bf16 vpp {vpp} stage {p}: in flight {run['in_flight']}")
+            require(all(v <= TOL["bfloat16"] for v in rel.values()),
+                    f"bf16 vpp {vpp}: kernels and plain versions part on pinned routes: {rel}")
+            require(m["loss"] == outs[0][f"bf16/vpp{vpp}"]["metrics"]["loss"],
+                    f"bf16 vpp {vpp}: the ranks' losses differ")
+        log(f"[moe pp] bf16 vpp {vpp}: the ranks' peaks together {sum(peaks) / 1e9:.3f} GB "
+            f"({', '.join(f'{x / 1e9:.3f}' for x in peaks)}); {smi}")
+        launches.append(outs[0][f"bf16/vpp{vpp}"]["launches"])
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a checkout of "
@@ -4173,13 +4651,26 @@ def main() -> int:
         ParallelismConfig, DataConfig, smi, spec=TRAIN_OLMOE, tag="olmoe train",
         after=lambda sess, floor: moe_eval.update(
             phase_eval(torch, build, EvalSession, sess, floor, TRAIN_OLMOE)))
-    _moe_memory(get_config, moe_measured)
+    _train_memory(get_config, moe_measured, TRAIN_OLMOE, "olmoe train")
     timed("23 moe f32 generate", phase_f32_identity, torch, np, fa, da, get_config,
           InferenceSession, MOE["arch"], 2)
     timed("23 moe f32 train", phase_train_f32_identity, torch, fa, da, get_config,
           TrainSession, stepfn, ParallelismConfig, DataConfig, MOE["arch"], 2)
     timed("23 moe repeat", phase_moe_repeat, torch, get_config, TrainSession, stepfn,
           ParallelismConfig, DataConfig)
+    vlm_launches = timed("24 vlm serve", phase_vlm, torch, np, build, InferenceSession,
+                         tree_map, smi)
+    vlm_train, vlm_measured = timed(
+        "24 vlm train", phase_train, torch, build, get_config, TrainSession, stepfn,
+        ParallelismConfig, DataConfig, smi, spec=TRAIN_VLM, tag="vlm train")
+    _train_memory(get_config, vlm_measured, TRAIN_VLM, "vlm train")
+    timed("24 vlm unembed", _unembed_share, torch, get_config, vlm_measured, smi)
+    timed("24 vlm kernels", _time_group7, torch, fa, da, smi)
+    timed("24 vlm f32 generate", phase_f32_identity, torch, np, fa, da, get_config,
+          InferenceSession, VLM["arch"], 2)
+    timed("24 vlm f32 train", phase_train_f32_identity, torch, fa, da, get_config,
+          TrainSession, stepfn, ParallelismConfig, DataConfig, VLM["arch"], 2)
+    moe_pp_launches = timed("25 moe pipeline", phase_moe_pp, torch, get_config, smi)
     timing = timed("14 timing", phase_timing, torch, fa, da, rn, smi)
     log(f"[phase] all phases {sum(seconds.values()):.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
@@ -4209,7 +4700,8 @@ def main() -> int:
     runs = [serve_launches, train_launches, *stream_launches.values(), *cli_launches,
             eval_launches, *(c for pair in dense_launches.values() for c in pair),
             *h2o_stream_launches.values(), h2o_train_launches, *tp_launches, *dp_launches,
-            *pp_launches, *moe_launches, moe_train, moe_eval]
+            *pp_launches, *moe_launches, moe_train, moe_eval, *vlm_launches, vlm_train,
+            *moe_pp_launches]
     log(f"[launches] generate {serve_launches}; train step {train_launches}; stream "
         f"{stream_launches}; training CLI (crashed, resumed) {cli_launches}; eval sweep "
         f"{eval_launches}; dense arm (prefill, generate) {dense_launches}; h2o stream "
@@ -4218,7 +4710,10 @@ def main() -> int:
         f"; dp = 2 rank 0 (a step at each of seven ZeRO settings) {dp_launches}; pp = 2 "
         f"rank 0 (stage 0: a step of vpp 1, vpp 2, remat stage, gas 8, and pp 2 x dp 2) "
         f"{pp_launches}; MoE (olmoe generate, prefill, stream; deepseek generate, prefill) "
-        f"{moe_launches}; olmoe train step {moe_train}; olmoe eval sweep {moe_eval}")
+        f"{moe_launches}; olmoe train step {moe_train}; olmoe eval sweep {moe_eval}; VLM "
+        f"(internvl2 prefill, cache prefill + decode, generate, stream) {vlm_launches}; "
+        f"internvl2 train step {vlm_train}; olmoe pp = 2 rank 0 (stage 0: a step of vpp 1 "
+        f"and vpp 2) {moe_pp_launches}")
     for kr in kernels:
         r = timing[kr["name"]]
         n = sum(c.get(kr["name"], 0) for c in runs)

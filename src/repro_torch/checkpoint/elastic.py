@@ -70,7 +70,7 @@ def host_snapshot(state: Dict[str, Any], plan: ParallelismConfig, *, mesh, cfg,
     stages = pipeline.split_stages(mesh, plan)
     rows = None
     if stages:
-        per = [pipeline.stage_layers(cfg.n_layers, plan, p) for p in range(plan.pp)]
+        per = [pipeline.stage_layers(zero.n_stacked(cfg), plan, p) for p in range(plan.pp)]
         rows = [[per[p][i] for p in range(plan.pp)] for i in range(len(per[0]))]
     specs = {}
     for path, _ in shapes:

@@ -40,6 +40,17 @@ mask`` over every micro-batch, accumulated in the parameters' own dtype
 (the masters' f32).  Remat ``"stage"`` recomputes a chunk from its kept
 input in the backward, with per-layer checkpoints inside (the reference's
 nested ``jax.checkpoint``).
+
+**The MoE family.**  The pipeline runs the stacked ``blocks`` (``n_layers
+- first_k_dense`` of them: a chunk is that count over pp·vpp); stage 0
+runs the unstacked ``pre_blocks`` after the embedding, as the reference's
+``embed_mb``, dropping their load-balance loss (zero for a dense block).
+Every stage holds the ``pre_blocks``, as every leaf outside ``blocks``.  A
+chunk returns its blocks' load-balance loss beside its output; the stage
+banks it per micro-batch, and the chunk's backward is seeded with
+``AUX_LOSS_COEF / gas`` for it (over the data-parallel replicas, each
+replica's share), so the routers of every stage take the gradient of the
+reference's ``xent + AUX_LOSS_COEF · Σ aux / gas``.
 """
 
 from __future__ import annotations
@@ -218,10 +229,15 @@ class _Stage:
     input), ``chunk(c, m, x)``, ``head(m, x)`` (the last chunk's ``Σ
     nll·mask``); what each forward keeps for its backward."""
 
-    def __init__(self, sched: Schedule, stage: int, fns, seed: Optional[torch.Tensor]):
+    def __init__(self, sched: Schedule, stage: int, fns, seed: Optional[torch.Tensor],
+                 aux_seed: float = 0.0):
         self.sched, self.stage, self.fns, self.seed = sched, stage, fns, seed
-        self.kept: Dict[Tuple[int, int], Tuple[Optional[torch.Tensor], torch.Tensor]] = {}
+        self.aux_seed = aux_seed
+        self.kept: Dict[Tuple[int, int], Tuple[Optional[torch.Tensor], torch.Tensor,
+                                               Optional[torch.Tensor]]] = {}
         self.sums: Dict[int, torch.Tensor] = {}
+        # the load-balance loss of each (micro-batch, chunk row) run here
+        self.auxes: Dict[Tuple[int, int], torch.Tensor] = {}
         self.peak = 0
 
     def forward(self, m: int, v: int, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -231,20 +247,34 @@ class _Stage:
             x = self.fns.embed(m)
         elif train:
             x = x.detach().requires_grad_()
-        y = self.fns.chunk(c, m, x)
+        y, aux = self.fns.chunk(c, m, x)
+        if aux is not None:
+            self.auxes[(m, v)] = aux.detach()
         if c == self.sched.last:
             y = self.fns.head(m, y)
             self.sums[m] = y.detach()
         if train:
-            self.kept[(m, v)] = (x if c else None, y)
+            self.kept[(m, v)] = (x if c else None, y, aux)
             self.peak = max(self.peak, len(self.kept))
         return None if c == self.sched.last else y.detach()
 
     def backward(self, m: int, v: int, dy: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-        c = self.sched.chunk(self.stage, v)
-        x, y = self.kept.pop((m, v))
-        torch.autograd.backward(y, self.seed.to(y.dtype) if dy is None else dy)
+        x, y, aux = self.kept.pop((m, v))
+        outs = [y]
+        seeds = [self.seed.to(y.dtype) if dy is None else dy]
+        if aux is not None and aux.requires_grad:
+            outs.append(aux)
+            seeds.append(torch.full((), self.aux_seed, dtype=aux.dtype, device=aux.device))
+        torch.autograd.backward(outs, seeds)
         return None if x is None else x.grad
+
+    def aux_sum(self, device) -> torch.Tensor:
+        """Σ of the load-balance losses banked here, in (micro-batch, chunk
+        row) order."""
+        total = torch.zeros((), dtype=torch.float32, device=device)
+        for key in sorted(self.auxes):
+            total = total + self.auxes[key]
+        return total
 
 
 def _key(kind: str, m: int, c: int, sched: Schedule) -> int:
@@ -312,13 +342,15 @@ def _run_p2p(sched: Schedule, st: _Stage, forward_only: bool, mesh,
 
 def _stage_fns(cfg, plan: ParallelismConfig, params, micros: List[Dict[str, torch.Tensor]],
                mesh):
-    """embed / chunk / head over ``params`` (this rank's) for the micro-batches."""
+    """embed / chunk / head over ``params`` (this rank's) for the
+    micro-batches; ``chunk`` → (x, the chunk's load-balance loss or None)."""
     from types import SimpleNamespace
     from repro_torch.models import transformer as T
     grad = torch.is_grad_enabled()
     inner = T.block_fn("full" if plan.remat_policy == "stage" else plan.remat_policy)
     local = split_stages(mesh, plan)
-    lc = cfg.n_layers // (plan.pp * plan.vpp)
+    kind, n_stacked, pre = T.layer_plan(cfg)
+    lc = n_stacked // (plan.pp * plan.vpp)
     blocks = params["blocks"]
     pos = [T.positions(mb["tokens"]) for mb in micros]
 
@@ -326,13 +358,17 @@ def _stage_fns(cfg, plan: ParallelismConfig, params, micros: List[Dict[str, torc
         i = (c // plan.pp) * lc if local else c * lc
         return blocks[i:i + lc]
 
-    def run(c: int, m: int, x: torch.Tensor) -> torch.Tensor:
+    def run(c: int, m: int, x: torch.Tensor):
         seg = micros[m].get("segment_ids")
+        aux = None
         for bp in layers_of(c):
-            x, _ = inner(cfg, bp, x, pos[m], window=cfg.swa_window, segment_ids=seg)
-        return x
+            x, a = inner(cfg, bp, x, pos[m], window=cfg.swa_window, segment_ids=seg,
+                         kind=kind)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return x, aux
 
-    def chunk(c: int, m: int, x: torch.Tensor) -> torch.Tensor:
+    def chunk(c: int, m: int, x: torch.Tensor):
         if plan.remat_policy == "stage" and grad:
             # the chunk recomputed whole from its input in the backward, its
             # per-layer checkpoints recomputing again inside (the reference's
@@ -342,24 +378,31 @@ def _stage_fns(cfg, plan: ParallelismConfig, params, micros: List[Dict[str, torc
         return run(c, m, x)
 
     def embed(m: int) -> torch.Tensor:
-        return T.embed_stream(cfg, {"embed": zero.gathered(params["embed"])},
-                              micros[m]["tokens"])
+        x = T.embed_stream(cfg, {"embed": zero.gathered(params["embed"])}, micros[m])
+        for bp, (_, k) in zip(params.get("pre_blocks", []), pre):
+            x, _ = inner(cfg, bp, x, pos[m], window=cfg.swa_window,
+                         segment_ids=micros[m].get("segment_ids"), kind=k)
+        return x
 
     def head(m: int, x: torch.Tensor) -> torch.Tensor:
-        top = zero.gathered({k: v for k, v in params.items() if k != "blocks"})
+        top = zero.gathered({k: v for k, v in params.items()
+                             if k not in ("blocks", "pre_blocks")})
         return T.nll_sum(cfg, top, x, micros[m]["labels"], micros[m].get("loss_mask"))
 
     return SimpleNamespace(embed=embed, chunk=chunk, head=head)
 
 
 def run_pipeline(cfg, plan: ParallelismConfig, params, micros: List[Dict[str, torch.Tensor]],
-                 *, seed: Optional[torch.Tensor] = None, mesh=None) -> Dict[str, Any]:
+                 *, seed: Optional[torch.Tensor] = None, aux_seed: float = 0.0,
+                 mesh=None) -> Dict[str, Any]:
     """Every micro-batch of ``micros`` through the schedule: forwards only
     when ``seed`` is None, else 1F1B with each backward seeded with ``seed``
-    (``1 / Σ mask`` of the whole batch), the gradients accumulating in the
-    leaves' ``.grad``.  → {"sum": Σ over the micro-batches of ``Σ
-    nll·mask`` in micro-batch order (0 on a rank without the last chunk),
-    "in_flight": [the most activations each local stage kept]}."""
+    (``1 / Σ mask`` of the whole batch) and the chunk's load-balance loss
+    with ``aux_seed``, the gradients accumulating in the leaves' ``.grad``.
+    → {"sum": Σ over the micro-batches of ``Σ nll·mask`` in micro-batch
+    order (0 on a rank without the last chunk), "aux": Σ of the local
+    stages' load-balance losses (0 for a dense stack), "in_flight": [the
+    most activations each local stage kept]}."""
     sched = Schedule(plan.pp, plan.vpp, plan.gas)
     forward_only = seed is None
     ctx = torch.no_grad() if forward_only else contextlib.nullcontext()
@@ -367,18 +410,20 @@ def run_pipeline(cfg, plan: ParallelismConfig, params, micros: List[Dict[str, to
     with ctx:
         fns = _stage_fns(cfg, plan, params, micros, mesh)
         if split_stages(mesh, plan):
-            stages = [_Stage(sched, mesh.coords["pp"], fns, seed)]
+            stages = [_Stage(sched, mesh.coords["pp"], fns, seed, aux_seed)]
             mbs, s = micros[0]["tokens"].shape
             shape = (mbs, s // tp.size() if tp.sequence_parallel() else s, cfg.d_model)
             _run_p2p(sched, stages[0], forward_only, mesh, (shape, cfg.compute_dtype, device))
         else:
-            stages = [_Stage(sched, p, fns, seed) for p in range(plan.pp)]
+            stages = [_Stage(sched, p, fns, seed, aux_seed) for p in range(plan.pp)]
             _run_in_process(sched, stages, forward_only)
     total = torch.zeros((), dtype=torch.float32, device=device)
+    aux = torch.zeros((), dtype=torch.float32, device=device)
     for st in stages:
         for m in sorted(st.sums):
             total = total + st.sums[m]
-    return {"sum": total, "in_flight": [st.peak for st in stages]}
+        aux = aux + st.aux_sum(device)
+    return {"sum": total, "aux": aux, "in_flight": [st.peak for st in stages]}
 
 
 def denominator(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -391,19 +436,45 @@ def denominator(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.clamp_min(torch.sum(mask.to(torch.float32)), 1.0)
 
 
+def check_layers(cfg, plan: ParallelismConfig) -> None:
+    """``plan.validate`` on ``cfg``'s layers, and pp·vpp dividing the
+    stacked ``blocks`` too (the reference asserts that in its
+    ``stack_for_pipeline``): a stack that no pp·vpp > 1 divides raises."""
+    from repro_torch.models import transformer as T
+    plan.validate(cfg.n_layers)
+    _, n_stacked, pre = T.layer_plan(cfg)
+    if n_stacked % (plan.pp * plan.vpp):
+        raise ValueError(f"{cfg.name}: the stacked blocks, {n_stacked} layers after "
+                         f"{len(pre)} unstacked pre_blocks, are not divisible by "
+                         f"pp*vpp={plan.pp}*{plan.vpp}")
+
+
 def pipeline_loss(cfg, params, batch: Dict[str, torch.Tensor], plan: ParallelismConfig, *,
                   mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The reference's ``pipeline_loss``: the batch through the pipeline's
-    forwards, ``xent = Σ nll·mask / Σ mask`` over every micro-batch (on a
-    mesh: every rank its rows, summed over the mesh).  → (loss, {"xent",
-    "aux"}); the dense arm has no auxiliary loss."""
-    plan.validate(cfg.n_layers)
-    micros = [{k: x[i] for k, x in split_micros(batch, plan.gas, mesh).items()}
+    forwards, ``xent = Σ nll·mask / Σ mask`` over every micro-batch and
+    ``aux = Σ load-balance loss / gas`` over every micro-batch and stage.
+    → (``xent + AUX_LOSS_COEF·aux``, {"xent", "aux"}).  On a mesh every
+    rank takes its rows, the sums over the mesh; a MoE batch is taken whole
+    on every rank of the ``(pod, data)`` plane, since the reference's eval
+    routes each micro-batch as one group."""
+    from repro_torch.models import transformer as T
+    check_layers(cfg, plan)
+    whole = mesh is not None and cfg.family == "moe"
+    rows = None if whole else mesh
+    micros = [{k: x[i] for k, x in split_micros(batch, plan.gas, rows).items()}
               for i in range(plan.gas)]
     out = run_pipeline(cfg, plan, params, micros, mesh=mesh)
-    xent = reduce_sum(out["sum"], mesh) / denominator(batch)
-    aux = torch.zeros((), dtype=torch.float32, device=xent.device)
-    return xent, {"xent": xent, "aux": aux}
+    xent = reduce_sum(out["sum"], mesh, plane=not whole) / denominator(batch)
+    aux = reduce_aux(cfg, out["aux"], mesh) / plan.gas
+    return xent + T.AUX_LOSS_COEF * aux, {"xent": xent, "aux": aux}
+
+
+def reduce_aux(cfg, aux: torch.Tensor, mesh) -> torch.Tensor:
+    """The stages' load-balance losses summed over the ``pp`` line (every
+    replica of the ``(pod, data)`` plane holds the same); a dense stack's is
+    0 on every stage and takes no collective."""
+    return reduce_sum(aux, mesh, plane=False) if cfg.family == "moe" else aux
 
 
 def split_micros(batch: Dict[str, torch.Tensor], gas: int, mesh=None
@@ -426,12 +497,12 @@ def split_micros(batch: Dict[str, torch.Tensor], gas: int, mesh=None
     return out
 
 
-def reduce_sum(x: torch.Tensor, mesh) -> torch.Tensor:
-    """``x`` summed over the ``pp`` line (one stage holds the loss) and the
-    ``(pod, data)`` plane (each replica its rows)."""
+def reduce_sum(x: torch.Tensor, mesh, *, plane: bool = True) -> torch.Tensor:
+    """``x`` summed over the ``pp`` line (one stage holds the loss) and,
+    with ``plane``, the ``(pod, data)`` plane (each replica its rows)."""
     if mesh is None:
         return x
-    for g in (mesh.groups["pp"], mesh.groups[("pod", "data")]):
+    for g in (mesh.groups["pp"], mesh.groups[("pod", "data")] if plane else None):
         if g is not None:
             x = tp.collective("all_reduce", x, g)
     return x

@@ -64,6 +64,7 @@ from repro_torch.core.tree import tree_leaves
 from repro_torch.models import api as model_api
 from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import AUX_LOSS_COEF
 from repro_torch.optim import adamw, schedule
 from repro_torch.optim.compress import apply_compression, init_error_feedback
 from repro_torch.runtime.resilience import ResilienceConfig
@@ -80,24 +81,20 @@ class TrainConfig:
 
 
 PARALLEL = "(ROADMAP Queue 1, item 3: the parallel recipe over torch.distributed)"
-MOE_PP = "(ROADMAP Queue 1, item 3.6: MoE under pp)"
 
 
 def check_plan(plan: ParallelismConfig, mesh=None, cfg: Optional[ModelConfig] = None) -> None:
     """The plan against the mesh.  Without a mesh tp, dp and pods compute as
     one device, as the reference computes them, and pp runs every stage in
     this process.  At pp > 1 ``plan.validate`` holds for ``cfg``'s layers
-    (pp·vpp divides them; gas % pp == 0 when vpp > 1).  On a mesh its tp,
-    pp, data and pod axes must be the plan's tp, pp, dp and pods, and tp
-    must divide ``cfg``'s heads, KV heads and d_ff, and a MoE config's
-    ``moe_d_ff`` (the port shards whole heads and whole columns).  A MoE
-    config at pp > 1 waits for a later PR (the load-balance loss through
-    the schedule)."""
+    (pp·vpp divides them; gas % pp == 0 when vpp > 1), and pp·vpp divides
+    the stacked blocks after a MoE config's ``first_k_dense`` unstacked
+    ones (``pipeline.check_layers``).  On a mesh its tp, pp, data and pod
+    axes must be the plan's tp, pp, dp and pods, and tp must divide
+    ``cfg``'s heads, KV heads and d_ff, and a MoE config's ``moe_d_ff``
+    (the port shards whole heads and whole columns)."""
     if plan.pp > 1 and cfg is not None:
-        if cfg.family == "moe":
-            raise NotImplementedError(f"{cfg.name} at pp={plan.pp}: the MoE family under "
-                                      f"pipeline parallelism is not ported yet {MOE_PP}")
-        plan.validate(cfg.n_layers)
+        pipeline.check_layers(cfg, plan)
     if mesh is None:
         return
     for name, axis in (("tp", "tp"), ("pp", "pp"), ("dp", "data"), ("pods", "pod")):
@@ -460,9 +457,11 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
         return loss, metrics, acc, aux
 
     def pipeline_grads(leaves, params, region, batch, chaos_scale):
-        """The gradients of ``Σ nll·mask / Σ mask`` over the whole batch
-        through the pipeline's schedule (this rank's rows of each
-        micro-batch on a dp mesh), the reference's one global verdict."""
+        """The gradients of ``Σ nll·mask / Σ mask + AUX_LOSS_COEF · Σ aux /
+        gas`` over the whole batch through the pipeline's schedule (this
+        rank's rows of each micro-batch on a dp mesh, routed as one group
+        of the step's, the load-balance loss its replica's share), the
+        reference's one global verdict."""
         micro = pipeline.split_micros(batch, plan.gas, mesh)
         denom = pipeline.denominator(batch)
         for p in leaves:
@@ -470,7 +469,8 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
         out = pipeline.run_pipeline(cfg, plan, params,
                                     [{k: x[i] for k, x in micro.items()}
                                      for i in range(plan.gas)],
-                                    seed=1.0 / denom, mesh=mesh)
+                                    seed=1.0 / denom,
+                                    aux_seed=AUX_LOSS_COEF / (plan.gas * n_plane), mesh=mesh)
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
         for p in leaves:
             p.grad = None
@@ -480,14 +480,15 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
                        lambda x: tp.collective("all_reduce", x, mesh.groups["pp"]))
         if chaos_scale is not None:
             _scale_(grads, torch.prod(chaos_scale.to(torch.float32)))
-        loss = pipeline.reduce_sum(out["sum"], mesh) / denom
+        xent = pipeline.reduce_sum(out["sum"], mesh) / denom
+        lb = pipeline.reduce_aux(cfg, out["aux"], mesh) / plan.gas
         usable = torch.isfinite(norm(grads))
         aux = {"usable": usable,
                "nonfinite_micros": (~usable).to(torch.int32),
                "bad_replicas": torch.zeros((), dtype=torch.int32, device=usable.device),
                "bad_micro_bits": (~usable).to(torch.float32)}
         in_flight[:] = out["in_flight"]
-        return loss, {"xent": loss, "aux": torch.zeros_like(loss)}, grads, aux
+        return xent + AUX_LOSS_COEF * lb, {"xent": xent, "aux": lb}, grads, aux
 
     def consensus_grads(leaves, params, batch, chaos_scale, rstat):
         """The fleet-voted verdict, the reference's ``consensus_grads``: the
@@ -713,7 +714,8 @@ def make_eval_step(cfg: ModelConfig, plan: ParallelismConfig, mesh=None):
     on a mesh every rank evaluates the whole batch (ZeRO-3's leaves
     gathered as the blocks run).  At pp > 1 the batch goes through the
     pipeline's forwards (``core.pipeline.pipeline_loss``; on a mesh each
-    replica its rows, the loss summed over the mesh).  A MoE batch routes
+    replica its rows, the loss summed over the mesh; a MoE batch whole on
+    every replica).  A MoE batch routes
     as one group on a mesh too: the reference's eval step sets no groups."""
     check_plan(plan, mesh, cfg)
     layout: Dict[str, Any] = {}

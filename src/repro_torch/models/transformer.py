@@ -13,8 +13,12 @@ unstacked ``pre_blocks`` list ahead of ``blocks`` (caches ``{"pre": [...],
 "blocks": [...]}``); its blocks return the load-balance loss beside x,
 summed into ``lm_loss`` with ``AUX_LOSS_COEF``, and it fills its caches by
 the decode scan (:func:`lm_prefill_scan`): capacity routing drops
-different tokens over a whole prompt than one position at a time.  The
-hybrid, xLSTM and VLM arms are not ported yet.
+different tokens over a whole prompt than one position at a time.  The VLM
+arm is the dense stack over ``[vision_embeds; tokens]``: the batch's
+``vision_embeds`` (B, nv, d), in the compute dtype, take the place of the
+first nv embedded positions (:func:`embed_inputs`), and ``lm_loss``
+masks those positions when the batch has no ``loss_mask``; decoding stays
+token-only.  The hybrid and xLSTM arms are not ported yet.
 
 Under tensor parallelism the blocks run ``core.tp``'s regions (in
 ``attention`` and ``layers.mlp_apply``) and the reference's
@@ -55,11 +59,11 @@ AUX_LOSS_COEF = 0.01
 
 def layer_plan(cfg: ModelConfig):
     """(scanned kind, number of layers, unstacked prefix) as in the
-    reference; the dense and MoE plans are ported."""
+    reference; the dense, VLM (a dense stack) and MoE plans are ported."""
     if cfg.family == "moe":
         return "moe", cfg.n_layers - cfg.first_k_dense, [
             (i, "dense") for i in range(cfg.first_k_dense)]
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1, item 4: other families)")
     return "dense", cfg.n_layers, []
@@ -189,10 +193,26 @@ def _seq_layout(x: torch.Tensor) -> torch.Tensor:
     return sharding.constrain(x, "batch", "seq", None)
 
 
-def embed_stream(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """The embedded tokens in the residual stream's layout (the first
-    stage's input)."""
-    return _seq_layout(_embed(cfg, params, tokens))
+def embed_inputs(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
+                 ) -> torch.Tensor:
+    """The embedded tokens, whole over the sequence; for a VLM batch with
+    ``vision_embeds`` (B, nv, d) those, in the compute dtype, in place of
+    the first nv positions (the reference's ``_embed_inputs``).  The splice
+    follows the vocabulary-parallel lookup's all-reduce, so each vision row
+    is counted once."""
+    x = _embed(cfg, params, batch["tokens"])
+    vis = batch.get("vision_embeds") if cfg.family == "vlm" else None
+    if vis is not None:
+        x = torch.cat([vis.to(x.dtype), x[:, vis.shape[1]:]], dim=1)
+    return x
+
+
+def embed_stream(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
+                 ) -> torch.Tensor:
+    """:func:`embed_inputs` in the residual stream's layout (the first
+    stage's input): the spliced sequence is what sequence parallel
+    scatters."""
+    return _seq_layout(embed_inputs(cfg, params, batch))
 
 
 def _gather_seq(x: torch.Tensor) -> torch.Tensor:
@@ -279,7 +299,7 @@ def _forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *
     block = block_fn(remat_policy)
     params = zero.gathered_top(params)
     tokens = batch["tokens"]
-    x = embed_stream(cfg, params, tokens)
+    x = embed_stream(cfg, params, batch)
     pos = positions(tokens)
     segment_ids = batch.get("segment_ids")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -299,10 +319,15 @@ def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
             remat_policy: str = "full") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """→ (loss, {"xent", "aux"}): the masked mean cross-entropy plus
     ``AUX_LOSS_COEF`` times the load-balance loss (0 for a dense stack: its
-    loss keeps the cross-entropy's bits)."""
+    loss keeps the cross-entropy's bits).  A VLM batch without a
+    ``loss_mask`` bears no loss at its first ``n_vision_tokens`` positions."""
     logits, aux = _forward(cfg, params, batch, remat_policy=remat_policy)
-    xent = layers.cross_entropy(logits, batch["labels"], batch.get("loss_mask"),
-                                vocab_size=cfg.vocab_size)
+    mask = batch.get("loss_mask")
+    if cfg.family == "vlm" and mask is None:
+        tokens = batch["tokens"]
+        keep = torch.arange(tokens.shape[1], device=tokens.device) >= cfg.n_vision_tokens
+        mask = keep.to(torch.float32)[None].expand(tokens.shape)
+    xent = layers.cross_entropy(logits, batch["labels"], mask, vocab_size=cfg.vocab_size)
     return xent + AUX_LOSS_COEF * aux, {"xent": xent, "aux": aux}
 
 
@@ -340,7 +365,7 @@ def lm_prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     holding padded positions are invalidated."""
     layer_plan(cfg)
     tokens = batch["tokens"]
-    x = _seq_layout(_embed(cfg, params, tokens))
+    x = embed_stream(cfg, params, batch)
     pos = positions(tokens)
     for bp, c in zip(params["blocks"], caches["blocks"]):
         x, _ = block_prefill(cfg, bp, x, pos, c, window=cfg.swa_window,
@@ -485,6 +510,11 @@ class DecoderOnlyLM:
         for the dense stack."""
         return ()
 
+    def extra_input_specs(self, cfg, batch_size):
+        """The family's non-token prefill inputs, {name: (shape, dtype)}:
+        none for a token-only stack."""
+        return {}
+
     def init_paged_pool(self, cfg, params, n_pages, page_size):
         return lm_paged_pool_init(cfg, n_pages, page_size, device=params["embed"].device)
 
@@ -508,3 +538,22 @@ class MoELM(DecoderOnlyLM):
 
     def param_sharding_hints(self, cfg):
         return moe_mod.SHARDING_HINTS
+
+
+class VLM(DecoderOnlyLM):
+    """The dense backbone over ``[vision_embeds; tokens]`` (see
+    :func:`embed_inputs`).  No paged pool: the paged suffix prefill is
+    token-only, and the vision rows at the leading positions would be
+    embedded as tokens; its hook raises as the reference's family hook."""
+
+    def supports_paged_cache(self, cfg):
+        return False
+
+    def init_paged_pool(self, cfg, params, n_pages, page_size):
+        raise NotImplementedError(
+            "vlm: paged KV pool unsupported (supports_paged_cache is False)")
+
+    def extra_input_specs(self, cfg, batch_size):
+        """The non-token prefill inputs: {name: (shape, dtype)}."""
+        return {"vision_embeds": ((batch_size, cfg.n_vision_tokens, cfg.d_model),
+                                  torch.float32)}

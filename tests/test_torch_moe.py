@@ -60,7 +60,6 @@ from repro_torch.session import TrainSession
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["olmoe_1b_7b", "deepseek_moe_16b"]
 SEQ, BATCH, GAS, LR = 32, 4, 2, 1e-4
-MOE_PP = "Queue 1, item 3.6: MoE under pp"
 
 
 def _flat(tree):
@@ -365,17 +364,28 @@ def test_family_hints_equal_reference():
 # refusals
 # ===========================================================================
 
-def test_pp_with_moe_raises_citing_its_roadmap_item():
-    cfg = get_config("olmoe_1b_7b").reduced()
-    with pytest.raises(NotImplementedError, match=MOE_PP):
-        TrainSession(dataclasses.replace(cfg, n_layers=4), plan=ParallelismConfig(pp=2),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match=MOE_PP):
-        stepfn.check_plan(ParallelismConfig(pp=2), None, cfg)
-    assert MOE_PP in (ROOT / "ROADMAP.md").read_text()
+def test_pp_refuses_an_unsplittable_moe_stack_and_builds_olmoe():
+    """deepseek-moe's stacked blocks (its layers after the dense first one)
+    divide by no pp·vpp > 1: the port raises a ``ValueError`` naming the
+    stack where the reference asserts in ``stack_for_pipeline``, at its own
+    depth and at its reduced one.  olmoe at pp 2 builds its train state."""
+    full = get_config("deepseek_moe_16b")
+    for pp, vpp, gas in ((2, 1, 2), (4, 1, 4), (2, 2, 2), (7, 1, 7)):
+        with pytest.raises(ValueError, match="divisible by|does not divide"):
+            stepfn.check_plan(ParallelismConfig(pp=pp, vpp=vpp, gas=gas), None, full)
+    red = get_config("deepseek_moe_16b").reduced()
+    with pytest.raises(ValueError, match="stacked blocks, 1 layers after 1 unstacked"):
+        TrainSession(red, plan=ParallelismConfig(pp=2, gas=2), device="cpu")
+    with pytest.raises(AssertionError, match="layers 1 not divisible by pp"):
+        jstepfn.init_state(jget_config("deepseek_moe_16b").reduced(), JPlan(pp=2, gas=2),
+                           jax.random.PRNGKey(0))
+    cfg = dataclasses.replace(get_config("olmoe_1b_7b").reduced(), n_layers=4)
+    sess = TrainSession(cfg, plan=ParallelismConfig(pp=2, gas=2), device="cpu")
+    assert len(sess.state["params"]["blocks"]) == 4
+    assert not hasattr(stepfn, "MOE_PP")
 
 
 def test_other_families_still_raise():
-    for arch in ("internvl2_1b", "xlstm_125m", "whisper_base", "hymba_15b"):
+    for arch in ("xlstm_125m", "whisper_base", "hymba_15b"):
         with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
             get_config(arch)

@@ -489,5 +489,8 @@ def test_pool_ops_and_unsupported_family(monkeypatch):
     assert not model_api.supports_paged_cache(cfg)
     with pytest.raises(ValueError, match="paged"):
         ContinuousBatchingScheduler(port, n_slots=1, max_len=16, paged=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ttf.lm_paged_pool_init(dataclasses.replace(cfg, family="vlm"), 3, 4, device="cpu")
+    vlm = dataclasses.replace(cfg, family="vlm")
+    assert not model_api.supports_paged_cache(vlm)
+    with pytest.raises(NotImplementedError,
+                       match=r"^vlm: paged KV pool unsupported \(supports_paged_cache is False\)$"):
+        model_api.init_paged_pool(vlm, port.params, 3, 4)

@@ -519,7 +519,7 @@ def test_refusal_messages_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match=families):
         dataclasses.replace(cfg, family="hybrid").n_params()
     with pytest.raises(NotImplementedError, match=families):
-        registry.family_of(dataclasses.replace(cfg, family="vlm"))
+        registry.family_of(dataclasses.replace(cfg, family="encdec"))
     with pytest.raises(NotImplementedError, match=families):
         transformer.layer_plan(dataclasses.replace(cfg, family="ssm"))
     from types import SimpleNamespace

@@ -4,8 +4,8 @@ Reduced configs in f32 (``granite_3_2b``: GQA, RMSNorm, SwiGLU;
 ``gpt_36b``: MHA, LayerNorm, GELU, tied embeddings).  The reference's
 parameters and whole train states cross over by path
 (``checkpoint/bridge.py``).  Held to the reference: ``lm_loss`` and its
-gradients (on the reference's einsum path and its Pallas path in interpret
-mode, with and without packed segments, under both remat policies), three
+gradients (``_check_loss_and_grads``, whose tests are in
+``test_torch_training_grads.py`` and ``test_torch_training_dense.py``), three
 ``TrainSession.step`` calls (loss traces, metrics and params, for gas 1 and
 2, without compression and with int8 error feedback), the traps of the
 port (weight decay by the reference's stacked rank, a NaN micro-batch, an
@@ -88,22 +88,10 @@ def _path_ctx(path):
 # loss and gradients
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("path", ["default", "pallas"])
-@pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("remat", ["none", "full", "dots", "stage"])
-def test_lm_loss_and_grads_match_reference(arch, path, packed, remat):
-    _check_loss_and_grads(arch, path, packed, remat)
-
-
-@pytest.mark.parametrize("arch", DENSE_ARM)
-@pytest.mark.parametrize("path", ["default", "pallas"])
-@pytest.mark.parametrize("packed", [False, True])
-def test_dense_arm_loss_and_grads_match_reference(arch, path, packed):
-    """The later dense configs under the default remat policy ("full"):
-    what is new for them is the architecture, not the policy."""
-    _check_loss_and_grads(arch, path, packed, "full")
-
+# the tests of ``_check_loss_and_grads`` are in test_torch_training_grads.py
+# (the two smoke configs under every remat policy) and
+# test_torch_training_dense.py (the dense arm), files of their own so that
+# ``--dist loadfile`` spreads them over the workers
 
 def _check_loss_and_grads(arch, path, packed, remat):
     """Loss (1e-5 relative) and every gradient (5e-4) against ``jax.grad``
@@ -236,20 +224,6 @@ def test_three_steps_match_reference(gas, compression):
     assert n_ties <= 1e-4 * n, (n_ties, n)
     for (path, d), tie in zip(params, ties):
         assert float(torch.where(tie, 0.0, d).max()) <= 1e-5, path
-
-
-@pytest.mark.parametrize("arch", DENSE_ARM)
-def test_dense_arm_three_steps_match_reference(arch):
-    """The later dense configs: three steps at gas 2, losses and metrics
-    (1e-5) and the params after them (1e-5)."""
-    ref, port = _sessions(arch, gas=2)
-    for mr, mp in _step_both(ref, port, 3):
-        np.testing.assert_allclose(mp["loss"], mr["loss"], rtol=1e-5)
-        for k in ("xent", "grad_norm", "lr"):
-            np.testing.assert_allclose(mp[k], mr[k], rtol=1e-5, atol=1e-6, err_msg=k)
-        assert mp["skipped"] == mr["skipped"] == 0.0
-    assert int(port.state["step"]) == 3
-    _close_trees(port.state["params"], _flat(ref.state), 1e-5)
 
 
 @pytest.mark.parametrize("remat,fwd_per_layer", [("full", 2), ("none", 1), ("dots", 2),
