@@ -177,8 +177,8 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    crashed, the ranks' events equal) and its checkpoint restored on one
    device (the same loss);
 22. (run after 21) pipeline parallelism at pp = 2 as two processes on the
-   one card, as 20 and 21 run them: gpt-3.6b at published width, 8 of 30
-   layers (2 a chunk at vpp 2), 8 x 1024 tokens in 4 micro-batches (mbs
+   one card, as 20 and 21 run them: gpt-3.6b at published width, 4 of 30
+   layers (1 a chunk at vpp 2), 8 x 1024 tokens in 4 micro-batches (mbs
    2), remat full, bf16 over f32 masters, one counted step (at vpp 1 after
    a first), at vpp 1, vpp 2 and vpp 2 under remat "stage", then vpp 1 at
    gas 8 (16 x 1024): each rank's K1-K4 launches exact (K1 2 a layer of its stage a
@@ -221,8 +221,8 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    contiguous slots, ``paged=True`` refused; 3 training steps, 8 x 1024
    in 2 micro-batches (phase 9's checks; peak memory beside
    ``per_device_bytes``; the f32 unembed's device time against the step's);
-   K1-K5 at its shapes (a group of 7) timed beside their bounds and plain
-   versions; the f32 identities of 6 and 10 at 2 layers;
+   K1-K5 at its shapes (a group of 7) timed beside their bounds, plain
+   versions and SDPA; the f32 identities of 6 and 10 at 2 layers;
 25. (run after 24) the MoE family under pipeline parallelism: olmoe at
    published width, 4 of 16 layers, pp = 2 as two processes on the one
    card (as 22), 4 x 1024 tokens in 4 micro-batches, remat full, vpp 1 and
@@ -232,7 +232,24 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    memory beside ``per_device_bytes``), then the plain versions and the
    kernels on the plain run's routes (``routing(replay=)``): loss, xent and
    aux within 2e-2;
-26. prints each phase's seconds, a ``{"planning": {...}}`` line, a
+26. (run after 25) the hybrid family at published width, bf16: hymba-1.5b
+   (32 layers, d 1600, 25/5 heads of 64, 25 SSM heads of 128 channels,
+   state 16, vocab 32001; a window of 1024 but on layers 0, 16 and 31) at
+   full depth: ``generate`` at B 4 of a 64-token prompt and 64 new tokens
+   (the prompt through the decode scan: K5 once a layer a position, no
+   K1), a decode step's host and device time, ``prefill`` at 2 x 2048 (the
+   window binds; K1 once a layer) held to phase 5's rule, a stream on 4
+   contiguous slots (K5 a layer a decode step and a layer a prompt token),
+   ``paged=True`` refused; 3 training steps at full depth, 4 x 2048 in one
+   micro-batch, remat full (phase 9's checks; peak memory beside
+   ``per_device_bytes``); K1-K5 at its shapes (a group of 5; K1-K4 with
+   the window and without, K5 over a 1024-slot and a 128-slot ring) timed
+   beside their bounds, plain versions and SDPA; the f32 identities of 6
+   and 10 at 4 layers (global 0, 2, 3; SWA 1); pp = 2 as two ranks on the
+   card at 8 layers, vpp 1 and 2: the f32 loss and xent equal the
+   one-device pipeline's in bits, one bf16 step of vpp 2 counted (launches
+   and messages exact);
+27. prints each phase's seconds, a ``{"planning": {...}}`` line, a
    ``{"tp": {...}}`` line, a ``{"dp": {...}}`` line, a ``{"pp": {...}}``
    line, a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
    {...}}``.
@@ -324,6 +341,19 @@ MOE_PP = dict(ranks=2, arch="olmoe_1b_7b", n_layers=4, seq_len=1024, global_batc
               vpps=(1, 2))
 MOE_PP_DIR = ROOT / "build" / "chip_smoke_moe_pp"
 MOE_PP_LABEL = "two ranks time-sliced on one card over gloo"
+# phase 26: the hybrid family.  hymba-1.5b at full depth (32 layers, d 1600,
+# 25/5 heads of 64, 25 SSM heads of 128 channels, state 16; a window of 1024
+# but on layers 0, 16 and 31): generate at B 4 (a 64-token prompt through
+# the decode scan, 64 new tokens), prefill at 2 x 2048 (the window binds),
+# a stream on contiguous slots; trained at full depth, 4 x 2048 in one
+# micro-batch (the SSD's chunk carry over 8 chunks of 256); pp 2 over two
+# ranks at 8 layers (global layers 0, 4 and 7: on both stages)
+HYBRID = dict(arch="hymba_15b", batch=4, prompt_len=64, new_tokens=64, prefill=(2, 2048),
+              slots=4, stream_lens=(24, 40, 9, 33, 17), stream_gens=(16, 8, 12, 8, 4))
+TRAIN_HYMBA = dict(arch="hymba_15b", seq_len=2048, global_batch=4, gas=1, steps=3)
+HYBRID_PP = dict(ranks=2, arch="hymba_15b", n_layers=8, seq_len=1024, global_batch=4, gas=2,
+                 vpps=(1, 2))
+HYBRID_PP_DIR = ROOT / "build" / "chip_smoke_hybrid_pp"
 # the GEMM sweep of the planning phase: bf16 (M x K) @ (K x N), granite's
 # MLP up-projection, M from 16 to 16384 in powers of two
 GEMM = dict(k=2048, n=8192, ms=tuple(2**i for i in range(4, 15)))
@@ -378,10 +408,11 @@ DP_VOTES = ("bad0", "bad1", "both")
 DP_SWEEP = (*((z, kw, False) for z, kw in DP_RUNS), (3, {}, True))
 DP_DIR = ROOT / "build" / "chip_smoke_dp"
 DP_LABEL = "ranks time-sliced on one card over gloo: they say nothing of NVLink"
-# phase 22: gpt-3.6b at published width, 8 of its 30 layers (2 a chunk at pp
-# 2 x vpp 2), 8 x 1024 tokens in 4 micro-batches, bf16 over f32 masters;
-# the f32 identities at 4 layers; the memory check at gas 8 (16 x 1024)
-PP = dict(ranks=2, arch="gpt_36b", n_layers=8, f32_layers=4, seq_len=1024, global_batch=8,
+# phase 22: gpt-3.6b at published width, 4 of its 30 layers (1 a chunk at pp
+# 2 x vpp 2; 8 until phase 26 took the time), 8 x 1024 tokens in 4
+# micro-batches, bf16 over f32 masters; the f32 identities at 4 layers; the
+# memory check at gas 8 (16 x 1024)
+PP = dict(ranks=2, arch="gpt_36b", n_layers=4, f32_layers=4, seq_len=1024, global_batch=8,
           gas=4, big_gas=8, eval_step=5)
 PP_RUNS = (("pp2", {}), ("pp2-vpp2", {"vpp": 2}),
            ("pp2-vpp2-stage", {"vpp": 2, "remat_policy": "stage"}),
@@ -524,11 +555,14 @@ def bound(nbytes: float, flops: float):
 def profile_window(torch, fn, top: int = 8):
     """Run ``fn`` under ``torch.profiler``: host wall time (inflated by the
     profiler), summed device time of the kernels, the kernels that take
-    most of it as (ms, launches, name), and every kernel as ``all``."""
+    most of it as (ms, launches, name), and every kernel as ``all``.  Only
+    the device's activity is traced: the host's operator events add nothing
+    to these figures, and summing them cost a minute for a window of ~10^5
+    launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1658,9 +1692,10 @@ def phase_moe_repeat(torch, get_config, TrainSession, stepfn, ParallelismConfig,
     torch.cuda.empty_cache()
 
 
-def _decode_ms(torch, sess, prompts, N, profile=True):
+def _decode_ms(torch, sess, prompts, N, profile=True, profile_steps=None):
     """(ms a decode step, host clock, mean over N - 1 steps after the
-    prefill; the profile of those steps, or None)."""
+    prefill; the profile of those steps, or of the first ``profile_steps``
+    of them, or None)."""
     B, P = prompts.shape
     pt = torch.from_numpy(prompts).cuda()
     with torch.inference_mode():
@@ -1668,9 +1703,9 @@ def _decode_ms(torch, sess, prompts, N, profile=True):
         logits, caches = sess.prefill_cache_step(sess.params, {"tokens": pt}, caches)
         tok0 = logits.argmax(-1).to(torch.int32)
 
-        def decode():
+        def decode(steps=N - 1):
             tok = tok0
-            for t in range(P, P + N - 1):
+            for t in range(P, P + steps):
                 tok, _ = sess.serve_step(sess.params, tok, t, caches)
 
         decode()                                # warm
@@ -1679,7 +1714,10 @@ def _decode_ms(torch, sess, prompts, N, profile=True):
         decode()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / (N - 1) * 1e3
-        prof = profile_window(torch, decode, top=12) if profile else None
+        prof = None
+        if profile:
+            prof = profile_window(torch, functools.partial(decode, profile_steps or N - 1),
+                                  top=12)
     return ms, prof
 
 
@@ -1906,17 +1944,28 @@ def phase_eval(torch, build, EvalSession, sess, floor, spec=TRAIN):
 
 
 def phase_train_f32_identity(torch, fa, da, get_config, TrainSession, stepfn,
-                             ParallelismConfig, DataConfig, arch=TRAIN["arch"], n_layers=2):
+                             ParallelismConfig, DataConfig, arch=TRAIN["arch"], n_layers=2,
+                             f32_floor=False):
     """``arch`` at full width, ``n_layers`` layers, f32: the kernels and the
-    plain versions each take 3 steps from the same state (the same seed)."""
+    plain versions each take 3 steps from the same state (the same seed).
+    With ``f32_floor`` (a model whose f32 training is itself sensitive to
+    one rounding: hymba's SSD subtracts chunk sums that reach thousands), a
+    third run, the plain versions from the same state with the embedding
+    table scaled by 1 + 2^-23 (one f32 rounding), gives the floor: the
+    params of kernels and plain versions may differ by at most 2x what that
+    rounding moves them (phase 5's rule, in f32), where the other configs
+    are held to 1e-4."""
     from repro_torch.core.tree import tree_leaves
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype="float32")
 
-    def run(plain):
+    def run(plain, nudge=False):
         sess = TrainSession.from_recipe(
             cfg, seed=1, plan=ParallelismConfig(gas=2, remat_policy="full"),
             train_cfg=stepfn.TrainConfig(total_steps=3, warmup=1),
             data_cfg=DataConfig(seq_len=256, global_batch=4))
+        if nudge:
+            with torch.no_grad():
+                sess.state["params"]["embed"].mul_(1 + 2.0 ** -23)
         ctx = plain_versions() if plain else contextlib.nullcontext()
         with ctx:
             losses = [float(sess.step()["loss"]) for _ in range(3)]
@@ -1925,14 +1974,28 @@ def phase_train_f32_identity(torch, fa, da, get_config, TrainSession, stepfn,
     losses_k, params_k = run(False)
     losses_p, params_p = run(True)
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
-    errs = [close(a, b, 1e-4) for (_, a), (_, b) in zip(tree_leaves(params_k),
-                                                       tree_leaves(params_p))]
-    worst = max(e for e, _ in errs)
-    log(f"[f32 train] {cfg.name} at full width, {n_layers} layer(s), f32, 3 steps: losses kernel "
-        f"{losses_k}, plain {losses_p} (max rel diff {rel:.3g}, tol 1e-5); params max "
-        f"|kernel - plain| {worst:.3g} ({rule(1e-4)})")
+    errs = [("/".join(map(str, path)), close(a, b, 1e-4))
+            for (path, a), (_, b) in zip(tree_leaves(params_k), tree_leaves(params_p))]
+    worst, at = max((e, p) for p, (e, _) in errs)
+    text = (f"[f32 train] {cfg.name} at full width, {n_layers} layer(s), f32, 3 steps: losses "
+            f"kernel {losses_k}, plain {losses_p} (max rel diff {rel:.3g}, tol 1e-5); params "
+            f"max |kernel - plain| {worst:.3g} at {at}")
     require(rel <= 1e-5, f"f32 losses differ by {rel:.3g} relative")
-    require(all(ok for _, ok in errs), f"f32 params differ by up to {worst:.3g}")
+    if f32_floor:
+        _, params_n = run(True, nudge=True)
+        floor, f_at = max((float((a - b).detach().abs().max()), "/".join(map(str, path)))
+                          for (path, a), (_, b) in zip(tree_leaves(params_p),
+                                                       tree_leaves(params_n)))
+        log(f"{text}; f32 floor: the plain run with its embedding scaled by 1 + 2^-23 moves "
+            f"the params by up to {floor:.3g} (at {f_at}) (tol: kernel - plain <= "
+            f"{LOGIT_FLOOR_FACTOR} x floor)")
+        require(worst <= LOGIT_FLOOR_FACTOR * floor,
+                f"f32 params differ by up to {worst:.3g}, more than {LOGIT_FLOOR_FACTOR} x "
+                f"the f32 floor {floor:.3g}")
+        del params_n
+    else:
+        log(f"{text} ({rule(1e-4)})")
+        require(all(ok for _, (_, ok) in errs), f"f32 params differ by up to {worst:.3g}")
     del params_k, params_p
     torch.cuda.empty_cache()
 
@@ -4293,100 +4356,44 @@ def _unembed_share(torch, get_config, measured, smi):
     return dict(ms_per_micro=ms, share=share)
 
 
-def _time_group7(torch, fa, da, smi):
-    """K1-K5 at internvl2's shapes (GQA 14/2: 7 query heads a KV head, D
-    64), bf16, in device time (``device_ms``), each beside its bound (phase
-    14's counts of bytes and operations) and its plain version (CUDA
-    events), held to it (2e-2): K1-K4 at one training micro-batch, q
-    (4,1024,14,64) and k/v (4,1024,2,64), causal; K5 at phase 24's decode,
-    q (4,1,14,64) over a full ring of 544 slots.  → {kernel: row}."""
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(7)
-    B, S, Hq, Hkv, D = 4, 1024, 14, 2, 64
-    q, do = (torch.randn((B, S, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
-             for _ in range(2))
-    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(torch.bfloat16)
-            for _ in range(2))
-    o, lse = fa.flash_fwd_plain(q, k, v, causal=True)
-    delta = fa.flash_delta_plain(o, do)
-    prod = 2 * B * Hq * D * (S * (S + 1) // 2)            # one (q, k, d) product
-    qb, kb, stats = 2 * q.numel(), 2 * k.numel(), 2 * 4 * lse.numel()
-    R = 544
-    qd = torch.randn((B, 1, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
-    kr, vr = (torch.randn((B, R, Hkv, D), generator=gen, device="cuda").to(torch.bfloat16)
-              for _ in range(2))
-    kpos, t = _ring(torch, B, R, fill=R - 1)
-    calls = {
-        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal=True)[0],
-                      lambda: fa.flash_fwd_plain(q, k, v, causal=True)[0],
-                      bound(2 * qb + 2 * kb + stats / 2, 2 * prod)),
-        "flash_delta": (lambda: fa.flash_delta(o, do), lambda: fa.flash_delta_plain(o, do),
-                        bound(2 * qb + stats / 2, 0)),
-        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, causal=True),
-                     lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, causal=True),
-                     bound(3 * qb + 2 * kb + stats, 3 * prod)),
-        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal=True)[0],
-                      lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, causal=True)[0],
-                      bound(2 * qb + 4 * kb + stats, 4 * prod)),
-        "decode_attention": (lambda: da.decode_attention(qd, kr, vr, kpos, t=t),
-                             lambda: da.decode_attention_plain(qd, kr, vr, kpos, t=t),
-                             bound(2 * (2 * kr.numel() + 2 * qd.numel()) + 4 * kpos.numel(),
-                                   4 * B * Hq * D * R)),
-    }
-    rows = {}
-    for name, (kern, plain, (b_ms, b_by)) in calls.items():
-        err, ok = close(kern(), plain(), TOL["bfloat16"])
-        ms = device_ms(torch, kern)
-        plain_ms = time_ms(torch, plain, iters=5)
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                          max_abs_err=err)
-        log(f"[vlm kernels] {name} at internvl2's shape (14/2 heads of 64, bf16): device time "
-            f"{ms:.4f} ms, bound {b_ms * 1e3:.2f} us ({b_by}), {ms / b_ms:.1f}x it; plain "
-            f"{plain_ms:.4f} ms (CUDA events); max |kernel - plain| {err:.3g} "
-            f"({rule(TOL['bfloat16'])}); {smi}")
-        require(ok, f"{name} at internvl2's shape disagrees with its plain version: {err}")
-    return rows
-
-
 # ---------------------------------------------------------------------------
 # phase 25: the MoE family under pipeline parallelism
 # ---------------------------------------------------------------------------
 
-def _moe_pp_session(mods, cfg, vpp, mesh=None):
-    """A TrainSession of phase 25: pp 2 over ``mesh``, or its stages in this
-    process."""
-    plan = mods.ParallelismConfig(pp=2, vpp=vpp, gas=MOE_PP["gas"], remat_policy="full")
+def _family_pp_session(mods, cfg, spec, vpp, mesh=None):
+    """A TrainSession of phase 25 or 26 (``spec``: ``MOE_PP`` or
+    ``HYBRID_PP``): pp 2 over ``mesh``, or its stages in this process."""
+    plan = mods.ParallelismConfig(pp=2, vpp=vpp, gas=spec["gas"], remat_policy="full")
     return mods.TrainSession.from_recipe(
         cfg, seed=0, plan=plan, mesh=mesh,
         train_cfg=mods.stepfn.TrainConfig(total_steps=8, warmup=2),
-        data_cfg=mods.DataConfig(seq_len=MOE_PP["seq_len"], global_batch=MOE_PP["global_batch"]))
+        data_cfg=mods.DataConfig(seq_len=spec["seq_len"], global_batch=spec["global_batch"]))
 
 
-def phase_moe_pp(torch, get_config, smi):
-    """olmoe at pp = 2 as two processes on the one card over gloo
-    (``_moe_pp_rank``), as phase 22 runs them; rank 0 computes the
-    one-device runs itself first."""
+def _spawn_ranks(torch, runs: str, ranks: int, out_dir: Path):
+    """``runs`` (the name of a function of this module) in ``ranks``
+    processes on the one card over gloo (``_rank_main``), as phase 22 runs
+    them → (each rank's results, the seconds they took)."""
     import socket
     import torch.multiprocessing as mp
-    if MOE_PP_DIR.exists():
-        shutil.rmtree(MOE_PP_DIR)
-    MOE_PP_DIR.mkdir(parents=True)
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
     with socket.socket() as sk:
         sk.bind(("localhost", 0))
         port = sk.getsockname()[1]
     t0 = time.perf_counter()
-    mp.start_processes(_moe_pp_rank, args=(MOE_PP["ranks"], port), nprocs=MOE_PP["ranks"],
+    mp.start_processes(_rank_main, args=(ranks, port, runs, str(out_dir)), nprocs=ranks,
                        join=True, start_method="spawn")
-    outs = [torch.load(MOE_PP_DIR / f"rank{r}.pt", weights_only=False)
-            for r in range(MOE_PP["ranks"])]
-    ranks_s = time.perf_counter() - t0
-    shutil.rmtree(MOE_PP_DIR)
-    return _moe_pp_check(get_config, outs, ranks_s, smi)
+    outs = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(ranks)]
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(out_dir)
+    return outs, seconds
 
 
-def _moe_pp_rank(rank: int, world: int, port: int) -> None:
-    """One rank of phase 25 (a spawned process): results to
-    ``MOE_PP_DIR/rank<r>.pt``."""
+def _rank_main(rank: int, world: int, port: int, runs: str, out_dir: str) -> None:
+    """One spawned rank of ``_spawn_ranks``: gloo over localhost on
+    ``cuda:0``, ``runs``'s results to ``out_dir/rank<r>.pt``."""
     sys.path.insert(0, str(SRC))
     import torch
     import torch.distributed as dist
@@ -4396,9 +4403,17 @@ def _moe_pp_rank(rank: int, world: int, port: int) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
                             world_size=world)
     try:
-        torch.save(_moe_pp_rank_runs(torch), MOE_PP_DIR / f"rank{rank}.pt")
+        torch.save(globals()[runs](torch), Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def phase_moe_pp(torch, get_config, smi):
+    """olmoe at pp = 2 as two processes on the one card over gloo
+    (``_moe_pp_rank_runs``), as phase 22 runs them; rank 0 computes the
+    one-device runs itself first."""
+    outs, ranks_s = _spawn_ranks(torch, "_moe_pp_rank_runs", MOE_PP["ranks"], MOE_PP_DIR)
+    return _moe_pp_check(get_config, outs, ranks_s, smi)
 
 
 def _moe_pp_rank_runs(torch):
@@ -4424,12 +4439,12 @@ def _moe_pp_rank_runs(torch):
         # the other rank waiting; then the mesh
         one = None
         if rank == 0:
-            sess = _moe_pp_session(mods, f32, vpp)
+            sess = _family_pp_session(mods, f32, MOE_PP, vpp)
             one = step(sess)
             del sess
             torch.cuda.empty_cache()
         dist.barrier()
-        sess = _moe_pp_session(mods, f32, vpp, mesh)
+        sess = _family_pp_session(mods, f32, MOE_PP, vpp, mesh)
         out[f"f32/vpp{vpp}"] = dict(mesh=step(sess), one=one)
         del sess
         torch.cuda.empty_cache()
@@ -4437,7 +4452,7 @@ def _moe_pp_rank_runs(torch):
         # routes; then the plain versions, their routes recorded, and the
         # kernels again on those routes
         torch.cuda.reset_peak_memory_stats()
-        sess = _moe_pp_session(mods, cfg, vpp, mesh)
+        sess = _family_pp_session(mods, cfg, MOE_PP, vpp, mesh)
         init_peak = torch.cuda.max_memory_allocated()
         torch.cuda.synchronize()
         build.launch_counts.clear()
@@ -4453,10 +4468,10 @@ def _moe_pp_rank_runs(torch):
         del sess
         torch.cuda.empty_cache()
         with plain_versions(), routing() as seen:
-            run["plain"] = step(_moe_pp_session(mods, cfg, vpp, mesh))
+            run["plain"] = step(_family_pp_session(mods, cfg, MOE_PP, vpp, mesh))
         torch.cuda.empty_cache()
         with routing(replay=seen):
-            run["pinned"] = step(_moe_pp_session(mods, cfg, vpp, mesh))
+            run["pinned"] = step(_family_pp_session(mods, cfg, MOE_PP, vpp, mesh))
         del seen
         torch.cuda.empty_cache()
         out[f"bf16/vpp{vpp}"] = run
@@ -4532,6 +4547,339 @@ def _moe_pp_check(get_config, outs, ranks_s, smi):
             f"({', '.join(f'{x / 1e9:.3f}' for x in peaks)}); {smi}")
         launches.append(outs[0][f"bf16/vpp{vpp}"]["launches"])
     return launches
+
+
+# ---------------------------------------------------------------------------
+# kernels at a model's attention shapes (phases 24 and 26)
+# ---------------------------------------------------------------------------
+
+def _causal_pairs(S: int, window=None) -> int:
+    """The (query, key) pairs a causal mask of ``window`` (None: none) keeps
+    over S positions."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def _time_shapes(torch, fa, da, smi, tag, *, B, S, Hq, Hkv, D=64, window=None, ring=None):
+    """K1-K4 at one training micro-batch's attention, q (B,S,Hq,D) and k/v
+    (B,S,Hkv,D) bf16, causal within ``window``, and K5 (when ``ring``) at a
+    decode step, q (B,1,Hq,D) over a full ring of ``ring`` slots: each held
+    to its plain version (2e-2), timed in device time (``device_ms``), its
+    plain version in CUDA events, beside its bound (phase 14's counts of
+    bytes and operations over the pairs the mask keeps) and one library
+    call in turns with it (kernel, library, library, kernel): SDPA's
+    forward for K1 (``is_causal``, or the window as a boolean mask), its
+    backward alone for K3 and K4, ``linalg.vecdot`` for K2 (a yardstick of
+    time), SDPA masked to the ring's valid keys for K5.  → {kernel: row}."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    bf = torch.bfloat16
+    q, do = (torch.randn((B, S, Hq, D), generator=gen, device="cuda").to(bf) for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(bf) for _ in range(2))
+    kw = dict(causal=True, window=window)
+    o, lse = fa.flash_fwd_plain(q, k, v, **kw)
+    delta = fa.flash_delta_plain(o, do)
+    prod = 2 * B * Hq * D * _causal_pairs(S, window)      # one (q, k, d) product
+    qb, kb, stats = 2 * q.numel(), 2 * k.numel(), 2 * 4 * lse.numel()
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    if window is None:
+        sdpa_kw = dict(is_causal=True)
+    else:
+        i = torch.arange(S, device="cuda")
+        sdpa_kw = dict(attn_mask=(i[None] <= i[:, None]) & (i[None] > i[:, None] - window))
+    out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa_kw)
+    sdpa_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt.detach(), kt.detach(), vt.detach(), enable_gqa=True, **sdpa_kw)
+    sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,  # noqa: E731
+                                           retain_graph=True)
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw)[0],
+                      lambda: fa.flash_fwd_plain(q, k, v, **kw)[0],
+                      bound(2 * qb + 2 * kb + stats / 2, 2 * prod), sdpa_fwd),
+        "flash_delta": (lambda: fa.flash_delta(o, do), lambda: fa.flash_delta_plain(o, do),
+                        bound(2 * qb + stats / 2, 0),
+                        lambda: torch.linalg.vecdot(o, do, dim=-1)),
+        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, **kw),
+                     lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, **kw),
+                     bound(3 * qb + 2 * kb + stats, 3 * prod), sdpa_bwd),
+        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, **kw)[0],
+                      lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, **kw)[0],
+                      bound(2 * qb + 4 * kb + stats, 4 * prod), sdpa_bwd),
+    }
+    if ring is not None:
+        qd = torch.randn((B, 1, Hq, D), generator=gen, device="cuda").to(bf)
+        kr, vr = (torch.randn((B, ring, Hkv, D), generator=gen, device="cuda").to(bf)
+                  for _ in range(2))
+        kpos, t = _ring(torch, B, ring, fill=ring - 1)
+        qdt, krt, vrt = (x.transpose(1, 2).contiguous() for x in (qd, kr, vr))
+        mask = ((kpos >= 0) & (kpos <= t))[:, None, None, :]
+        calls["decode_attention"] = (
+            lambda: da.decode_attention(qd, kr, vr, kpos, t=t),
+            lambda: da.decode_attention_plain(qd, kr, vr, kpos, t=t),
+            bound(2 * (2 * kr.numel() + 2 * qd.numel()) + 4 * kpos.numel(),
+                  4 * B * Hq * D * ring),
+            lambda: F.scaled_dot_product_attention(qdt, krt, vrt, attn_mask=mask,
+                                                   enable_gqa=True))
+    where = (f"q ({B},{S},{Hq},{D}), k/v ({B},{S},{Hkv},{D}) bf16, causal, window "
+             f"{window}")
+    rows = {}
+    for name, (kern, plain, (b_ms, b_by), lib) in calls.items():
+        err, ok = close(kern(), plain(), TOL["bfloat16"])
+        ms, lib_ms, dev, ev = in_turns(torch, kern, lib, n=20)
+        plain_ms = time_ms(torch, plain, iters=5)
+        shape = (f"q ({B},1,{Hq},{D}) over a full ring of {ring} slots"
+                 if name == "decode_attention" else where)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=lib_ms, max_abs_err=err, shape=shape)
+        lib_name = {"flash_fwd": "SDPA forward", "flash_delta": "vecdot",
+                    "decode_attention": "masked SDPA"}.get(name, "SDPA backward")
+        log(f"[{tag}] {name} at {shape}: {turns_text(name, lib_name, dev, ev)}; bound "
+            f"{b_ms * 1e3:.2f} us ({b_by}), {ms / b_ms:.1f}x it; plain {plain_ms:.4f} ms "
+            f"(CUDA events); max |kernel - plain| {err:.3g} ({rule(TOL['bfloat16'])}); {smi}")
+        require(ok, f"{name} at {tag}'s shape disagrees with its plain version: {err}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 26: the hybrid family
+# ---------------------------------------------------------------------------
+
+def phase_hybrid(torch, np, build, InferenceSession, tree_map, smi):
+    """Phase 26's serving part (the training part is ``phase_train`` with
+    ``TRAIN_HYMBA``): hymba-1.5b at full depth, random bf16 weights from
+    seed 0.  No paged pool and no padded prefill (as the reference's): a
+    prompt goes into the caches through the decode scan, K5 once a layer a
+    position.  Returns the counted runs' launches."""
+    from repro_torch.models import ssm, transformer
+    spec = HYBRID
+    runs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sess = InferenceSession.from_recipe(spec["arch"], seed=0)
+    torch.cuda.synchronize()
+    cfg = sess.cfg
+    L, V, B, P, N = cfg.n_layers, cfg.vocab_size, spec["batch"], spec["prompt_len"], \
+        spec["new_tokens"]
+    H, Pd, Ns = ssm.ssm_dims(cfg)
+    windows = transformer.layer_windows(cfg)
+    build_peak = torch.cuda.max_memory_allocated()
+    log(f"[hybrid] {_describe(cfg, L)}; SSM heads {H} of {Pd} channels, state {Ns}; global "
+        f"attention on layers {[i for i, w in enumerate(windows) if w is None]}, a window of "
+        f"{cfg.swa_window} on the other {sum(w is not None for w in windows)}; {cfg.dtype}; "
+        f"build {time.perf_counter() - t0:.1f} s, peak {build_peak} B "
+        f"({build_peak / 1e9:.3f} GB) for {2 * cfg.n_params() / 1e9:.3f} GB of bf16 weights")
+    rs = np.random.RandomState(0)
+
+    # generate: the prompt through the decode scan, then N - 1 decode steps
+    prompts = rs.randint(0, V, size=(B, P)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    toks = sess.generate(prompts, N)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    c = dict(build.launch_counts)
+    want = {"decode_attention": L * (P + N - 1)}
+    out = toks.cpu().numpy()
+    log(f"[hybrid] generate {tuple(toks.shape)} in {gen_s:.2f} s (first call, the prompt "
+        f"through the decode scan); launches {c}, expected {want}; peak "
+        f"{torch.cuda.max_memory_allocated()} B")
+    require(c == want, f"generate launched {c}, expected {want}")
+    require(out.shape == (B, P + N) and bool((out[:, :P] == prompts).all())
+            and bool(((out >= 0) & (out < V)).all()),
+            f"generate returned {out.shape} tokens, altered or out of range")
+    runs.append(c)
+    # a decode step's host time over 16 steps after a 16-token prompt, and
+    # the device's busy share over 4 of them
+    short, steps, window = prompts[:, :16], 17, 4
+    dec_ms, prof = _decode_ms(torch, sess, short, steps, profile_steps=window)
+    log(f"[hybrid] decode {dec_ms:.3f} ms a step at batch {B}, positions 16-{15 + steps - 1} "
+        f"(host clock, mean of {steps - 1}); {smi}")
+    _log_profile("hybrid decode", prof, dec_ms * window)
+
+    # prefill past the window: every position's logits, counted, held to
+    # the plain versions and to the plain versions on an f32 copy
+    Bp, S = spec["prefill"]
+    batch = {"tokens": torch.from_numpy(rs.randint(0, V, size=(Bp, S)).astype(np.int32)).cuda()}
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    lk = sess.prefill(batch, last_only=False)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    pre = dict(build.launch_counts)
+    require(pre == {"flash_fwd": L}, f"prefill launched {pre}, expected K1 {L}")
+    require(tuple(lk.shape) == (Bp, S, V), f"prefill gave {tuple(lk.shape)}")
+    runs.append(pre)
+    with plain_versions():
+        lp = sess.prefill(batch, last_only=False)
+        sess32 = InferenceSession(dataclasses.replace(cfg, dtype="float32"),
+                                  tree_map(lambda x: x.float(), sess.params), device=sess.device)
+        lf = sess32.prefill(batch, last_only=False)
+        del sess32
+    log(f"[hybrid] prefill (B, S) = ({Bp}, {S}) in {pre_s:.2f} s (host clock, first call); "
+        f"launches {pre}")
+    hold_to_floor("hybrid", f"prefill logits (B, S, V) = {tuple(lk.shape)}, the window "
+                  f"binding on {sum(w is not None for w in windows)} layers", lk, lp, lf)
+    del lk, lp, lf
+    torch.cuda.empty_cache()
+
+    # a stream on contiguous slots: each admission a decode scan over its
+    # prompt; the paged pool refused
+    lens, gens = spec["stream_lens"], list(spec["stream_gens"])
+    stream = [rs.randint(1, V, size=n).astype(np.int32) for n in lens]
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    outs, st = sess.serve(stream, gens, n_slots=spec["slots"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = dict(build.launch_counts)
+    want = {"decode_attention": L * (st.decode_steps + sum(lens))}
+    log(f"[hybrid] stream: {st.requests} requests on {spec['slots']} slots, "
+        f"{st.generated_tokens} tokens, {st.decode_steps} decode steps, {st.prefill_tokens} "
+        f"prompt tokens through the decode scan, in {wall:.2f} s (host clock); occupancy "
+        f"{st.occupancy:.4f}; launches {c}, expected {want}")
+    require(c == want, f"the stream launched {c}, expected {want}")
+    require(st.requests == len(stream) and st.generated_tokens == sum(gens)
+            and st.prefill_tokens == sum(lens), f"the stream served {st}")
+    for pr, m, o in zip(stream, gens, outs):
+        require(len(o) == len(pr) + m and bool((o[:len(pr)] == pr).all()),
+                f"a request came back with {len(o)} tokens or altered")
+    runs.append(c)
+    try:
+        sess.serve(stream[:2], [2, 2], paged=True)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    log(f"[hybrid] serve(paged=True) raises ValueError: {refused[:120]!r}")
+    require("paged" in refused, "the hybrid served from the paged pool")
+    del sess, toks
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _time_hybrid(torch, fa, da, smi):
+    """K1-K5 at hymba's shapes (25/5 heads of 64: a GQA group of 5): K1-K4
+    at a training micro-batch (4 x 2048) with the window of 1024 and with
+    none (the global layers), K5 over its SWA ring (1024 slots) and over a
+    global layer's ring at phase 26's generate (128 slots).  → {(kernel,
+    variant): row}."""
+    B, S = TRAIN_HYMBA["global_batch"] // TRAIN_HYMBA["gas"], TRAIN_HYMBA["seq_len"]
+    rows = {}
+    for window, ring in ((1024, 1024), (None, HYBRID["prompt_len"] + HYBRID["new_tokens"])):
+        got = _time_shapes(torch, fa, da, smi, f"hybrid kernels, window {window}", B=B, S=S,
+                           Hq=25, Hkv=5, window=window, ring=ring)
+        rows.update({(n, f"window {window}" if n != "decode_attention" else f"ring {ring}"): r
+                     for n, r in got.items()})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 26: the hybrid family under pipeline parallelism
+# ---------------------------------------------------------------------------
+
+def phase_hybrid_pp(torch, get_config, smi):
+    """hymba at pp = 2 as two processes on the one card over gloo
+    (``_hybrid_pp_rank_runs``), as phase 25 runs olmoe; rank 0 computes the
+    one-device pipeline itself first."""
+    outs, ranks_s = _spawn_ranks(torch, "_hybrid_pp_rank_runs", HYBRID_PP["ranks"],
+                                 HYBRID_PP_DIR)
+    return _hybrid_pp_check(get_config, outs, ranks_s, smi)
+
+
+def _hybrid_pp_rank_runs(torch):
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import tp
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import describe, make_recipe_mesh
+    mods = _dp_mods()
+    rank = dist.get_rank()
+    mesh = make_recipe_mesh(pp=2, device_type="cuda")
+    cfg = dataclasses.replace(get_config(HYBRID_PP["arch"]), n_layers=HYBRID_PP["n_layers"])
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    out = {"mesh": describe(mesh), "stage": mesh.coords["pp"]}
+    keys = ("loss", "xent", "grad_norm", "skipped")
+
+    def step(sess):
+        m = sess.step()
+        return {k: float(m[k]) for k in keys}
+
+    for vpp in HYBRID_PP["vpps"]:
+        one = None
+        if rank == 0:
+            sess = _family_pp_session(mods, f32, HYBRID_PP, vpp)
+            one = step(sess)
+            del sess
+            torch.cuda.empty_cache()
+        dist.barrier()
+        sess = _family_pp_session(mods, f32, HYBRID_PP, vpp, mesh)
+        out[f"f32/vpp{vpp}"] = dict(mesh=step(sess), one=one)
+        del sess
+        torch.cuda.empty_cache()
+    # bf16: one counted step at the last vpp (launches, messages, memory)
+    torch.cuda.reset_peak_memory_stats()
+    sess = _family_pp_session(mods, cfg, HYBRID_PP, HYBRID_PP["vpps"][-1], mesh)
+    torch.cuda.synchronize()
+    build.launch_counts.clear()
+    tp.reset()
+    t0 = time.perf_counter()
+    counted = step(sess)
+    torch.cuda.synchronize()
+    out["bf16"] = dict(metrics=counted, launches=dict(build.launch_counts),
+                       collectives=dict(tp.by_group), bytes=dict(tp.bytes_by_group),
+                       peak_bytes=torch.cuda.max_memory_allocated(),
+                       step_s=time.perf_counter() - t0)
+    return out
+
+
+def _hybrid_pp_check(get_config, outs, ranks_s, smi):
+    """Phase 26's pipeline checks on the ranks' results → rank 0's counted
+    launches."""
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get_config(HYBRID_PP["arch"]), n_layers=HYBRID_PP["n_layers"])
+    full = get_config(HYBRID_PP["arch"]).n_layers
+    L, gas, seq = cfg.n_layers, HYBRID_PP["gas"], HYBRID_PP["seq_len"]
+    mbs = HYBRID_PP["global_batch"] // gas
+    glob = [i for i, w in enumerate(transformer.layer_windows(cfg)) if w is None]
+    log(f"[hybrid pp] {_describe(cfg, full)}; global layers {glob}; {HYBRID_PP['ranks']} "
+        f"ranks ({outs[0]['mesh']}) ran in {ranks_s:.1f} s ({MOE_PP_LABEL}); pp 2, gas {gas}, "
+        f"{HYBRID_PP['global_batch']} x {seq}, remat full")
+    for vpp in HYBRID_PP["vpps"]:
+        one = outs[0][f"f32/vpp{vpp}"]["one"]
+        for o in outs:
+            got = o[f"f32/vpp{vpp}"]["mesh"]
+            log(f"[hybrid pp] f32 vpp {vpp}, stage {o['stage']}: loss {got['loss']!r}, xent "
+                f"{got['xent']!r}, grad_norm {got['grad_norm']!r}; the one-device pipeline "
+                f"loss {one['loss']!r}, xent {one['xent']!r}, grad_norm {one['grad_norm']!r}")
+            require(all(got[k] == one[k] for k in ("loss", "xent")) and got["skipped"] == 0.0,
+                    f"f32 vpp {vpp}: the mesh's {got} are not the one-device pipeline's {one}")
+    vpp = HYBRID_PP["vpps"][-1]
+    lp = L // 2
+    want = {"flash_fwd": 2 * lp * gas, "flash_delta": lp * gas, "flash_dq": lp * gas,
+            "flash_dkv": lp * gas}
+    for o in outs:
+        run, p = o["bf16"], o["stage"]
+        m = run["metrics"]
+        n, nbytes = expected_pp_p2p(2, vpp, gas, p, mbs=mbs, seq=seq, d_model=cfg.d_model,
+                                    itemsize=cfg.compute_dtype.itemsize)
+        got_n = {k: run["collectives"].get(k, 0) for k in n}
+        got_b = {k: run["bytes"].get(k, 0) for k in n}
+        log(f"[hybrid pp] bf16 vpp {vpp}, stage {p}: loss {m['loss']:.6f}, grad_norm "
+            f"{m['grad_norm']:.4f}, skipped {m['skipped']:.0f}; launches {run['launches']} "
+            f"(expected {want}); messages {got_n}, {got_b} B (expected {n}, {nbytes}); peak "
+            f"{run['peak_bytes'] / 1e9:.3f} GB; the step {run['step_s'] * 1e3:.1f} ms host "
+            f"(the first: it also warms up; {MOE_PP_LABEL}); {smi}")
+        require(math.isfinite(m["loss"]) and m["skipped"] == 0.0, f"bf16 vpp {vpp}: {m}")
+        require(run["launches"] == want, f"bf16 stage {p}: launches {run['launches']}, "
+                f"expected {want}")
+        require(got_n == n and got_b == nbytes, f"bf16 stage {p}: messages {got_n} {got_b}, "
+                f"expected {n} {nbytes}")
+        require(m["loss"] == outs[0]["bf16"]["metrics"]["loss"], "the ranks' losses differ")
+    return [outs[0]["bf16"]["launches"]]
 
 
 def main() -> int:
@@ -4665,12 +5013,28 @@ def main() -> int:
         ParallelismConfig, DataConfig, smi, spec=TRAIN_VLM, tag="vlm train")
     _train_memory(get_config, vlm_measured, TRAIN_VLM, "vlm train")
     timed("24 vlm unembed", _unembed_share, torch, get_config, vlm_measured, smi)
-    timed("24 vlm kernels", _time_group7, torch, fa, da, smi)
+    # K1-K5 at internvl2's shapes: a GQA group of 7, one training
+    # micro-batch, the ring of phase 24's decode
+    timed("24 vlm kernels", _time_shapes, torch, fa, da, smi, "vlm kernels", B=4, S=1024,
+          Hq=14, Hkv=2, ring=544)
     timed("24 vlm f32 generate", phase_f32_identity, torch, np, fa, da, get_config,
           InferenceSession, VLM["arch"], 2)
     timed("24 vlm f32 train", phase_train_f32_identity, torch, fa, da, get_config,
           TrainSession, stepfn, ParallelismConfig, DataConfig, VLM["arch"], 2)
     moe_pp_launches = timed("25 moe pipeline", phase_moe_pp, torch, get_config, smi)
+    hybrid_launches = timed("26 hybrid serve", phase_hybrid, torch, np, build,
+                            InferenceSession, tree_map, smi)
+    hybrid_train, hybrid_measured = timed(
+        "26 hybrid train", phase_train, torch, build, get_config, TrainSession, stepfn,
+        ParallelismConfig, DataConfig, smi, spec=TRAIN_HYMBA, tag="hybrid train")
+    _train_memory(get_config, hybrid_measured, TRAIN_HYMBA, "hybrid train")
+    timed("26 hybrid kernels", _time_hybrid, torch, fa, da, smi)
+    timed("26 hybrid f32 generate", phase_f32_identity, torch, np, fa, da, get_config,
+          InferenceSession, HYBRID["arch"], 4)
+    timed("26 hybrid f32 train", phase_train_f32_identity, torch, fa, da, get_config,
+          TrainSession, stepfn, ParallelismConfig, DataConfig, HYBRID["arch"], 4,
+          f32_floor=True)
+    hybrid_pp_launches = timed("26 hybrid pipeline", phase_hybrid_pp, torch, get_config, smi)
     timing = timed("14 timing", phase_timing, torch, fa, da, rn, smi)
     log(f"[phase] all phases {sum(seconds.values()):.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
@@ -4701,7 +5065,7 @@ def main() -> int:
             eval_launches, *(c for pair in dense_launches.values() for c in pair),
             *h2o_stream_launches.values(), h2o_train_launches, *tp_launches, *dp_launches,
             *pp_launches, *moe_launches, moe_train, moe_eval, *vlm_launches, vlm_train,
-            *moe_pp_launches]
+            *moe_pp_launches, *hybrid_launches, hybrid_train, *hybrid_pp_launches]
     log(f"[launches] generate {serve_launches}; train step {train_launches}; stream "
         f"{stream_launches}; training CLI (crashed, resumed) {cli_launches}; eval sweep "
         f"{eval_launches}; dense arm (prefill, generate) {dense_launches}; h2o stream "
@@ -4713,7 +5077,9 @@ def main() -> int:
         f"{moe_launches}; olmoe train step {moe_train}; olmoe eval sweep {moe_eval}; VLM "
         f"(internvl2 prefill, cache prefill + decode, generate, stream) {vlm_launches}; "
         f"internvl2 train step {vlm_train}; olmoe pp = 2 rank 0 (stage 0: a step of vpp 1 "
-        f"and vpp 2) {moe_pp_launches}")
+        f"and vpp 2) {moe_pp_launches}; hybrid (hymba generate, prefill, stream) "
+        f"{hybrid_launches}; hymba train step {hybrid_train}; hymba pp = 2 rank 0 (stage 0: "
+        f"a step of vpp 2) {hybrid_pp_launches}")
     for kr in kernels:
         r = timing[kr["name"]]
         n = sum(c.get(kr["name"], 0) for c in runs)

@@ -1,7 +1,7 @@
 """Config registry: ``get_config("<arch-id>")``, mirroring ``repro.configs``.
 
-The dense decoder, MoE and VLM configs are ported so far; the other
-families' configs come with the port of their model code.
+The dense decoder, MoE, VLM and hybrid configs are ported so far; the
+other families' configs come with the port of their model code.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ ALIASES: Dict[str, str] = {
 
 PORTED: List[str] = ["granite_3_2b", "phi3_mini_38b", "qwen15_32b", "h2o_danube_3_4b",
                      "gpt_36b", "gpt_20b", "gpt_175b", "olmoe_1b_7b", "deepseek_moe_16b",
-                     "internvl2_1b"]
+                     "internvl2_1b", "hymba_15b"]
 
 
 def get_config(name: str) -> ModelConfig:
@@ -55,8 +55,8 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown architecture {name!r}; known: {', '.join(ARCH_IDS)}")
     if mod_name not in PORTED:
         raise NotImplementedError(
-            f"{mod_name} is not ported yet: the port serves the dense, MoE and "
-            f"VLM decoders {', '.join(PORTED)}; the other model families come "
+            f"{mod_name} is not ported yet: the port serves the dense, MoE, VLM "
+            f"and hybrid decoders {', '.join(PORTED)}; the other model families come "
             "with a later PR (ROADMAP Queue 1, item 4: other families)")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG

@@ -41,6 +41,10 @@ mask`` over every micro-batch, accumulated in the parameters' own dtype
 input in the backward, with per-layer checkpoints inside (the reference's
 nested ``jax.checkpoint``).
 
+**Per-layer windows.**  A hybrid stack's attention window differs by layer
+(``transformer.layer_windows``): a chunk's block runs with the window of
+its layer's index in the whole stack, whatever stage holds it.
+
 **The MoE family.**  The pipeline runs the stacked ``blocks`` (``n_layers
 - first_k_dense`` of them: a chunk is that count over pp·vpp); stage 0
 runs the unstacked ``pre_blocks`` after the embedding, as the reference's
@@ -352,6 +356,7 @@ def _stage_fns(cfg, plan: ParallelismConfig, params, micros: List[Dict[str, torc
     kind, n_stacked, pre = T.layer_plan(cfg)
     lc = n_stacked // (plan.pp * plan.vpp)
     blocks = params["blocks"]
+    windows = T.layer_windows(cfg)
     pos = [T.positions(mb["tokens"]) for mb in micros]
 
     def layers_of(c: int):
@@ -361,8 +366,11 @@ def _stage_fns(cfg, plan: ParallelismConfig, params, micros: List[Dict[str, torc
     def run(c: int, m: int, x: torch.Tensor):
         seg = micros[m].get("segment_ids")
         aux = None
-        for bp in layers_of(c):
-            x, a = inner(cfg, bp, x, pos[m], window=cfg.swa_window, segment_ids=seg,
+        # chunk c holds the stacked layers [c·lc, (c+1)·lc): each block
+        # attends with the window of its layer in the whole stack (the
+        # reference's windows.reshape(vpp, pp, -1) row of the chunk)
+        for j, bp in enumerate(layers_of(c)):
+            x, a = inner(cfg, bp, x, pos[m], window=windows[c * lc + j], segment_ids=seg,
                          kind=kind)
             if a is not None:
                 aux = a if aux is None else aux + a

@@ -92,7 +92,12 @@ def check_plan(plan: ParallelismConfig, mesh=None, cfg: Optional[ModelConfig] = 
     ones (``pipeline.check_layers``).  On a mesh its tp, pp, data and pod
     axes must be the plan's tp, pp, dp and pods, and tp must divide
     ``cfg``'s heads, KV heads and d_ff, and a MoE config's ``moe_d_ff``
-    (the port shards whole heads and whole columns)."""
+    (the port shards whole heads and whole columns).  A hybrid config at tp
+    > 1 raises, mesh or not: the split of its SSM heads over tp is not
+    ported."""
+    if cfg is not None and cfg.family == "hybrid" and plan.tp > 1:
+        raise NotImplementedError(f"{cfg.name}: tp={plan.tp} needs the SSM heads split "
+                                  f"over tp, which is not ported yet {PARALLEL}")
     if plan.pp > 1 and cfg is not None:
         pipeline.check_layers(cfg, plan)
     if mesh is None:

@@ -15,6 +15,7 @@ from repro_torch.models.registry import family_of, register_family
 register_family("dense", transformer.DecoderOnlyLM())
 register_family("moe", transformer.MoELM())
 register_family("vlm", transformer.VLM())
+register_family("hybrid", transformer.HybridLM())
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *, finish=None) -> Any:

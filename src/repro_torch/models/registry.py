@@ -1,6 +1,6 @@
 """Model-family registry, mirroring ``repro.models.registry``: ``api``
 dispatches on ``cfg.family`` through it.  The dense decoder, the MoE
-family and the VLM are registered so far."""
+family, the VLM and the hybrid are registered so far."""
 
 from __future__ import annotations
 

@@ -18,7 +18,15 @@ arm is the dense stack over ``[vision_embeds; tokens]``: the batch's
 ``vision_embeds`` (B, nv, d), in the compute dtype, take the place of the
 first nv embedded positions (:func:`embed_inputs`), and ``lm_loss``
 masks those positions when the batch has no ``loss_mask``; decoding stays
-token-only.  The hybrid and xLSTM arms are not ported yet.
+token-only.  The hybrid arm (Hymba, ``models.ssm``) runs attention and SSM
+heads side by side in every block; its attention window is per layer
+(:func:`layer_windows`: the sliding window but on the first, middle and
+last layers, which attend globally), a Python ``int`` or None that K1-K5
+take as they are, where the reference scans a traced array of windows.
+Its layer cache is ``{"kv": the ring, "ssm_h", "conv"}`` (a global
+layer's ring ``max_len`` wide), and it fills its caches by the decode scan
+too (its recurrent state would consume a padded prompt's tail).  The xLSTM
+arm is not ported yet.
 
 Under tensor parallelism the blocks run ``core.tp``'s regions (in
 ``attention`` and ``layers.mlp_apply``) and the reference's
@@ -45,7 +53,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.core import sharding, tp, zero
 from repro_torch.core.tree import tree_map
-from repro_torch.models import layers, moe as moe_mod
+from repro_torch.models import layers, moe as moe_mod, ssm as ssm_mod
 from repro_torch.models.attention import (attention_apply, attention_decode,
                                           attention_decode_paged, attention_init,
                                           attention_prefill, attention_prefill_paged,
@@ -59,14 +67,34 @@ AUX_LOSS_COEF = 0.01
 
 def layer_plan(cfg: ModelConfig):
     """(scanned kind, number of layers, unstacked prefix) as in the
-    reference; the dense, VLM (a dense stack) and MoE plans are ported."""
+    reference; the dense, VLM (a dense stack), MoE and hybrid plans are
+    ported."""
     if cfg.family == "moe":
         return "moe", cfg.n_layers - cfg.first_k_dense, [
             (i, "dense") for i in range(cfg.first_k_dense)]
+    if cfg.family == "hybrid":
+        return "hymba", cfg.n_layers, []
     if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1, item 4: other families)")
     return "dense", cfg.n_layers, []
+
+
+def hymba_global_layers(cfg: ModelConfig):
+    """The hybrid stack's global-attention layers: first, middle, last."""
+    return {0, cfg.n_layers // 2, cfg.n_layers - 1}
+
+
+def layer_windows(cfg: ModelConfig) -> List[Optional[int]]:
+    """The attention window of each stacked layer: ``cfg.swa_window`` on
+    every one, but None (no window) on a hybrid stack's global layers, where
+    the reference scans ``BIG_WINDOW = 1 << 30``, a window no sequence
+    reaches."""
+    _, n_layers, _ = layer_plan(cfg)
+    if cfg.family == "hybrid" and cfg.swa_window is not None:
+        g = hymba_global_layers(cfg)
+        return [None if i in g else cfg.swa_window for i in range(n_layers)]
+    return [cfg.swa_window] * n_layers
 
 
 # ---------------------------------------------------------------------------
@@ -74,6 +102,8 @@ def layer_plan(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, *, kind: str = "dense") -> Params:
+    if kind == "hymba":
+        return ssm_mod.hymba_block_init(gen, cfg)
     p = {
         "norm1": layers.norm_init(cfg.norm, cfg.d_model, gen.device),
         "attn": attention_init(gen, cfg),
@@ -101,8 +131,16 @@ def block_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 positions: torch.Tensor, *, window,
                 segment_ids: Optional[torch.Tensor] = None, kind: str = "dense"):
     """→ (x, the block's load-balance loss: an f32 scalar for a MoE block,
-    None for a dense one)."""
+    None for a dense or hybrid one)."""
+    if kind == "hymba" and segment_ids is not None:
+        # the recurrent state mixes across the whole row: a segment mask on
+        # the attention half alone would leak documents into each other
+        raise NotImplementedError(
+            "packed-sequence training (segment_ids) is attention-only; block kind "
+            "'hymba' carries recurrent state across documents")
     p = zero.gathered(p)
+    if kind == "hymba":
+        return ssm_mod.hymba_block_apply(cfg, p, x, positions, window=window), None
     h = layers.norm_apply(cfg.norm, p["norm1"], x)
     x = x + attention_apply(cfg, p["attn"], h, positions, causal=True,
                             window=window, segment_ids=segment_ids)
@@ -122,6 +160,8 @@ def block_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 def block_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, t, cache, *, window,
                  kind: str = "dense"):
+    if kind == "hymba":
+        return ssm_mod.hymba_block_decode(cfg, p, x, t, cache, window=window)
     h = layers.norm_apply(cfg.norm, p["norm1"], x)
     h, cache = attention_decode(cfg, p["attn"], h, t, cache, window=window)
     if kind == "moe":
@@ -303,11 +343,11 @@ def _forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *
     pos = positions(tokens)
     segment_ids = batch.get("segment_ids")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    layers_ = ([(bp, k) for bp, (_, k) in zip(params.get("pre_blocks", []), pre)]
-               + [(bp, kind) for bp in params["blocks"]])
-    for bp, k in layers_:
-        x, a = block(cfg, bp, x, pos, window=cfg.swa_window, segment_ids=segment_ids,
-                     kind=k)
+    layers_ = ([(bp, k, cfg.swa_window)
+                for bp, (_, k) in zip(params.get("pre_blocks", []), pre)]
+               + [(bp, kind, w) for bp, w in zip(params["blocks"], layer_windows(cfg))])
+    for bp, k, w in layers_:
+        x, a = block(cfg, bp, x, pos, window=w, segment_ids=segment_ids, kind=k)
         if a is not None:
             aux = aux + a
     if last_only:
@@ -333,15 +373,16 @@ def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
 
 def lm_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, device,
                   n_kv_heads: Optional[int] = None) -> Dict[str, List]:
-    _, n_layers, pre = layer_plan(cfg)
-
-    def one():
-        return cache_init(cfg, batch, max_len, window=cfg.swa_window, device=device,
-                          n_kv_heads=n_kv_heads)
-
-    caches = {"blocks": [one() for _ in range(n_layers)]}
+    """A ring a layer, ``window`` wide (``layer_windows``; ``max_len``
+    without one); a hybrid layer's is ``{"kv": ring, "ssm_h", "conv"}``."""
+    kind, _, pre = layer_plan(cfg)
+    block = ssm_mod.hymba_cache_init if kind == "hymba" else cache_init
+    kw = dict(device=device, n_kv_heads=n_kv_heads)
+    caches = {"blocks": [block(cfg, batch, max_len, window=w, **kw)
+                         for w in layer_windows(cfg)]}
     if pre:
-        caches["pre"] = [one() for _ in pre]
+        caches["pre"] = [cache_init(cfg, batch, max_len, window=cfg.swa_window, **kw)
+                         for _ in pre]
     return caches
 
 
@@ -388,8 +429,8 @@ def lm_decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor, t,
     x = _embed(cfg, params, token[:, None])
     for bp, (_, k), c in zip(params.get("pre_blocks", []), pre, caches.get("pre", [])):
         x, _ = block_decode(cfg, bp, x, t, c, window=cfg.swa_window, kind=k)
-    for bp, c in zip(params["blocks"], caches["blocks"]):
-        x, _ = block_decode(cfg, bp, x, t, c, window=cfg.swa_window, kind=kind)
+    for bp, c, w in zip(params["blocks"], caches["blocks"], layer_windows(cfg)):
+        x, _ = block_decode(cfg, bp, x, t, c, window=w, kind=kind)
     return _logits(cfg, params, x)[:, 0], caches
 
 
@@ -478,7 +519,8 @@ class DecoderOnlyLM:
         return lm_loss(cfg, params, batch, remat_policy=remat_policy)
 
     def init_cache(self, cfg, params, batch_size, max_len):
-        """Ring caches of the KV heads ``params`` hold (this rank's under tp)."""
+        """Ring caches of the KV heads ``params`` hold (this rank's under tp);
+        a hybrid layer's SSM state beside its ring."""
         kv_heads = params["blocks"][0]["attn"]["wk"].shape[1] // cfg.hd
         return lm_cache_init(cfg, batch_size, max_len, device=params["embed"].device,
                              n_kv_heads=kv_heads)
@@ -538,6 +580,24 @@ class MoELM(DecoderOnlyLM):
 
     def param_sharding_hints(self, cfg):
         return moe_mod.SHARDING_HINTS
+
+
+class HybridLM(DecoderOnlyLM):
+    """Hymba's attention + SSM stack (``models.ssm`` blocks): no padded
+    prefill, so no paged pool either, as the reference's (a recurrent state
+    would consume a padded prompt's tail, and it is not a list of positions
+    a page table could index; ``init_paged_pool`` raises in
+    ``_require_paged_plan``); the prompt goes into the caches through the
+    decode scan."""
+
+    def prefill_cache(self, cfg, params, batch, caches):
+        return lm_prefill_scan(cfg, params, batch, caches)
+
+    def supports_padded_prefill(self, cfg):
+        return False
+
+    def param_sharding_hints(self, cfg):
+        return ssm_mod.SHARDING_HINTS
 
 
 class VLM(DecoderOnlyLM):

@@ -147,6 +147,6 @@ def test_registry_names_match_reference_and_unported_raise():
             get_config(arch)
     with pytest.raises(KeyError):
         get_config("no_such_model")
-    hybrid = dataclasses.replace(get_config("granite_3_2b"), family="hybrid")
+    xlstm = dataclasses.replace(get_config("granite_3_2b"), family="ssm")
     with pytest.raises(NotImplementedError):
-        hybrid.n_params()
+        xlstm.n_params()

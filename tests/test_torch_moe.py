@@ -386,6 +386,6 @@ def test_pp_refuses_an_unsplittable_moe_stack_and_builds_olmoe():
 
 
 def test_other_families_still_raise():
-    for arch in ("xlstm_125m", "whisper_base", "hymba_15b"):
+    for arch in ("xlstm_125m", "whisper_base"):
         with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
             get_config(arch)

@@ -392,8 +392,8 @@ def test_zero_rules_equal_reference_under_pp(arch, kw):
     leaves equal the reference's specs on its pp-stacked tree (the stacking
     axes ``("pp", None)`` or ``(None, "pp", None)`` ahead), full size; the
     layer count cut to a multiple of pp·vpp where it is not one.  Where the
-    reference's rule spreads a stacking axis (qwen1.5's biases, Queue 3)
-    the port keeps the parameter's spec."""
+    reference's rule spreads a stacking axis (qwen1.5's biases, hymba's
+    SSM vectors and conv; Queue 3) the port keeps the parameter's spec."""
     plan = ParallelismConfig(gas=2, **kw)
     full = jget_config(arch).n_layers
     n_layers = full - full % (plan.pp * plan.vpp)
@@ -428,7 +428,11 @@ def test_zero_rules_equal_reference_under_pp(arch, kw):
             layer_axis.add(path)
         else:
             assert _pad(po[ppath], len(shape)) == want_o[k:], (path, "opt")
-    assert layer_axis <= {"blocks/attn/bq", "blocks/attn/bk", "blocks/attn/bv"}, layer_axis
+    # qwen1.5's attention biases; hymba's per-head SSM vectors and its
+    # depthwise conv, whose only divisible dims are the stacking axes
+    assert layer_axis <= {"blocks/attn/bq", "blocks/attn/bk", "blocks/attn/bv",
+                          "blocks/ssm/A_log", "blocks/ssm/D", "blocks/ssm/dt_bias",
+                          "blocks/ssm/conv"}, layer_axis
 
 
 # ===========================================================================

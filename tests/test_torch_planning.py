@@ -517,7 +517,7 @@ def test_refusal_messages_name_their_roadmap_items():
     parallel = "Queue 1, item 3: the parallel recipe over torch.distributed"
     cfg = get_config("granite_3_2b").reduced()
     with pytest.raises(NotImplementedError, match=families):
-        dataclasses.replace(cfg, family="hybrid").n_params()
+        dataclasses.replace(cfg, family="ssm").n_params()
     with pytest.raises(NotImplementedError, match=families):
         registry.family_of(dataclasses.replace(cfg, family="encdec"))
     with pytest.raises(NotImplementedError, match=families):

@@ -240,6 +240,6 @@ def test_unported_paths_raise():
     (which waits for the parallel recipe), are not ported yet."""
     _, port = _sessions("granite_3_2b")
     assert not hasattr(port, "lower_prefill") and not hasattr(port, "lower_decode")
-    hybrid = dataclasses.replace(get_config("granite_3_2b").reduced(), family="hybrid")
+    xlstm = dataclasses.replace(get_config("granite_3_2b").reduced(), family="ssm")
     with pytest.raises(NotImplementedError):
-        InferenceSession.from_recipe(hybrid, device="cpu")
+        InferenceSession.from_recipe(xlstm, device="cpu")

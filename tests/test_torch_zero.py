@@ -186,9 +186,13 @@ def test_zero_rules_equal_reference(arch, zero_stage, reduced):
             else:
                 assert _pad(po[ppath], len(shape)) == want_o[k:], \
                     (arch, dp, pods, tp_size, path, "opt")
-    # only qwen1.5's attention biases: one dim, carrying the tp axis
-    assert layer_axis == ({"blocks/attn/bq", "blocks/attn/bk", "blocks/attn/bv"}
-                          if arch == "qwen15_32b" else set()), layer_axis
+    # only qwen1.5's attention biases (one dim, carrying the tp axis), and
+    # hymba's per-head SSM vectors (one dim, pinned whole by its hints) and,
+    # at full size, its depthwise conv
+    ssm = {"blocks/ssm/A_log", "blocks/ssm/D", "blocks/ssm/dt_bias"}
+    assert layer_axis == {"qwen15_32b": {"blocks/attn/bq", "blocks/attn/bk", "blocks/attn/bv"},
+                          "hymba_15b": ssm if reduced else ssm | {"blocks/ssm/conv"}
+                          }.get(arch, set()), layer_axis
 
 
 def test_zero_shard_on_the_layer_axis_keeps_the_state_whole():
