@@ -17,6 +17,8 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    head dims 16, 64, 96,
    120 and 128, lengths 128/200/500 (ragged to its 128-row tiles), masks and
    dtypes;
+   and non-causal over queries and keys of two lengths (200 over 500, and
+   Whisper's 448 over 1500 at 8/8 heads);
    then K2, K3 and K4 (flash backward: delta, dQ, dK and dV) the same way,
    over the edges of their tiles (lengths 200/500/1024, windows of 64 and
    16, MHA and GQA 4/1, 8/2, 32/8, 14/2), and two launches of K2, of K3 and
@@ -150,7 +152,7 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    through ``InferenceSession.generate`` (bf16: the first token equal, the
    agreement by step printed) and gpt-3.6b's ``prefill`` (phase 5's rule);
    both at 2 layers in f32 (tokens over 16 steps equal, prefill logits
-   within 1e-4 of the largest); gpt-3.6b training at 4 of 30 layers (2 x
+   within 1e-4 of the largest); gpt-3.6b training at 2 of 30 layers (2 x
    1024 a micro-batch, gas 2, remat full) one step in f32 without and with
    sequence parallel (loss 1e-5 relative, every parameter 1e-5 but for
    Adam's noise-floor entries), then one bf16 step.  Each run's K1-K5
@@ -159,7 +161,7 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    cost model's 4 all-reduces a layer; the compute mode must not be
    ``Exclusive_Process``; times are labelled as two time-sliced ranks;
 21. (run after 20) sharded data parallelism at dp = 2 as two processes on
-   the one card, as 20 runs them: gpt-3.6b at published width, 2 of 30
+   the one card, as 20 runs them: gpt-3.6b at published width, 1 of 30
    layers, 4 x 1024 tokens in 2 micro-batches, remat full, bf16 over f32
    masters, one counted step after a first at ZeRO 0, 1, 2 and 3, then
    ``overlap_zero`` at stage 2 and ``gather_params_once`` at stage 3 (the
@@ -170,9 +172,10 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    time-sliced ranks; the vote (the reference's default) at every stage
    with NaN in replica 0, in replica 1 (masked, not skipped) and in both
    (skipped, params frozen), the ranks' bits equal; the f32 identities at
-   2 layers (every stage against one device with 2 simulated replicas,
-   1e-5, and ZeRO 1-3 against ZeRO 0's bits); tp = 2 x dp = 2 as four
-   ranks at ZeRO-1 (f32 identity and a bf16 step); a ZeRO-3 crash ->
+   1 layer and a 4096-token vocabulary (every stage against one device
+   with 2 simulated replicas, 1e-5, and ZeRO 1-3 against ZeRO 0's bits);
+   tp = 2 x dp = 2 as four ranks at ZeRO-1 (f32 identity at 2 layers and
+   the whole vocabulary, and a bf16 step); a ZeRO-3 crash ->
    resume of ``TrainSession.run`` (bitwise against a run that never
    crashed, the ranks' events equal) and its checkpoint restored on one
    device (the same loss);
@@ -249,7 +252,34 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    card at 8 layers, vpp 1 and 2: the f32 loss and xent equal the
    one-device pipeline's in bits, one bf16 step of vpp 2 counted (launches
    and messages exact);
-27. prints each phase's seconds, a ``{"planning": {...}}`` line, a
+27. (run after 26) the xLSTM family at published width and depth, bf16:
+   xlstm-125m (12 layers, d 768, 4 heads, sLSTM at 1 and 3, an mLSTM
+   inner width of 1536, vocab 50304): ``generate`` at B 4 of a 64-token
+   prompt and 64 new tokens (the prompt through the decode scan), a decode
+   step's host and device time, ``prefill`` at 2 x 1024 (8 mLSTM chunks),
+   and at 4 layers in f32 its last-position logits held to the decode
+   scan's over the same 1024 positions (1e-4 relative), a stream on 2
+   contiguous slots,
+   ``paged=True`` refused; 3 training steps, 4 x 1024, remat full (phase
+   9's checks; peak memory beside ``per_device_bytes``); every run
+   launches no kernel (no attention); in f32 at 4 layers (mLSTM, sLSTM,
+   mLSTM, sLSTM) one training step on the card against the same step on
+   the CPU (loss and grad_norm 1e-5 relative, params 1e-4);
+28. (run after 27) the encoder-decoder family at published width and
+   depth, bf16: whisper-base (6 + 6 layers, d 512, 8 heads of 64, 1500
+   random frames from seed 0): ``generate`` at B 4 of a 16-token prompt
+   and 64 new tokens over frames (K1 once an encoder layer at the cache
+   init, K5 once a decoder layer a position; the cross K/V read through
+   the masked einsum, as the reference's), ``prefill`` at 4 x 448 (K1 18:
+   the encoder non-causal, the decoder causal and its cross-attention, 448
+   queries over 1500 keys) held to phase 5's rule, a stream on 2
+   contiguous slots over the stub frames; 3 training steps, 8 x 448 over
+   1500 frames, remat full (K1 36, K2-K4 18 each a step; phase 9's
+   checks); K1-K4 at the encoder's and the cross shapes
+   and K5 over the decoder's ring timed beside their bounds, plain
+   versions and SDPA; the f32 identity at 2 + 2 layers (tokens and prefill
+   logits of kernels and plain versions);
+29. prints each phase's seconds, a ``{"planning": {...}}`` line, a
    ``{"tp": {...}}`` line, a ``{"dp": {...}}`` line, a ``{"pp": {...}}``
    line, a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
    {...}}``.
@@ -267,6 +297,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -354,6 +385,25 @@ TRAIN_HYMBA = dict(arch="hymba_15b", seq_len=2048, global_batch=4, gas=1, steps=
 HYBRID_PP = dict(ranks=2, arch="hymba_15b", n_layers=8, seq_len=1024, global_batch=4, gas=2,
                  vpps=(1, 2))
 HYBRID_PP_DIR = ROOT / "build" / "chip_smoke_hybrid_pp"
+# phase 27: xlstm-125m at full width and depth (12 layers, d 768, 4 heads,
+# sLSTM at 1 and 3, an mLSTM inner width of 1536): generate at B 4 (a
+# 64-token prompt through the decode scan, 64 new tokens), prefill at 2 x
+# 1024 (8 mLSTM chunks of 128), a stream on contiguous slots, 3 training
+# steps at 4 x 1024; the card's f32 step against the CPU's at 4 layers
+XLSTM = dict(arch="xlstm_125m", batch=4, prompt_len=64, new_tokens=64, prefill=(2, 1024),
+             slots=2, stream_lens=(24, 40, 9, 33, 17), stream_gens=(16, 8, 12, 8, 4),
+             f32_layers=4, f32_seq=256)
+TRAIN_XLSTM = dict(arch="xlstm_125m", seq_len=1024, global_batch=4, gas=1, steps=3)
+# phase 28: whisper-base at full width and depth (6 + 6 layers, d 512, 8
+# heads of 64, 1500 frames): generate at B 4 over random frames (a 16-token
+# prompt through the decode scan, 64 new tokens), prefill at 4 x 448 (the
+# decoder's real context), a stream on contiguous slots over the stub
+# frames, 3 training steps at 8 x 448 over 1500 frames; the f32 identity at
+# 2 + 2 layers
+WHISPER = dict(arch="whisper_base", batch=4, prompt_len=16, new_tokens=64, prefill=(4, 448),
+               slots=2, stream_lens=(24, 40, 9, 33, 17), stream_gens=(16, 8, 12, 8, 4),
+               f32_layers=2)
+TRAIN_WHISPER = dict(arch="whisper_base", seq_len=448, global_batch=8, gas=1, steps=3)
 # the GEMM sweep of the planning phase: bf16 (M x K) @ (K x N), granite's
 # MLP up-projection, M from 16 to 16384 in powers of two
 GEMM = dict(k=2048, n=8192, ms=tuple(2**i for i in range(4, 15)))
@@ -384,22 +434,27 @@ DRILLS = ("skip", "rollback", "crash_restart", "ckpt_retry", "consensus_skip",
 # takes one rank per card).  granite (GQA 32/8, its 49155-token tied table
 # left whole: 2 does not divide it) and gpt-3.6b (MHA, a vocab-parallel tied
 # table) at published width and depth serve greedy tokens; both at 2 layers
-# in f32 for the identities; gpt-3.6b trains at 4 of its 30 layers, 2 x 1024
-# tokens a micro-batch, 2 micro-batches, remat full
+# in f32 for the identities; gpt-3.6b trains at 2 of its 30 layers (4 until
+# phases 27 and 28 took the time), 2 x 1024 tokens a micro-batch, 2
+# micro-batches, remat full
 TP = dict(ranks=2, batch=2, prompt_len=128, new_tokens=16, prefill=(2, 256), f32_layers=2,
-          train=dict(arch="gpt_36b", n_layers=4, seq_len=1024, global_batch=4, gas=2))
+          train=dict(arch="gpt_36b", n_layers=2, seq_len=1024, global_batch=4, gas=2))
 TP_DIR = ROOT / "build" / "chip_smoke_tp"
 TP_LABEL = "two ranks time-sliced on one card over gloo"
 # phase 21: sharded data parallelism, dp = 2 as two ranks on the one card
-# over gloo (and tp = 2 x dp = 2 as four): gpt-3.6b at published width, 2 of
-# its 30 layers (4 until phases 24 and 25 took the time), global batch 4 x
-# 1024 in 2 micro-batches, remat full, bf16
-# over f32 masters; the f32 identities at 2 layers; the checkpoint at 1
-# layer and a 4096-token vocabulary (1.5 GB written: the 45 GiB the card's
-# host lets a run write holds no more beside phases 11-13 and 20)
-DP = dict(ranks=2, arch="gpt_36b", n_layers=2, seq_len=1024, global_batch=4, gas=2,
-          f32_layers=2, ckpt=dict(n_layers=1, vocab=4096, global_batch=4, steps=3,
-                                  ckpt_every=2, fail_at=2))
+# over gloo (and tp = 2 x dp = 2 as four): gpt-3.6b at published width, 1 of
+# its 30 layers (4 until phases 24 and 25, 2 until phases 27 and 28 took the
+# time), global batch 4 x 1024 in 2 micro-batches, remat full, bf16 over f32
+# masters; the dp = 2 f32 identities and the checkpoint at 1 layer and a
+# 4096-token vocabulary (every byte of state crosses gloo through the host,
+# so their time goes with the table's size; the checkpoint writes 1.5 GB: the
+# 45 GiB the card's host lets a run write holds no more beside phases 11-13
+# and 20); tp = 2 x dp = 2's f32 identity at 2 layers and the whole
+# vocabulary (at 1 layer and 4096 tokens one parameter parted from one
+# device by 1.11e-5, past the check's 1e-5)
+DP = dict(ranks=2, arch="gpt_36b", n_layers=1, seq_len=1024, global_batch=4, gas=2,
+          f32_layers=1, f32_vocab=4096, tp_dp_f32_layers=2,
+          ckpt=dict(n_layers=1, vocab=4096, global_batch=4, steps=3, ckpt_every=2, fail_at=2))
 DP_RUNS = ((0, {}), (1, {}), (2, {}), (3, {}), (2, {"overlap_zero": True}),
            (3, {"gather_params_once": True}))
 DP_VOTES = ("bad0", "bad1", "both")
@@ -556,9 +611,10 @@ def profile_window(torch, fn, top: int = 8):
     """Run ``fn`` under ``torch.profiler``: host wall time (inflated by the
     profiler), summed device time of the kernels, the kernels that take
     most of it as (ms, launches, name), and every kernel as ``all``.  Only
-    the device's activity is traced: the host's operator events add nothing
-    to these figures, and summing them cost a minute for a window of ~10^5
-    launches."""
+    the device's activity is traced, and the device records are summed by
+    name straight from the trace: the profiler's own event tree (its
+    ``key_averages``) cost ~30 s for a window of ~10^5 launches, the host's
+    operator events a minute more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -567,13 +623,13 @@ def profile_window(torch, fn, top: int = 8):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-
-    def dev_ms(e):
-        us = getattr(e, "self_device_time_total", None)
-        return (us if us is not None else e.self_cuda_time_total) / 1e3
-
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    rows = sorted(((dev_ms(e), e.count, e.key[:90]) for e in kern), reverse=True)
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            row = by_name.setdefault(e.name(), [0.0, 0])
+            row[0] += e.duration_ns() / 1e6
+            row[1] += 1
+    rows = sorted(((ms, n, name[:90]) for name, (ms, n) in by_name.items()), reverse=True)
     return {"wall_ms": wall * 1e3, "device_ms": sum(r[0] for r in rows), "top": rows[:top],
             "all": rows}
 
@@ -687,6 +743,28 @@ def phase_flash_sweep(torch, fa):
                         if not (ok_o and ok_l):
                             failures.append(f"Hq={Hq} Hkv={Hkv} D={D} S={S} {mask} {name}: "
                                             f"O err {eo:.3g}, lse err {el:.3g}")
+    # queries and keys of two lengths, every key visible (an encoder-
+    # decoder's cross-attention): ragged both ways, and Whisper's 448 decoder
+    # tokens over its 1500 frames, at its 8/8 heads of 64
+    for B, Sq, Sk in ((2, 200, 500), (2, 448, 1500)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, Sq, 8, 64), generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn((B, Sk, 8, 64), generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            (o, lse), (o_ref, lse_ref) = (f(q, k, v, causal=False)
+                                          for f in (fa.flash_fwd, fa.flash_fwd_plain))
+            torch.cuda.synchronize()
+            name = str(dtype).split(".")[-1]
+            eo, ok_o = close(o, o_ref, TOL[name])
+            el, ok_l = close(lse, lse_ref, TOL[name])
+            worst[name][0] = max(worst[name][0], eo)
+            worst[name][1] = max(worst[name][1], el)
+            n += 1
+            log(f"[K1 sweep] Sq {Sq} != Sk {Sk}, none, 8/8 heads of 64, {name}: max |O - "
+                f"plain| {eo:.3g}, max |lse - plain| {el:.3g} ({rule(TOL[name])})")
+            if not (ok_o and ok_l):
+                failures.append(f"Sq={Sq} Sk={Sk} none {name}: O err {eo:.3g}, lse err "
+                                f"{el:.3g}")
     for name, (eo, el) in worst.items():
         log(f"[K1 sweep] {name}: max |O - plain| {eo:.3g}, max |lse - plain| {el:.3g} "
             f"({rule(TOL[name])})")
@@ -702,7 +780,8 @@ def phase_flash_bwd_sweep(torch, fa):
     128-row q tiles and 64/128-key tiles, K4's 128-key items and 64-row q
     tiles) and 1024, every head dim of ``HEAD_DIMS``, MHA and GQA 4/1, 8/2
     and 32/8, causal, a window of 64 and one of 16 (smaller than any tile),
-    none, segment ids, and queries and keys of two lengths (200 and 500);
+    none, segment ids, and queries and keys of two lengths (200 and 500,
+    and Whisper's cross-attention, 448 over 1500 at 8/8 heads, none);
     in every case two launches of K3 and of K4 on the same inputs
     must give equal bits (no atomics: the bitwise crash -> resume relies on
     it); then the whole ``FlashAttention`` against autograd through
@@ -717,9 +796,11 @@ def phase_flash_bwd_sweep(torch, fa):
              for D in HEAD_DIMS if (Hq != 32 or D in (64, 120)) and (Hq != 14 or D == 64)
              for S in (200, 500, 1024)
              for mask in ("causal", "window", "window16", "none", "segments")]
-    # queries and keys of two lengths (no segment ids then)
+    # queries and keys of two lengths (no segment ids then), and Whisper's
+    # cross-attention: 448 decoder tokens over 1500 frames, 8/8 heads of 64
     cases += [(8, 2, D, Sq, Sk, mask) for D in (64, 120) for Sq, Sk in ((200, 500), (500, 200))
               for mask in ("causal", "window16", "none")]
+    cases += [(8, 8, 64, 448, 1500, "none")]
     for Hq, Hkv, D, S, Sk, mask in cases:
         for dtype in (torch.bfloat16, torch.float32):
             B = 2
@@ -1753,6 +1834,17 @@ def hold_to_floor(tag: str, what: str, kern, plain, plain_f32) -> float:
     return floor
 
 
+def _attentions(cfg) -> int:
+    """The attentions a forward runs (K1 launches): one a layer, none in the
+    xLSTM, an encoder-decoder's encoder layers and two a decoder layer
+    (self and cross)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
 def _dense_cfg(get_config, spec):
     """(the spec's config, cut in depth where the spec says so; the
     published depth)."""
@@ -1777,8 +1869,9 @@ def phase_train(torch, build, get_config, TrainSession, stepfn, ParallelismConfi
     """``spec``'s model at full width (and full depth unless ``spec`` cuts
     it) trains for ``spec["steps"]`` steps: bf16 compute, fp32 masters and
     AdamW, random weights from seed 0.  Every step's launches are counted
-    (K1 twice per layer per micro-batch, forward and remat; K2, K3 and K4
-    once); the last step is profiled; then one batch is evaluated
+    (K1 twice per attention (``_attentions``) per micro-batch, forward and
+    remat; K2, K3 and K4 once; nothing at all in the xLSTM); the last step
+    is profiled; then one batch is evaluated
     (``evaluate()``), and its per-token losses are taken with the kernels,
     with their plain versions, and with the plain versions on an f32 copy
     of the model (bf16's own error).  ``after(sess, floor)`` runs on the
@@ -1792,12 +1885,12 @@ def phase_train(torch, build, get_config, TrainSession, stepfn, ParallelismConfi
         train_cfg=stepfn.TrainConfig(total_steps=spec["steps"], warmup=2),
         data_cfg=DataConfig(seq_len=spec["seq_len"], global_batch=spec["global_batch"]))
     torch.cuda.synchronize()
-    L, G = cfg.n_layers, spec["gas"]
+    A, G = _attentions(cfg), spec["gas"]
     log(f"[{tag}] {_describe(cfg, full)} ({cfg.dtype} compute, f32 masters); gas {G}, "
-        f"remat full, batch {spec['global_batch']} x {spec['seq_len']}; init "
-        f"{time.perf_counter() - t0:.1f} s")
-    want = {"flash_fwd": 2 * L * G, "flash_delta": L * G, "flash_dq": L * G,
-            "flash_dkv": L * G}
+        f"remat full, batch {spec['global_batch']} x {spec['seq_len']}; {A} attentions a "
+        f"forward; init {time.perf_counter() - t0:.1f} s")
+    want = {"flash_fwd": 2 * A * G, "flash_delta": A * G, "flash_dq": A * G,
+            "flash_dkv": A * G}
     torch.cuda.reset_peak_memory_stats()
     losses, walls, launches, metrics = [], [], None, {}
     for i in range(spec["steps"]):
@@ -1823,7 +1916,8 @@ def phase_train(torch, build, get_config, TrainSession, stepfn, ParallelismConfi
             f"{counts}")
         if cfg.family == "moe":
             require(math.isfinite(aux) and aux > 0, f"step {i}: load-balance loss {aux}")
-        require(all(counts.get(k, 0) == n for k, n in want.items()),
+        require(all(counts.get(k, 0) == n for k, n in want.items())
+                and (A or not any(counts.values())),
                 f"step {i}: launches {counts}, expected {want} per step")
         require(math.isfinite(loss) and skipped == 0.0, f"step {i}: loss {loss}, skipped {skipped}")
     peak = torch.cuda.max_memory_allocated()
@@ -1854,7 +1948,8 @@ def phase_train(torch, build, get_config, TrainSession, stepfn, ParallelismConfi
     # Held per token, as phase 5 holds logits: the mean over 8192 tokens of
     # either difference is a draw of the same small size, so a scalar floor
     # can be near 0 by chance.
-    from repro_torch.models import layers, transformer
+    from repro_torch.models import api as model_api
+    from repro_torch.models import layers
     host_batch = sess.batches(spec["steps"])
     batch = sess._to_device(host_batch)
     mask = batch["loss_mask"].float()
@@ -1864,7 +1959,7 @@ def phase_train(torch, build, get_config, TrainSession, stepfn, ParallelismConfi
     def token_nll(c, plain, key, replay=None):
         ctx = plain_versions() if plain else contextlib.nullcontext()
         with torch.no_grad(), ctx, routing(replay) as seen:
-            logits = transformer.lm_forward(c, sess.state["params"], batch, remat_policy="none")
+            logits = model_api.forward(c, sess.state["params"], batch)
             routes[key] = seen
             return torch.logsumexp(logits, -1) - layers.gold_logit(logits, batch["labels"])
 
@@ -3094,23 +3189,33 @@ def phase_tp(torch, np, get_config, InferenceSession, TrainSession, stepfn, Para
     return _tp_check(torch, get_config, ref, outs, ranks_s, mode, smi)
 
 
-def _tp_rank(rank: int, world: int, port: int) -> None:
-    """One rank of phase 20 (a spawned process): every tp = 2 run, its
-    results and checks to ``TP_DIR/rank<r>.pt``."""
+@contextlib.contextmanager
+def _rank(rank: int, world: int, port: int):
+    """A spawned rank's process → its ``torch``: the port on the path, TF32
+    off, its share of the host's cores as torch's CPU threads (ranks that
+    each take every core spin against each other), ``cuda:0``, gloo over
+    localhost, the group destroyed on the way out."""
     sys.path.insert(0, str(SRC))
-    import numpy as np
     import torch
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
                             world_size=world)
     try:
-        out = _tp_rank_runs(torch, np, world)
-        torch.save(out, TP_DIR / f"rank{rank}.pt")
+        yield torch
     finally:
         dist.destroy_process_group()
+
+
+def _tp_rank(rank: int, world: int, port: int) -> None:
+    """One rank of phase 20 (a spawned process): every tp = 2 run, its
+    results and checks to ``TP_DIR/rank<r>.pt``."""
+    import numpy as np
+    with _rank(rank, world, port) as torch:
+        torch.save(_tp_rank_runs(torch, np, world), TP_DIR / f"rank{rank}.pt")
 
 
 def _tp_rank_runs(torch, np, world):
@@ -3272,7 +3377,7 @@ def _tp_check(torch, get_config, ref, outs, ranks_s, mode, smi):
         require(torch.equal(got, want), f"{arch} f32: tp 2's tokens differ from tp 1's")
         require(d <= 1e-4 * top, f"{arch} f32: prefill logits differ by {d:.4g}")
 
-    # gpt-3.6b training, 4 of 30 layers
+    # gpt-3.6b training, TP["train"]["n_layers"] of 30 layers
     spec = TP["train"]
     L, G = spec["n_layers"], spec["gas"]
     mbs = spec["global_batch"] // G
@@ -3483,20 +3588,9 @@ def phase_dp(torch, get_config, store, smi):
 def _dp_rank(rank: int, world: int, port: int) -> None:
     """One rank of phase 21 (a spawned process): its runs, results and
     checks to ``DP_DIR/rank<r>_of<world>.pt``."""
-    sys.path.insert(0, str(SRC))
     import numpy as np
-    import torch
-    import torch.distributed as dist
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                            world_size=world)
-    try:
-        out = _dp_rank_runs(torch, np, world)
-        torch.save(out, DP_DIR / f"rank{rank}_of{world}.pt")
-    finally:
-        dist.destroy_process_group()
+    with _rank(rank, world, port) as torch:
+        torch.save(_dp_rank_runs(torch, np, world), DP_DIR / f"rank{rank}_of{world}.pt")
 
 
 def _dp_rank_runs(torch, np, world):
@@ -3505,13 +3599,20 @@ def _dp_rank_runs(torch, np, world):
     from repro_torch.checkpoint.elastic import host_snapshot
     from repro_torch.configs import get_config
     from repro_torch.core import tp, zero
-    from repro_torch.core.tree import tree_leaves
+    from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import describe, make_recipe_mesh
     mods = _dp_mods()
     rank = dist.get_rank()
     mesh = make_recipe_mesh(tp=1 if world == DP["ranks"] else 2, device_type="cuda")
-    out = {"mesh": describe(mesh)}
+    out = {"mesh": describe(mesh), "seconds": {}}
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        """This rank's host seconds since the last part ended, as ``name``."""
+        now = time.perf_counter()
+        out["seconds"][name] = now - t_part[0]
+        t_part[0] = now
 
     def counted(key, fn):
         """``fn()`` with the launch and collective counts zeroed just before
@@ -3525,17 +3626,20 @@ def _dp_rank_runs(torch, np, world):
                         collectives=dict(tp.by_group), bytes=dict(tp.bytes_by_group))
         return res
 
-    # the f32 identities, 2 layers: one device with 2 simulated replicas
-    # and, at dp 2, without the vote (rank 0 alone); then the mesh at every
-    # ZeRO stage, the vote on, and at dp 2 the GAS path at every setting of
-    # the bf16 sweep
-    f32 = _dp_cfg(get_config, DP["f32_layers"], "float32")
+    # the f32 identities: one device with 2 simulated replicas and, at dp 2,
+    # without the vote (rank 0 alone); then the mesh at every ZeRO stage, the
+    # vote on, and at dp 2 the GAS path at every setting of the bf16 sweep
+    if world == DP["ranks"]:
+        f32 = _dp_cfg(get_config, DP["f32_layers"], "float32", DP["f32_vocab"])
+    else:
+        f32 = _dp_cfg(get_config, DP["tp_dp_f32_layers"], "float32")
     ref = gas_ref = None
     if rank == 0:
+        # kept on the card, where the stages are held to it
         sess = _dp_session(mods, f32, replicas=mesh.plane_size, seed=1)
         m = sess.step()
         ref = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
-                   params=[x.detach().cpu() for _, x in tree_leaves(sess.state["params"])])
+                   params=[x.detach().clone() for _, x in tree_leaves(sess.state["params"])])
         del sess
         if world == DP["ranks"]:
             sess = _dp_session(mods, f32, vote=False, seed=1)
@@ -3545,14 +3649,15 @@ def _dp_rank_runs(torch, np, world):
             del sess
         torch.cuda.empty_cache()
     dist.barrier()
+    part("f32 one-device references")
     stages = (0, 1, 2, 3) if world == DP["ranks"] else (1,)
     z0 = None
     for z in stages:
         sess = _dp_session(mods, f32, mesh=mesh, seed=1, zero_stage=z)
         m = sess.step()
-        whole = [x.detach().cpu() for _, x in tree_leaves(_whole_params(sess))]
+        whole = [x.detach().clone() for _, x in tree_leaves(_whole_params(sess))]
         res = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
-                   skipped=float(m["skipped"]), digest=_digest(torch, _whole_params(sess)))
+                   skipped=float(m["skipped"]), digest=_digest(torch, whole))
         if ref is not None:
             d = max(float((a - b).abs().max()) for a, b in zip(whole, ref["params"]))
             res.update(ref_loss=ref["loss"], ref_grad_norm=ref["grad_norm"], max_diff=d,
@@ -3564,6 +3669,7 @@ def _dp_rank_runs(torch, np, world):
         del sess, whole
         torch.cuda.empty_cache()
     del ref, z0
+    part("f32 ZeRO stages")
     for z, kw in DP_RUNS if world == DP["ranks"] else ():
         sess = _dp_session(mods, f32, mesh=mesh, vote=False, seed=1, zero_stage=z, **kw)
         m = sess.step()
@@ -3577,8 +3683,9 @@ def _dp_rank_runs(torch, np, world):
         del sess, got
         torch.cuda.empty_cache()
     del gas_ref
+    part("f32 GAS path")
 
-    # bf16 at 4 layers: the ZeRO sweep on the GAS path (consensus off, so
+    # bf16 at full width: the ZeRO sweep on the GAS path (consensus off, so
     # ZeRO-3 gathers as the blocks run and overlap_zero applies); then the
     # vote (the reference's default) at every stage
     cfg = _dp_cfg(get_config, DP["n_layers"])
@@ -3603,12 +3710,16 @@ def _dp_rank_runs(torch, np, world):
                                                   ("m", sess.state["opt"]["m"]),
                                                   ("v", sess.state["opt"]["v"]))})
         del sess
+    part("bf16 sweep")
     if world != DP["ranks"]:
         return out
     torch.cuda.empty_cache()
     for z in (0, 1, 2, 3):
+        # one session a stage: each case steps from a copy of its first state
+        sess = _dp_session(mods, cfg, mesh=mesh, zero_stage=z)
+        initial = tree_map(lambda x: x.detach().clone(), sess.state)
         for case in DP_VOTES:
-            sess = _dp_session(mods, cfg, mesh=mesh, zero_stage=z)
+            sess.state = tree_map(lambda x: x.clone(), initial)
             before = [x.detach().clone() for _, x in tree_leaves(sess.state["params"])]
             batch = dict(sess.batches(0), _chaos_grad_scale=_dp_vote_scale(np, case))
             m = {k: float(v) for k, v in sess.step(batch).items()}
@@ -3616,8 +3727,10 @@ def _dp_rank_runs(torch, np, world):
                          zip(before, tree_leaves(sess.state["params"])))
             out[f"vote/z{z}/{case}"] = dict(metrics=m, frozen=frozen,
                                             digest=_digest(torch, _whole_params(sess)))
-            del sess, before
-            torch.cuda.empty_cache()
+            del before
+        del sess, initial
+        torch.cuda.empty_cache()
+    part("votes")
 
     # the checkpoint: ZeRO-3, f32, crashed after the step-2 checkpoint,
     # resumed in a fresh session, against a run that never crashed
@@ -3656,6 +3769,7 @@ def _dp_rank_runs(torch, np, world):
         a.tobytes() == b.tobytes() for (_, a), (_, b) in zip(resumed, straight))
     out["ckpt"] = dict(crashed=crashed, resumed_from=res["resumed_from"], bitwise=bitwise,
                        xent=xent, events=events, resume_s=resume_s)
+    part("checkpoint")
     return out
 
 
@@ -3678,15 +3792,18 @@ def _dp_check(get_config, ref, outs, ranks_s, smi, dp1):
     L, G = cfg.n_layers, DP["gas"]
     n = cfg.n_params()
     log(f"[dp] {DP['ranks']} ranks ({out['mesh']}) then 4 ({four[0]['mesh']}) ran in "
-        f"{ranks_s:.1f} s ({DP_LABEL})")
+        f"{ranks_s:.1f} s ({DP_LABEL}); rank 0's parts (host s): "
+        + "; ".join(f"world {w}: " + ", ".join(f"{k} {v:.1f}" for k, v in o[0]["seconds"].items())
+                    for w, o in ((DP["ranks"], two), (4, four))))
     summary = {"card": smi, "times_label": DP_LABEL, "memory": {}, "collectives": {},
                "times": {}, "f32": {}, "vote": {}}
     # the f32 identities
     for z in (0, 1, 2, 3):
         r = out[f"f32/z{z}"]
         rel = abs(r["loss"] - r["ref_loss"]) / abs(r["ref_loss"])
-        log(f"[dp] f32 {DP['f32_layers']} layers, ZeRO-{z}, the vote over 2 ranks vs one device "
-            f"with 2 simulated replicas: loss {r['loss']:.7f} vs {r['ref_loss']:.7f}, grad_norm "
+        log(f"[dp] f32 {DP['f32_layers']} layer(s), vocab {DP['f32_vocab']}, ZeRO-{z}, the vote "
+            f"over 2 ranks vs one device with 2 simulated replicas: loss {r['loss']:.7f} vs "
+            f"{r['ref_loss']:.7f}, grad_norm "
             f"{r['grad_norm']:.7f} vs {r['ref_grad_norm']:.7f}; params max |diff| "
             f"{r['max_diff']:.3g}, bitwise {r['bitwise']}; bitwise to ZeRO-0 {r['bitwise_z0']}")
         require(rel <= 1e-5 and r["max_diff"] <= 1e-5 and r["skipped"] == 0.0,
@@ -3698,7 +3815,8 @@ def _dp_check(get_config, ref, outs, ranks_s, smi, dp1):
         summary["f32"][f"z{z}"] = dict(bitwise_to_one_device=r["bitwise"],
                                        bitwise_to_z0=r["bitwise_z0"], max_diff=r["max_diff"])
     r4 = four[0]["f32/z1"]
-    log(f"[dp] f32 tp 2 x dp 2, ZeRO-1: loss {r4['loss']:.7f} vs one device {r4['ref_loss']:.7f}"
+    log(f"[dp] f32 tp 2 x dp 2, {DP['tp_dp_f32_layers']} layers, ZeRO-1: loss {r4['loss']:.7f} "
+        f"vs one device {r4['ref_loss']:.7f}"
         f"; params max |diff| {r4['max_diff']:.3g} (tol 1e-5)")
     require(abs(r4["loss"] - r4["ref_loss"]) <= 1e-5 * abs(r4["ref_loss"])
             and r4["max_diff"] <= 1e-5, "f32 tp 2 x dp 2 parts from one device")
@@ -3710,8 +3828,9 @@ def _dp_check(get_config, ref, outs, ranks_s, smi, dp1):
         r = out[f"f32-gas/{tag}"]
         rel = abs(r["loss"] - r["ref_loss"]) / abs(r["ref_loss"])
         rel_n = abs(r["grad_norm"] - r["ref_grad_norm"]) / abs(r["ref_grad_norm"])
-        log(f"[dp] f32 {DP['f32_layers']} layers, {tag}, the GAS path over 2 ranks vs one "
-            f"device: loss {r['loss']:.7f} vs {r['ref_loss']:.7f}, grad_norm "
+        log(f"[dp] f32 {DP['f32_layers']} layer(s), vocab {DP['f32_vocab']}, {tag}, the GAS "
+            f"path over 2 ranks vs one device: loss {r['loss']:.7f} vs {r['ref_loss']:.7f}, "
+            f"grad_norm "
             f"{r['grad_norm']:.7f} vs {r['ref_grad_norm']:.7f}; params max |diff| "
             f"{r['max_param_diff']:.3g}, {r['floor']} of {r['entries']} past 1e-5 (Adam's "
             f"noise floor, each within 2 lr); m max |diff| {r['worst_m']:.3g} of its "
@@ -3883,20 +4002,9 @@ def phase_pp(torch, get_config, smi):
 def _pp_rank(rank: int, world: int, port: int) -> None:
     """One rank of phase 22 (a spawned process): its runs and results to
     ``PP_DIR/rank<r>_of<world>.pt``."""
-    sys.path.insert(0, str(SRC))
     import numpy as np
-    import torch
-    import torch.distributed as dist
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                            world_size=world)
-    try:
-        out = _pp_rank_runs(torch, np, world)
-        torch.save(out, PP_DIR / f"rank{rank}_of{world}.pt")
-    finally:
-        dist.destroy_process_group()
+    with _rank(rank, world, port) as torch:
+        torch.save(_pp_rank_runs(torch, np, world), PP_DIR / f"rank{rank}_of{world}.pt")
 
 
 def _own_digest(torch, sess):
@@ -4394,18 +4502,8 @@ def _spawn_ranks(torch, runs: str, ranks: int, out_dir: Path):
 def _rank_main(rank: int, world: int, port: int, runs: str, out_dir: str) -> None:
     """One spawned rank of ``_spawn_ranks``: gloo over localhost on
     ``cuda:0``, ``runs``'s results to ``out_dir/rank<r>.pt``."""
-    sys.path.insert(0, str(SRC))
-    import torch
-    import torch.distributed as dist
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                            world_size=world)
-    try:
+    with _rank(rank, world, port) as torch:
         torch.save(globals()[runs](torch), Path(out_dir) / f"rank{rank}.pt")
-    finally:
-        dist.destroy_process_group()
 
 
 def phase_moe_pp(torch, get_config, smi):
@@ -4561,9 +4659,11 @@ def _causal_pairs(S: int, window=None) -> int:
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def _time_shapes(torch, fa, da, smi, tag, *, B, S, Hq, Hkv, D=64, window=None, ring=None):
+def _time_shapes(torch, fa, da, smi, tag, *, B, S, Hq, Hkv, D=64, window=None, ring=None,
+                 Sk=None, causal=True):
     """K1-K4 at one training micro-batch's attention, q (B,S,Hq,D) and k/v
-    (B,S,Hkv,D) bf16, causal within ``window``, and K5 (when ``ring``) at a
+    (B,Sk,Hkv,D) bf16 (Sk = S by default), causal within ``window`` or
+    (``causal=False``) every key visible, and K5 (when ``ring``) at a
     decode step, q (B,1,Hq,D) over a full ring of ``ring`` slots: each held
     to its plain version (2e-2), timed in device time (``device_ms``), its
     plain version in CUDA events, beside its bound (phase 14's counts of
@@ -4576,16 +4676,20 @@ def _time_shapes(torch, fa, da, smi, tag, *, B, S, Hq, Hkv, D=64, window=None, r
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     bf = torch.bfloat16
+    Sk = S if Sk is None else Sk
     q, do = (torch.randn((B, S, Hq, D), generator=gen, device="cuda").to(bf) for _ in range(2))
-    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(bf) for _ in range(2))
-    kw = dict(causal=True, window=window)
+    k, v = (torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda").to(bf) for _ in range(2))
+    kw = dict(causal=causal, window=window)
     o, lse = fa.flash_fwd_plain(q, k, v, **kw)
     delta = fa.flash_delta_plain(o, do)
-    prod = 2 * B * Hq * D * _causal_pairs(S, window)      # one (q, k, d) product
+    pairs = _causal_pairs(S, window) if causal else S * Sk
+    prod = 2 * B * Hq * D * pairs                         # one (q, k, d) product
     qb, kb, stats = 2 * q.numel(), 2 * k.numel(), 2 * 4 * lse.numel()
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
-    if window is None:
+    if not causal:
+        sdpa_kw = {}
+    elif window is None:
         sdpa_kw = dict(is_causal=True)
     else:
         i = torch.arange(S, device="cuda")
@@ -4623,8 +4727,8 @@ def _time_shapes(torch, fa, da, smi, tag, *, B, S, Hq, Hkv, D=64, window=None, r
                   4 * B * Hq * D * ring),
             lambda: F.scaled_dot_product_attention(qdt, krt, vrt, attn_mask=mask,
                                                    enable_gqa=True))
-    where = (f"q ({B},{S},{Hq},{D}), k/v ({B},{S},{Hkv},{D}) bf16, causal, window "
-             f"{window}")
+    where = (f"q ({B},{S},{Hq},{D}), k/v ({B},{Sk},{Hkv},{D}) bf16, "
+             + (f"causal, window {window}" if causal else "every key visible"))
     rows = {}
     for name, (kern, plain, (b_ms, b_by), lib) in calls.items():
         err, ok = close(kern(), plain(), TOL["bfloat16"])
@@ -4676,22 +4780,8 @@ def phase_hybrid(torch, np, build, InferenceSession, tree_map, smi):
 
     # generate: the prompt through the decode scan, then N - 1 decode steps
     prompts = rs.randint(0, V, size=(B, P)).astype(np.int32)
-    torch.cuda.reset_peak_memory_stats()
-    build.launch_counts.clear()
-    t0 = time.perf_counter()
-    toks = sess.generate(prompts, N)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    c = dict(build.launch_counts)
-    want = {"decode_attention": L * (P + N - 1)}
-    out = toks.cpu().numpy()
-    log(f"[hybrid] generate {tuple(toks.shape)} in {gen_s:.2f} s (first call, the prompt "
-        f"through the decode scan); launches {c}, expected {want}; peak "
-        f"{torch.cuda.max_memory_allocated()} B")
-    require(c == want, f"generate launched {c}, expected {want}")
-    require(out.shape == (B, P + N) and bool((out[:, :P] == prompts).all())
-            and bool(((out >= 0) & (out < V)).all()),
-            f"generate returned {out.shape} tokens, altered or out of range")
+    _, c = _generate_checked(torch, np, build, sess, prompts, N,
+                             {"decode_attention": L * (P + N - 1)}, "hybrid")
     runs.append(c)
     # a decode step's host time over 16 steps after a 16-token prompt, and
     # the device's busy share over 4 of them
@@ -4729,34 +4819,10 @@ def phase_hybrid(torch, np, build, InferenceSession, tree_map, smi):
 
     # a stream on contiguous slots: each admission a decode scan over its
     # prompt; the paged pool refused
-    lens, gens = spec["stream_lens"], list(spec["stream_gens"])
-    stream = [rs.randint(1, V, size=n).astype(np.int32) for n in lens]
-    build.launch_counts.clear()
-    t0 = time.perf_counter()
-    outs, st = sess.serve(stream, gens, n_slots=spec["slots"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    c = dict(build.launch_counts)
-    want = {"decode_attention": L * (st.decode_steps + sum(lens))}
-    log(f"[hybrid] stream: {st.requests} requests on {spec['slots']} slots, "
-        f"{st.generated_tokens} tokens, {st.decode_steps} decode steps, {st.prefill_tokens} "
-        f"prompt tokens through the decode scan, in {wall:.2f} s (host clock); occupancy "
-        f"{st.occupancy:.4f}; launches {c}, expected {want}")
-    require(c == want, f"the stream launched {c}, expected {want}")
-    require(st.requests == len(stream) and st.generated_tokens == sum(gens)
-            and st.prefill_tokens == sum(lens), f"the stream served {st}")
-    for pr, m, o in zip(stream, gens, outs):
-        require(len(o) == len(pr) + m and bool((o[:len(pr)] == pr).all()),
-                f"a request came back with {len(o)} tokens or altered")
-    runs.append(c)
-    try:
-        sess.serve(stream[:2], [2, 2], paged=True)
-        refused = ""
-    except ValueError as e:
-        refused = str(e)
-    log(f"[hybrid] serve(paged=True) raises ValueError: {refused[:120]!r}")
-    require("paged" in refused, "the hybrid served from the paged pool")
-    del sess, toks
+    runs.append(_stream_and_refusal(
+        torch, np, build, sess, spec, rs, "hybrid",
+        lambda st, lens: {"decode_attention": L * (st.decode_steps + sum(lens))}))
+    del sess
     torch.cuda.empty_cache()
     return runs
 
@@ -4880,6 +4946,306 @@ def _hybrid_pp_check(get_config, outs, ranks_s, smi):
                 f"expected {n} {nbytes}")
         require(m["loss"] == outs[0]["bf16"]["metrics"]["loss"], "the ranks' losses differ")
     return [outs[0]["bf16"]["launches"]]
+
+
+# ---------------------------------------------------------------------------
+# phases 27 and 28: the xLSTM and the encoder-decoder
+# ---------------------------------------------------------------------------
+
+def _stream_and_refusal(torch, np, build, sess, spec, rs, tag, want_fn):
+    """A stream of ``spec``'s requests on contiguous slots (each admission a
+    decode scan), its launches held to ``want_fn(stats, lens)``, every
+    request's tokens whole; then ``paged=True`` refused.  → the launches."""
+    lens, gens = spec["stream_lens"], list(spec["stream_gens"])
+    stream = [rs.randint(1, sess.cfg.vocab_size, size=n).astype(np.int32) for n in lens]
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    outs, st = sess.serve(stream, gens, n_slots=spec["slots"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = dict(build.launch_counts)
+    want = want_fn(st, lens)
+    log(f"[{tag}] stream: {st.requests} requests on {spec['slots']} slots, "
+        f"{st.generated_tokens} tokens, {st.decode_steps} decode steps, {st.prefill_tokens} "
+        f"prompt tokens through the decode scan, in {wall:.2f} s (host clock); occupancy "
+        f"{st.occupancy:.4f}; launches {c}, expected {want}")
+    require(c == want, f"the stream launched {c}, expected {want}")
+    require(st.requests == len(stream) and st.generated_tokens == sum(gens)
+            and st.prefill_tokens == sum(lens), f"the stream served {st}")
+    for pr, m, o in zip(stream, gens, outs):
+        require(len(o) == len(pr) + m and bool((o[:len(pr)] == pr).all()),
+                f"a request came back with {len(o)} tokens or altered")
+    try:
+        sess.serve(stream[:2], [2, 2], paged=True)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    log(f"[{tag}] serve(paged=True) raises ValueError: {refused[:120]!r}")
+    require("paged" in refused, f"{tag}: served from the paged pool")
+    return c
+
+
+def _generate_checked(torch, np, build, sess, prompts, N, want, tag, **kw):
+    """``generate`` of ``prompts`` and N new tokens, its launches held to
+    ``want``, the tokens in range and the prompts kept.  → (tokens, the
+    launches)."""
+    B, P = prompts.shape
+    torch.cuda.reset_peak_memory_stats()
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    toks = sess.generate(prompts, N, **kw)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    c = dict(build.launch_counts)
+    out = toks.cpu().numpy()
+    log(f"[{tag}] generate {tuple(toks.shape)} in {gen_s:.2f} s (first call, the prompt "
+        f"through the decode scan); launches {c}, expected {want}; peak "
+        f"{torch.cuda.max_memory_allocated()} B")
+    require(c == want, f"generate launched {c}, expected {want}")
+    require(out.shape == (B, P + N) and bool((out[:, :P] == prompts).all())
+            and bool(((out >= 0) & (out < sess.cfg.vocab_size)).all()),
+            f"generate returned {out.shape} tokens, altered or out of range")
+    return toks, c
+
+
+def _build_session(torch, InferenceSession, spec, tag, extra=""):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sess = InferenceSession.from_recipe(spec["arch"], seed=0)
+    torch.cuda.synchronize()
+    cfg = sess.cfg
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] {_describe(cfg, cfg.n_layers)}{extra(cfg) if extra else ''}; {cfg.dtype}; "
+        f"build {time.perf_counter() - t0:.1f} s, peak {peak} B ({peak / 1e9:.3f} GB) for "
+        f"{2 * cfg.n_params() / 1e9:.3f} GB of bf16 weights")
+    return sess
+
+
+def phase_xlstm(torch, np, build, InferenceSession, tree_map, smi):
+    """Phase 27's serving part (the training part is ``phase_train`` with
+    ``TRAIN_XLSTM``): xlstm-125m at full depth, random bf16 weights from
+    seed 0.  No attention, so no kernel launches: every count must stay 0.
+    The prompt goes into the recurrent states through the decode scan; in
+    f32 at ``XLSTM["f32_layers"]`` layers the chunked prefill's
+    last-position logits equal the decode scan's.  Returns the counted
+    runs' launches."""
+    from repro_torch.models import transformer
+    spec = XLSTM
+    sess = _build_session(torch, InferenceSession, spec, "xlstm", lambda c: (
+        f"; sLSTM at {list(c.slstm_at)}, mLSTM inner width {int(c.proj_factor * c.d_model)}"))
+    cfg = sess.cfg
+    B, P, N, V = spec["batch"], spec["prompt_len"], spec["new_tokens"], cfg.vocab_size
+    rs = np.random.RandomState(0)
+    runs = []
+    prompts = rs.randint(0, V, size=(B, P)).astype(np.int32)
+    _, c = _generate_checked(torch, np, build, sess, prompts, N, {}, "xlstm")
+    runs.append(c)
+    short, steps, window = prompts[:, :16], 17, 4
+    dec_ms, prof = _decode_ms(torch, sess, short, steps, profile_steps=window)
+    log(f"[xlstm] decode {dec_ms:.3f} ms a step at batch {B}, positions 16-{15 + steps - 1} "
+        f"(host clock, mean of {steps - 1}); {smi}")
+    _log_profile("xlstm decode", prof, dec_ms * window)
+
+    # prefill over 8 mLSTM chunks: bf16 timed and counted; in f32 the
+    # chunked form's last-position logits against the decode scan's
+    Bp, S = spec["prefill"]
+    tokens = torch.from_numpy(rs.randint(0, V, size=(Bp, S)).astype(np.int32)).cuda()
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    lk = sess.prefill({"tokens": tokens}, last_only=False)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    pre = dict(build.launch_counts)
+    require(pre == {} and tuple(lk.shape) == (Bp, S, V) and bool(lk.isfinite().all()),
+            f"prefill launched {pre}, gave {tuple(lk.shape)}")
+    runs.append(pre)
+    del lk
+    cut = dataclasses.replace(cfg, n_layers=spec["f32_layers"], dtype="float32")
+    sess32 = InferenceSession.from_recipe(cut, seed=1)
+    chunked = sess32.prefill({"tokens": tokens}, last_only=True)[:, 0]
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        scan, _ = sess32.prefill_cache_step(sess32.params, {"tokens": tokens},
+                                            sess32.init_cache(Bp, S))
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    rel = float((chunked - scan).abs().max() / scan.abs().max())
+    log(f"[xlstm] prefill (B, S) = ({Bp}, {S}) in {pre_s:.2f} s (host clock, first call, "
+        f"{S // 128} chunks of 128); launches {pre}; f32 at full width, {cut.n_layers} layers "
+        f"({', '.join(k for _, k in transformer.layer_plan(cut)[2])}): the chunked "
+        f"last-position logits against the decode scan's over the {S} positions "
+        f"({scan_s:.2f} s): max |diff| / max |scan| {rel:.3g} (tol 1e-4)")
+    require(rel <= 1e-4, f"the chunked prefill and the decode scan differ by {rel:.3g}")
+    del sess32, chunked, scan
+    torch.cuda.empty_cache()
+
+    runs.append(_stream_and_refusal(torch, np, build, sess, spec, rs, "xlstm",
+                                    lambda st, lens: {}))
+    del sess
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_xlstm_f32_cpu(torch, get_config, TrainSession, stepfn, ParallelismConfig,
+                        DataConfig, tree_map):
+    """xlstm at full width, ``XLSTM["f32_layers"]`` layers (mLSTM, sLSTM,
+    mLSTM, sLSTM), f32: one training step on the card against the same
+    step on the CPU from the same state and batch (the recurrences have no
+    kernel, so the CPU's plain PyTorch is the reference): loss and
+    grad_norm within 1e-5 relative, every parameter within 1e-4."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get_config(XLSTM["arch"]), n_layers=XLSTM["f32_layers"],
+                              dtype="float32")
+    kw = dict(plan=ParallelismConfig(remat_policy="full"),
+              train_cfg=stepfn.TrainConfig(total_steps=3, warmup=1),
+              data_cfg=DataConfig(seq_len=XLSTM["f32_seq"], global_batch=2))
+    card = TrainSession(cfg, seed=1, **kw)
+    cpu = TrainSession(cfg, seed=1, device="cpu", **kw)
+    cpu.state = tree_map(lambda x: x.detach().cpu().clone(), card.state)
+    got = {k: float(v) for k, v in card.step(card.batches(0)).items()}
+    t0 = time.perf_counter()
+    want = {k: float(v) for k, v in cpu.step(cpu.batches(0)).items()}
+    cpu_s = time.perf_counter() - t0
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("loss", "grad_norm")}
+    errs = [(close(a.detach().cpu(), b, 1e-4), "/".join(map(str, p)))
+            for (p, a), (_, b) in zip(tree_leaves(card.state["params"]),
+                                      tree_leaves(cpu.state["params"]))]
+    (worst, _), at = max(errs)
+    kinds = [k for _, k in transformer.layer_plan(cfg)[2]]
+    log(f"[xlstm f32] {cfg.name} at full width, {cfg.n_layers} layers {kinds}, f32, one step "
+        f"of 2 x {XLSTM['f32_seq']}: card loss {got['loss']!r}, CPU {want['loss']!r} (rel "
+        f"{rel['loss']:.3g}), grad_norm {got['grad_norm']!r} / {want['grad_norm']!r} (rel "
+        f"{rel['grad_norm']:.3g}), tol 1e-5; params max |card - CPU| {worst:.3g} at {at} "
+        f"({rule(1e-4)}); the CPU step {cpu_s:.1f} s")
+    require(all(r <= 1e-5 for r in rel.values()), f"card and CPU steps differ: {rel}")
+    require(all(ok for (_, ok), _ in errs), f"card and CPU params differ by {worst:.3g}")
+    del card, cpu
+    torch.cuda.empty_cache()
+
+
+def _frames(np, cfg, B, seed):
+    """Random encoder frames (B, enc_frames, d) f32 from ``seed``: the
+    stub frontend's output, as the data pipeline draws it."""
+    return np.random.RandomState(seed).standard_normal(
+        (B, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+
+
+def phase_whisper(torch, np, build, InferenceSession, tree_map, smi):
+    """Phase 28's serving part (the training part is ``phase_train`` with
+    ``TRAIN_WHISPER``): whisper-base at full depth, random bf16 weights from
+    seed 0, random frames from seed 0.  The cache init runs the encoder
+    once (K1 non-causal, once an encoder layer) and computes each decoder
+    layer's cross K/V; the prompt goes in through the decode scan; a decode
+    step runs K5 once a decoder layer on its self-attention ring and reads
+    the cross K/V through the masked einsum (no kernel).  The prefill runs
+    K1 once an attention: encoder, decoder self (causal) and cross (448
+    queries over 1500 keys).  Returns the counted runs' launches."""
+    spec = WHISPER
+    sess = _build_session(torch, InferenceSession, spec, "whisper", lambda c: (
+        f"; {c.enc_layers} encoder layers over {c.enc_frames} frames, learned positions, "
+        f"LayerNorm, GELU"))
+    cfg = sess.cfg
+    E, L = cfg.enc_layers, cfg.n_layers
+    B, P, N, V = spec["batch"], spec["prompt_len"], spec["new_tokens"], cfg.vocab_size
+    rs = np.random.RandomState(0)
+    runs = []
+    prompts = rs.randint(0, V, size=(B, P)).astype(np.int32)
+    frames = _frames(np, cfg, B, 0)
+    _, c = _generate_checked(torch, np, build, sess, prompts, N,
+                             {"flash_fwd": E, "decode_attention": L * (P + N - 1)}, "whisper",
+                             frames=frames)
+    runs.append(c)
+    dec_ms, prof = _decode_ms(torch, sess, prompts, 17, profile_steps=4)
+    log(f"[whisper] decode {dec_ms:.3f} ms a step at batch {B}, positions {P}-{P + 15} (host "
+        f"clock, mean of 16; the stub frames' cross K/V); {smi}")
+    _log_profile("whisper decode", prof, dec_ms * 4)
+
+    # prefill at the decoder's context over random frames, held to the
+    # plain versions and to the plain versions on an f32 copy
+    Bp, S = spec["prefill"]
+    batch = {"tokens": torch.from_numpy(rs.randint(0, V, size=(Bp, S)).astype(np.int32)).cuda(),
+             "frames": torch.from_numpy(_frames(np, cfg, Bp, 1)).cuda()}
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    lk = sess.prefill(batch, last_only=False)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    pre = dict(build.launch_counts)
+    want = {"flash_fwd": E + 2 * L}
+    require(pre == want, f"prefill launched {pre}, expected {want}")
+    require(tuple(lk.shape) == (Bp, S, V), f"prefill gave {tuple(lk.shape)}")
+    runs.append(pre)
+    with plain_versions():
+        lp = sess.prefill(batch, last_only=False)
+        sess32 = InferenceSession(dataclasses.replace(cfg, dtype="float32"),
+                                  tree_map(lambda x: x.float(), sess.params), device=sess.device)
+        lf = sess32.prefill(batch, last_only=False)
+        del sess32
+    log(f"[whisper] prefill (B, S) = ({Bp}, {S}) over {cfg.enc_frames} frames in {pre_s:.2f} s "
+        f"(host clock, first call); launches {pre}")
+    hold_to_floor("whisper", f"prefill logits (B, S, V) = {tuple(lk.shape)}, K1 non-causal "
+                  f"over the frames and {S} x {cfg.enc_frames} cross", lk, lp, lf)
+    del lk, lp, lf, batch
+    torch.cuda.empty_cache()
+
+    # the stream: the scheduler's two cache inits (its slots and its
+    # admission template, both over the stub frames) run the encoder
+    runs.append(_stream_and_refusal(
+        torch, np, build, sess, spec, rs, "whisper",
+        lambda st, lens: {"flash_fwd": 2 * E,
+                          "decode_attention": L * (st.decode_steps + sum(lens))}))
+    del sess
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_whisper_f32_identity(torch, np, get_config, InferenceSession):
+    """whisper at full width, ``WHISPER["f32_layers"]`` encoder and decoder
+    layers, f32: greedy tokens over random frames with the kernels and with
+    their plain versions must be equal, and so must the prefill's logits
+    (1e-4)."""
+    cfg = dataclasses.replace(get_config(WHISPER["arch"]), n_layers=WHISPER["f32_layers"],
+                              enc_layers=WHISPER["f32_layers"], dtype="float32")
+    sess = InferenceSession.from_recipe(cfg, seed=1)
+    rs = np.random.RandomState(1)
+    prompts = rs.randint(0, cfg.vocab_size, size=(2, 64)).astype(np.int32)
+    frames = _frames(np, cfg, 2, 1)
+    batch = {"tokens": prompts, "frames": frames}
+    toks_k, lk = sess.generate(prompts, 32, frames=frames), sess.prefill(batch, last_only=False)
+    with plain_versions():
+        toks_p, lp = sess.generate(prompts, 32, frames=frames), sess.prefill(batch,
+                                                                            last_only=False)
+    same = bool(torch.equal(toks_k, toks_p))
+    err, ok = close(lk, lp, 1e-4)
+    log(f"[f32] {cfg.name} at full width, {cfg.enc_layers} + {cfg.n_layers} layers, f32, over "
+        f"{cfg.enc_frames} random frames: greedy tokens kernel == plain: {same}; prefill "
+        f"logits max |kernel - plain| {err:.3g} ({rule(1e-4)})")
+    require(same, f"f32 greedy tokens differ:\n{toks_k[:, 64:]}\n{toks_p[:, 64:]}")
+    require(ok, f"f32 prefill logits differ by {err:.3g}")
+    del sess
+    torch.cuda.empty_cache()
+
+
+def _time_whisper(torch, fa, da, smi):
+    """K1-K5 at whisper's shapes (8/8 heads of 64) at the training
+    micro-batch (8 x 448 tokens over 1500 frames): K1-K4 at the encoder's
+    non-causal self-attention (1500 x 1500) and at the decoder's
+    cross-attention (448 queries over 1500 keys), the two regimes no other
+    model runs; K5 over phase 28's decoder ring (80 slots).  → {(kernel,
+    variant): row}."""
+    B, S = TRAIN_WHISPER["global_batch"] // TRAIN_WHISPER["gas"], TRAIN_WHISPER["seq_len"]
+    F = 1500
+    rows = {}
+    ring = WHISPER["prompt_len"] + WHISPER["new_tokens"]
+    for variant, kw in (("encoder", dict(S=F, causal=False, ring=ring)),
+                        ("cross", dict(S=S, Sk=F, causal=False))):
+        got = _time_shapes(torch, fa, da, smi, f"whisper kernels, {variant}", B=B, Hq=8,
+                           Hkv=8, **kw)
+        rows.update({(n, variant if n != "decode_attention" else f"ring {ring}"): r
+                     for n, r in got.items()})
+    return rows
 
 
 def main() -> int:
@@ -5035,6 +5401,22 @@ def main() -> int:
           TrainSession, stepfn, ParallelismConfig, DataConfig, HYBRID["arch"], 4,
           f32_floor=True)
     hybrid_pp_launches = timed("26 hybrid pipeline", phase_hybrid_pp, torch, get_config, smi)
+    xlstm_launches = timed("27 xlstm serve", phase_xlstm, torch, np, build, InferenceSession,
+                           tree_map, smi)
+    xlstm_train, xlstm_measured = timed(
+        "27 xlstm train", phase_train, torch, build, get_config, TrainSession, stepfn,
+        ParallelismConfig, DataConfig, smi, spec=TRAIN_XLSTM, tag="xlstm train")
+    _train_memory(get_config, xlstm_measured, TRAIN_XLSTM, "xlstm train")
+    timed("27 xlstm f32 card vs CPU", phase_xlstm_f32_cpu, torch, get_config, TrainSession,
+          stepfn, ParallelismConfig, DataConfig, tree_map)
+    whisper_launches = timed("28 whisper serve", phase_whisper, torch, np, build,
+                             InferenceSession, tree_map, smi)
+    whisper_train, whisper_measured = timed(
+        "28 whisper train", phase_train, torch, build, get_config, TrainSession, stepfn,
+        ParallelismConfig, DataConfig, smi, spec=TRAIN_WHISPER, tag="whisper train")
+    _train_memory(get_config, whisper_measured, TRAIN_WHISPER, "whisper train")
+    timed("28 whisper kernels", _time_whisper, torch, fa, da, smi)
+    timed("28 whisper f32", phase_whisper_f32_identity, torch, np, get_config, InferenceSession)
     timing = timed("14 timing", phase_timing, torch, fa, da, rn, smi)
     log(f"[phase] all phases {sum(seconds.values()):.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
@@ -5065,7 +5447,8 @@ def main() -> int:
             eval_launches, *(c for pair in dense_launches.values() for c in pair),
             *h2o_stream_launches.values(), h2o_train_launches, *tp_launches, *dp_launches,
             *pp_launches, *moe_launches, moe_train, moe_eval, *vlm_launches, vlm_train,
-            *moe_pp_launches, *hybrid_launches, hybrid_train, *hybrid_pp_launches]
+            *moe_pp_launches, *hybrid_launches, hybrid_train, *hybrid_pp_launches,
+            *xlstm_launches, xlstm_train, *whisper_launches, whisper_train]
     log(f"[launches] generate {serve_launches}; train step {train_launches}; stream "
         f"{stream_launches}; training CLI (crashed, resumed) {cli_launches}; eval sweep "
         f"{eval_launches}; dense arm (prefill, generate) {dense_launches}; h2o stream "
@@ -5079,7 +5462,9 @@ def main() -> int:
         f"internvl2 train step {vlm_train}; olmoe pp = 2 rank 0 (stage 0: a step of vpp 1 "
         f"and vpp 2) {moe_pp_launches}; hybrid (hymba generate, prefill, stream) "
         f"{hybrid_launches}; hymba train step {hybrid_train}; hymba pp = 2 rank 0 (stage 0: "
-        f"a step of vpp 2) {hybrid_pp_launches}")
+        f"a step of vpp 2) {hybrid_pp_launches}; xLSTM (xlstm generate, prefill, stream) "
+        f"{xlstm_launches}; xlstm train step {xlstm_train}; encoder-decoder (whisper "
+        f"generate, prefill, stream) {whisper_launches}; whisper train step {whisper_train}")
     for kr in kernels:
         r = timing[kr["name"]]
         n = sum(c.get(kr["name"], 0) for c in runs)

@@ -4,16 +4,19 @@ port's, and the port's train states back into the reference's layout.
 The reference names each leaf by its ``/``-joined pytree path
 (``repro/checkpoint/store.py:_flatten``): ``embed``, ``blocks/attn/wq``,
 ``blocks/mlp/w_gate``, ``blocks/moe/router``, ``pre_blocks/0/mlp/w_up``
-(a MoE config's unstacked dense layers), ``final_norm/scale``, ... and, in a train state,
+(a MoE config's unstacked dense layers; every xLSTM layer, of two kinds),
+``enc_blocks/attn/wq`` and ``dec_blocks/xattn/wk`` (an encoder-decoder's
+two stacks), ``final_norm/scale``, ... and, in a train state,
 ``params/...``, ``opt/m/...``, ``opt/v/...``, ``opt/step``, ``step``,
-``rstat/...`` and ``ef/...``.  Its stacked ``blocks`` leaves are (L, ...)
-wherever they stand, and become the port's list of L per-layer dicts.  A
+``rstat/...`` and ``ef/...``.  Its stacked ``blocks``, ``enc_blocks`` and
+``dec_blocks`` leaves are (L, ...) wherever they stand, and become the
+port's lists of L per-layer dicts.  A
 ``save_checkpoint`` directory (``manifest.json`` + ``leaf_*.npy``) is read
 with numpy alone; bf16 leaves, which numpy stores as raw 2-byte records,
 are reinterpreted from their bits.
 
 The write side, ``state_to_numpy``, is the inverse of ``state_from_numpy``:
-the port's per-layer ``blocks`` lists restack into (L, ...) leaves under the
+the port's per-layer stacked lists restack into (L, ...) leaves under the
 reference's paths, in the reference's leaf order (dict keys sorted), every
 leaf a host copy that the live state can no longer change; bf16 leaves
 become 2-byte void records, as numpy stores the reference's.
@@ -36,6 +39,8 @@ import numpy as np
 import torch
 
 BLOCKS = "blocks"
+# the reference's stacked layer lists (its leaves there are (L, ...))
+STACKED = (BLOCKS, "enc_blocks", "dec_blocks")
 
 
 BF16_RECORD = np.dtype("V2")        # how numpy stores a bf16 array
@@ -53,13 +58,13 @@ def _to_tensor(arr: np.ndarray, dtype: str = "") -> torch.Tensor:
 
 
 def _insert(tree: Dict[str, Any], parts, t: torch.Tensor, key: str, device) -> None:
-    """Set a copy of leaf ``t`` on ``device`` at ``parts``; below a
-    ``blocks`` node the stacked leaf is split along its first axis into the
+    """Set a copy of leaf ``t`` on ``device`` at ``parts``; below a stacked
+    node (``STACKED``) the leaf is split along its first axis into the
     per-layer dicts, and a numbered node (``pre_blocks/<i>``, a list the
     reference keeps unstacked) is entry i of a list."""
     for i, p in enumerate(parts[:-1]):
-        if p == BLOCKS:
-            blocks = tree.setdefault(BLOCKS, [{} for _ in range(t.shape[0])])
+        if p in STACKED:
+            blocks = tree.setdefault(p, [{} for _ in range(t.shape[0])])
             if len(blocks) != t.shape[0]:
                 raise ValueError(f"{key}: {t.shape[0]} layers, expected {len(blocks)}")
             for layer, sub in zip(blocks, t.unbind(0)):
@@ -98,7 +103,7 @@ def state_from_numpy(flat: Mapping[str, Any], *, device="cpu") -> Dict[str, Any]
     ``opt/m/…``, ``opt/v/…``, ``opt/step``, ``step``, ``rstat/…`` and, with
     int8 compression, ``ef/…``) → the port's train state (tensors on
     ``device``, copied leaf by leaf, dtypes as given), every stacked
-    ``blocks`` leaf split per layer."""
+    leaf split per layer."""
     state = _tree(flat, device=device)
     missing = {"params", "opt", "step"} - set(state)
     if missing:
@@ -133,15 +138,15 @@ def state_leaves(state: Mapping[str, Any], prefix: Tuple[str, ...] = ()
                  ) -> List[Tuple[str, Union[torch.Tensor, List[torch.Tensor]]]]:
     """[(reference path, leaf)] of a port tree in the reference's leaf order
     (dict keys sorted at every level, list entries in order).  Below a
-    ``blocks`` list a leaf is the list of its L per-layer tensors, which the
-    reference stacks; another list (``pre_blocks``) is unstacked, its
-    entries numbered in the path."""
+    stacked list (``STACKED``) a leaf is the list of its L per-layer
+    tensors, which the reference stacks; another list (``pre_blocks``) is
+    unstacked, its entries numbered in the path."""
     out: List[Tuple[str, Any]] = []
     for k in sorted(state):
         v, path = state[k], prefix + (k,)
         if isinstance(v, dict):
             out += state_leaves(v, path)
-        elif isinstance(v, list) and k != BLOCKS:
+        elif isinstance(v, list) and k not in STACKED:
             for i, entry in enumerate(v):
                 out += state_leaves(entry, path + (str(i),))
         elif isinstance(v, list):
@@ -181,8 +186,7 @@ def to_host(leaf: Union[torch.Tensor, List[torch.Tensor]],
 
 
 def _stacked_block(key: str) -> bool:
-    parts = key.split("/")
-    return "blocks" in parts[:-1]
+    return any(p in STACKED for p in key.split("/")[:-1])
 
 
 def unstack_pipeline(flat: Mapping[str, Any], plan) -> Dict[str, Any]:

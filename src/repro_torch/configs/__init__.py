@@ -1,7 +1,7 @@
 """Config registry: ``get_config("<arch-id>")``, mirroring ``repro.configs``.
 
-The dense decoder, MoE, VLM and hybrid configs are ported so far; the
-other families' configs come with the port of their model code.
+Every architecture the reference builds is ported (``PORTED`` is
+``ARCH_IDS``).
 """
 
 from __future__ import annotations
@@ -44,19 +44,12 @@ ALIASES: Dict[str, str] = {
     "gpt-175b": "gpt_175b",
 }
 
-PORTED: List[str] = ["granite_3_2b", "phi3_mini_38b", "qwen15_32b", "h2o_danube_3_4b",
-                     "gpt_36b", "gpt_20b", "gpt_175b", "olmoe_1b_7b", "deepseek_moe_16b",
-                     "internvl2_1b", "hymba_15b"]
+PORTED: List[str] = list(ARCH_IDS)
 
 
 def get_config(name: str) -> ModelConfig:
     mod_name = ALIASES.get(name, name.replace("-", "_").replace(".", ""))
     if mod_name not in ARCH_IDS:
         raise KeyError(f"unknown architecture {name!r}; known: {', '.join(ARCH_IDS)}")
-    if mod_name not in PORTED:
-        raise NotImplementedError(
-            f"{mod_name} is not ported yet: the port serves the dense, MoE, VLM "
-            f"and hybrid decoders {', '.join(PORTED)}; the other model families come "
-            "with a later PR (ROADMAP Queue 1, item 4: other families)")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG

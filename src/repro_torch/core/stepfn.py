@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -81,6 +82,16 @@ class TrainConfig:
 
 
 PARALLEL = "(ROADMAP Queue 1, item 3: the parallel recipe over torch.distributed)"
+# the families whose layers the reference keeps outside a stacked ``blocks``
+# (the xLSTM's) or in stacks of their own (the encoder-decoder's)
+UNSTACKED_FAMILIES = ("ssm", "encdec")
+# what a freed request slot's leaves are reset to, by leaf name (else 0):
+# an empty ring position, and the recurrent stabilizer of a fresh state
+SLOT_RESET = {"pos": -1, "m": -1e30}
+
+
+def mesh_ranks(mesh) -> int:
+    return math.prod(mesh.shape[a] for a in ("tp", "pp", "data", "pod"))
 
 
 def check_plan(plan: ParallelismConfig, mesh=None, cfg: Optional[ModelConfig] = None) -> None:
@@ -94,10 +105,18 @@ def check_plan(plan: ParallelismConfig, mesh=None, cfg: Optional[ModelConfig] = 
     ``cfg``'s heads, KV heads and d_ff, and a MoE config's ``moe_d_ff``
     (the port shards whole heads and whole columns).  A hybrid config at tp
     > 1 raises, mesh or not: the split of its SSM heads over tp is not
-    ported."""
+    ported.  An xLSTM or encoder-decoder config raises on a mesh of more
+    than one rank and at pp > 1 (the reference pipelines neither: its
+    pipeline stacks ``blocks`` alone); without a mesh its tp, dp and pods
+    compute as one device."""
     if cfg is not None and cfg.family == "hybrid" and plan.tp > 1:
         raise NotImplementedError(f"{cfg.name}: tp={plan.tp} needs the SSM heads split "
                                   f"over tp, which is not ported yet {PARALLEL}")
+    if cfg is not None and cfg.family in UNSTACKED_FAMILIES and (
+            plan.pp > 1 or (mesh is not None and mesh_ranks(mesh) > 1)):
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} at tp={plan.tp}, dp={plan.dp}, pp={plan.pp} "
+            f"on a mesh or a pipeline is not ported yet (item 3.8) {PARALLEL}")
     if plan.pp > 1 and cfg is not None:
         pipeline.check_layers(cfg, plan)
     if mesh is None:
@@ -877,12 +896,13 @@ def _slot_leaves(cfg: ModelConfig, caches):
 
 
 def cache_zero_slot(cfg: ModelConfig, caches, i: int):
-    """Reset request slot ``i`` of batched decode caches in place: ``pos``
-    leaves to -1 (no valid entries), everything else to zeros.  The
-    scheduler runs this on retire, so a freed slot never leaks stale K/V
-    into the next admission."""
+    """Reset request slot ``i`` of batched decode caches in place to a fresh
+    cache's values: ``pos`` leaves to -1 (no valid entries), a recurrent
+    state's stabilizer ``m`` to -1e30 (where the reference writes 0), the
+    rest to zeros.  The scheduler runs this on retire, so a freed slot never
+    leaks stale K/V or state into the next admission."""
     for path, x, a in _slot_leaves(cfg, caches):
-        x.narrow(a, i, 1).fill_(-1 if path[-1] == "pos" else 0)
+        x.narrow(a, i, 1).fill_(SLOT_RESET.get(path[-1], 0))
     return caches
 
 

@@ -46,7 +46,7 @@ from __future__ import annotations
 import math
 from contextlib import contextmanager
 from types import SimpleNamespace
-from typing import Dict, List, Tuple
+from typing import Dict, List, Tuple, Union
 
 import torch
 
@@ -88,8 +88,8 @@ def zero_shard(spec: Spec, shape: Tuple[int, ...], mesh, axes: Tuple[str, ...]) 
     return spec
 
 
-def _stacked(path: Tuple) -> bool:
-    return len(path) > 1 and path[0] == "blocks"
+def _stacked(path: Tuple, stacks=("blocks",)) -> bool:
+    return len(path) > 1 and path[0] in stacks
 
 
 def family_hints(cfg) -> Tuple:
@@ -101,8 +101,8 @@ def family_hints(cfg) -> Tuple:
 
 def n_stacked(cfg) -> int:
     """The layers of the reference's stacked ``blocks`` (its unstacked
-    ``pre_blocks`` apart)."""
-    return cfg.n_layers - cfg.first_k_dense
+    ``pre_blocks`` apart; the xLSTM stacks none)."""
+    return 0 if cfg.family == "ssm" else cfg.n_layers - cfg.first_k_dense
 
 
 def param_shardings(shapes, mesh, plan: ParallelismConfig, *, hints: Tuple = ()
@@ -120,21 +120,28 @@ def param_shardings(shapes, mesh, plan: ParallelismConfig, *, hints: Tuple = ()
 
 
 def opt_shardings(p_specs: Dict[Tuple, Spec], shapes, mesh, plan: ParallelismConfig,
-                  n_layers: int) -> Dict[Tuple, Spec]:
+                  n_layers: Union[int, Dict[str, int]]) -> Dict[Tuple, Spec]:
     """Optimizer-state specs: the parameters' plus the ZeRO axes (stage ≥ 1),
     chosen on the reference's stacked shape for a block leaf (``(n_layers,
     *leaf)``, or pp-stacked under ``plan``).  Where the rule picks a
-    stacking axis the leaf keeps the parameter's spec."""
+    stacking axis the leaf keeps the parameter's spec.  ``n_layers``: the
+    ``blocks`` stack's layers, or {stack: layers} for an encoder-decoder's
+    ``enc_blocks`` and ``dec_blocks`` (never pipelined)."""
     if plan.zero_stage < 1:
         return dict(p_specs)
     axes = _zero_axes(mesh, plan)
-    lead = pipeline.stack_shape(n_layers, plan)
-    lead_spec = sharding.sanitize(sharding.AxisRules(mesh, axis_mapping(plan)).resolve(
-        pipeline.stack_axes(plan)), lead, mesh)
+    stacks = n_layers if isinstance(n_layers, dict) else {"blocks": n_layers}
+    leads = {}
+    for name, n in stacks.items():
+        lead = pipeline.stack_shape(n, plan) if name == "blocks" else (n,)
+        axes_ = pipeline.stack_axes(plan) if name == "blocks" else ("layers",)
+        leads[name] = (lead, sharding.sanitize(sharding.AxisRules(
+            mesh, axis_mapping(plan)).resolve(axes_), lead, mesh))
     out = {}
     for path, shape in shapes:
         spec = tuple(p_specs[path]) + (None,) * (len(shape) - len(p_specs[path]))
-        if _stacked(path):
+        if _stacked(path, tuple(leads)):
+            lead, lead_spec = leads[path[0]]
             got = zero_shard(lead_spec + spec, lead + tuple(shape), mesh, axes)
             if tuple(got[:len(lead)]) != lead_spec:
                 out[path] = spec

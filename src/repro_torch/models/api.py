@@ -1,14 +1,17 @@
 """Model API: one entry point per lifecycle stage, dispatched on the family,
 mirroring ``repro.models.api`` (the loss, ``forward`` and the serving
-stages: ring caches, slot axes and the block-paged pool)."""
+stages: ring caches, recurrent states and cross K/V, slot axes and the
+block-paged pool).  Every family of the reference is registered: the dense
+decoder, MoE, VLM, hybrid, xLSTM (``ssm``) and encoder-decoder
+(``encdec``)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import family_of, register_family
 
@@ -16,6 +19,8 @@ register_family("dense", transformer.DecoderOnlyLM())
 register_family("moe", transformer.MoELM())
 register_family("vlm", transformer.VLM())
 register_family("hybrid", transformer.HybridLM())
+register_family("ssm", transformer.SSMLM())
+register_family("encdec", encdec.EncDecFamily())
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *, finish=None) -> Any:
@@ -36,8 +41,15 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     return family_of(cfg).forward(cfg, params, batch, last_only=last_only)
 
 
-def init_cache(cfg: ModelConfig, params, batch_size: int, max_len: int):
-    return family_of(cfg).init_cache(cfg, params, batch_size, max_len)
+def init_cache(cfg: ModelConfig, params, batch_size: int, max_len: int,
+               batch: Optional[Dict[str, torch.Tensor]] = None):
+    """Decode caches; ``batch`` holds the family's non-token inputs (an
+    encoder-decoder's ``frames``), stubbed by its ``serve_batch`` when
+    absent, as the reference's."""
+    fam = family_of(cfg)
+    if batch is None:
+        batch = fam.serve_batch(cfg, batch_size, device=params["embed"].device)
+    return fam.init_cache(cfg, params, batch_size, max_len, batch)
 
 
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, t, caches):

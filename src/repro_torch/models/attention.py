@@ -1,13 +1,17 @@
 """Multi-head attention with GQA, RoPE, ring-buffer KV caches and the
-block-paged KV pool, mirroring ``repro.models.attention`` (self-attention
-only).
+block-paged KV pool, mirroring ``repro.models.attention``.
 
 :func:`sdpa` without a bias, :func:`attention_decode` and
 :func:`attention_decode_paged` go through ``kernels.ops``: the hand-written
 kernels on the card (K1, K5, K6), their plain versions on the CPU.  ``sdpa``
-with an additive bias (the paged suffix prefill) is the reference's masked
-einsum on every device.  Caches and pools are updated in place.  Cross
-attention and ``chunked_sdpa`` are not ported yet.
+with an additive bias (the paged suffix prefill, a cross-attention decode
+step) is the reference's masked einsum on every device.  Cross attention
+(an encoder-decoder's, ``kv_source=``) runs K1 non-causal over queries and
+keys of two lengths; its decode step reads the precomputed K/V through the
+masked einsum, as the reference's does (K5's mask keeps only keys at or
+before the query's position).  Caches and pools are updated in place.  The
+reference's ``chunked_sdpa`` (its path past 32 M score entries without the
+flash kernel) has no counterpart: K1 never forms the scores.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ Cache = Dict[str, torch.Tensor]
 NEG_INF = -1e30
 
 
-def attention_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def attention_init(gen: torch.Generator, cfg: ModelConfig, *, cross: bool = False) -> Params:
     d, hd = cfg.d_model, cfg.hd
     q_dim, kv_dim = cfg.n_heads * hd, cfg.n_kv_heads * hd
     p: Params = {
@@ -36,7 +40,7 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
         "wo": layers.dense_init(gen, q_dim, d,
                                 scale=1.0 / (q_dim ** 0.5 * (2 * cfg.n_layers) ** 0.5)),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, n in (("bq", q_dim), ("bk", kv_dim), ("bv", kv_dim)):
             p[name] = torch.zeros((n,), dtype=torch.float32, device=gen.device)
     return p
@@ -109,16 +113,33 @@ def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor):
 def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
                     positions: torch.Tensor, *, causal: bool = True,
                     window: Optional[int] = None,
-                    segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence self-attention (the forward of training and prefill)."""
-    x = tp.enter(x)
+                    segment_ids: Optional[torch.Tensor] = None,
+                    kv_source: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention: self-attention (training, prefill, an
+    encoder), or with ``kv_source`` (B, Sk, d) cross-attention of x's
+    queries over its keys and values, every key visible (K1 non-causal,
+    Sq != Sk); ``segment_ids`` apply to self-attention only.  The
+    reference's ``kv_positions`` reach only RoPE on self-attention, so a
+    cross call never reads them: the port takes none."""
+    if kv_source is None:
+        x = tp.enter(x)
+        B, S, _ = x.shape
+        q, k, v = _qkv(cfg, p, x)
+        if cfg.pos_embed == "rope":
+            q = layers.apply_rope(q, positions, cfg.rope_theta)
+            k = layers.apply_rope(k, positions, cfg.rope_theta)
+        out = sdpa(q, k, v, causal=causal, window=window, segment_ids=segment_ids)
+        return tp.leave(out.reshape(B, S, -1) @ p["wo"].to(x.dtype))
+    if segment_ids is not None:
+        raise ValueError("segment_ids only apply to self-attention")
     B, S, _ = x.shape
-    q, k, v = _qkv(cfg, p, x)
-    if cfg.pos_embed == "rope":
-        q = layers.apply_rope(q, positions, cfg.rope_theta)
-        k = layers.apply_rope(k, positions, cfg.rope_theta)
-    out = sdpa(q, k, v, causal=causal, window=window, segment_ids=segment_ids)
-    return tp.leave(out.reshape(B, S, -1) @ p["wo"].to(x.dtype))
+    dt = x.dtype
+    Sk = kv_source.shape[1]
+    q = (x @ p["wq"].to(dt)).reshape(B, S, -1, cfg.hd)
+    k = (kv_source @ p["wk"].to(dt)).reshape(B, Sk, -1, cfg.hd)
+    v = (kv_source @ p["wv"].to(dt)).reshape(B, Sk, -1, cfg.hd)
+    out = sdpa(q, k, v, causal=False, window=None)
+    return out.reshape(B, S, -1) @ p["wo"].to(dt)
 
 
 def attention_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -166,11 +187,16 @@ def cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
                      t: Union[int, torch.Tensor], cache: Cache, *,
-                     window: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+                     window: Optional[int] = None, cross: bool = False
+                     ) -> Tuple[torch.Tensor, Cache]:
     """x: (B, 1, d); t: the token's absolute position, an int for every row
     or a (B,) int32 tensor of one per row (the continuous-batching slot
     step).  Writes the new K/V to ring slot ``t % size`` of each row in
-    place and returns (out, cache)."""
+    place and returns (out, cache).  ``cross``: ``cache`` holds an encoder's
+    precomputed K/V, read as it is through the masked einsum (every valid
+    key visible) and left unchanged."""
+    if cross:
+        return _cross_decode(cfg, p, x, cache), cache
     x = tp.enter(x)
     B = x.shape[0]
     q, knew, vnew = _qkv(cfg, p, x)
@@ -190,6 +216,17 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     out = ops.decode_attention(q, cache["k"].to(dt), cache["v"].to(dt), cache["pos"],
                                t=t, window=window)
     return tp.leave(out.reshape(B, 1, -1) @ p["wo"].to(dt)), cache
+
+
+def _cross_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: Cache) -> torch.Tensor:
+    B = x.shape[0]
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt)).reshape(B, 1, -1, cfg.hd)
+    kpos = cache["pos"]
+    bias = _mask_bias(torch.zeros((B, 1), dtype=torch.int32, device=x.device), kpos,
+                      causal=False, window=None, k_valid=kpos >= 0)
+    out = sdpa(q, cache["k"].to(dt), cache["v"].to(dt), bias, causal=False)
+    return out.reshape(B, 1, -1) @ p["wo"].to(dt)
 
 
 # ---------------------------------------------------------------------------

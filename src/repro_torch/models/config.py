@@ -85,11 +85,9 @@ class ModelConfig:
             moe_layer = att + self.n_experts * ff_moe + router + shared + 2 * d
             dense_layer = att + dense_ff + 2 * d
             body = (self.n_layers - self.first_k_dense) * moe_layer + self.first_k_dense * dense_layer
-        elif self.family == "ssm":
-            # the reference counts these blocks in its model code
-            raise NotImplementedError(
-                f"n_params of family {self.family!r} comes with the port of "
-                "that family's blocks (ROADMAP Queue 1, item 4: other families)")
+        elif self.family == "ssm":  # xLSTM: blocks counted in the model code
+            from repro_torch.models.xlstm import xlstm_param_count
+            body = xlstm_param_count(self)
         elif self.family == "hybrid":
             from repro_torch.models.ssm import hymba_param_count
             body = hymba_param_count(self)

@@ -1,6 +1,6 @@
 """Model-family registry, mirroring ``repro.models.registry``: ``api``
-dispatches on ``cfg.family`` through it.  The dense decoder, the MoE
-family, the VLM and the hybrid are registered so far."""
+dispatches on ``cfg.family`` through it, and ``models.api`` registers
+every family of the reference."""
 
 from __future__ import annotations
 
@@ -19,6 +19,5 @@ def family_of(cfg: ModelConfig):
     try:
         return _REGISTRY[cfg.family]
     except KeyError:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (registered: "
-            f"{', '.join(sorted(_REGISTRY))}; ROADMAP Queue 1, item 4: other families)") from None
+        raise KeyError(f"unknown model family {cfg.family!r}; registered: "
+                       f"{', '.join(sorted(_REGISTRY))}") from None

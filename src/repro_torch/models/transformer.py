@@ -26,7 +26,10 @@ take as they are, where the reference scans a traced array of windows.
 Its layer cache is ``{"kv": the ring, "ssm_h", "conv"}`` (a global
 layer's ring ``max_len`` wide), and it fills its caches by the decode scan
 too (its recurrent state would consume a padded prompt's tail).  The xLSTM
-arm is not ported yet.
+arm (``models.xlstm``) stacks nothing: its mLSTM and sLSTM blocks are all
+``pre_blocks``, as in the reference, there is no ``blocks`` entry, its
+caches are ``{"pre": [the layers' recurrent states]}``, and it fills them
+by the decode scan as well.
 
 Under tensor parallelism the blocks run ``core.tp``'s regions (in
 ``attention`` and ``layers.mlp_apply``) and the reference's
@@ -53,7 +56,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.core import sharding, tp, zero
 from repro_torch.core.tree import tree_map
-from repro_torch.models import layers, moe as moe_mod, ssm as ssm_mod
+from repro_torch.models import layers, moe as moe_mod, ssm as ssm_mod, xlstm as xlstm_mod
 from repro_torch.models.attention import (attention_apply, attention_decode,
                                           attention_decode_paged, attention_init,
                                           attention_prefill, attention_prefill_paged,
@@ -65,18 +68,22 @@ Params = Dict[str, Any]
 AUX_LOSS_COEF = 0.01
 
 
+RECURRENT_KINDS = ("hymba", "mlstm", "slstm")
+
+
 def layer_plan(cfg: ModelConfig):
-    """(scanned kind, number of layers, unstacked prefix) as in the
-    reference; the dense, VLM (a dense stack), MoE and hybrid plans are
-    ported."""
+    """(stacked kind, number of stacked layers, unstacked prefix [(index,
+    kind)]) as in the reference: MoE blocks after ``first_k_dense`` dense
+    ones, the hybrid's stack, the xLSTM's mLSTM/sLSTM blocks all unstacked
+    (None, 0, ...), the dense stack otherwise."""
     if cfg.family == "moe":
         return "moe", cfg.n_layers - cfg.first_k_dense, [
             (i, "dense") for i in range(cfg.first_k_dense)]
     if cfg.family == "hybrid":
         return "hymba", cfg.n_layers, []
-    if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1, item 4: other families)")
+    if cfg.family == "ssm":
+        return None, 0, [(i, "slstm" if i in cfg.slstm_at else "mlstm")
+                         for i in range(cfg.n_layers)]
     return "dense", cfg.n_layers, []
 
 
@@ -104,6 +111,10 @@ def layer_windows(cfg: ModelConfig) -> List[Optional[int]]:
 def block_init(gen: torch.Generator, cfg: ModelConfig, *, kind: str = "dense") -> Params:
     if kind == "hymba":
         return ssm_mod.hymba_block_init(gen, cfg)
+    if kind == "mlstm":
+        return xlstm_mod.mlstm_block_init(gen, cfg)
+    if kind == "slstm":
+        return xlstm_mod.slstm_block_init(gen, cfg)
     p = {
         "norm1": layers.norm_init(cfg.norm, cfg.d_model, gen.device),
         "attn": attention_init(gen, cfg),
@@ -131,16 +142,20 @@ def block_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 positions: torch.Tensor, *, window,
                 segment_ids: Optional[torch.Tensor] = None, kind: str = "dense"):
     """→ (x, the block's load-balance loss: an f32 scalar for a MoE block,
-    None for a dense or hybrid one)."""
-    if kind == "hymba" and segment_ids is not None:
+    None for the other kinds)."""
+    if kind in RECURRENT_KINDS and segment_ids is not None:
         # the recurrent state mixes across the whole row: a segment mask on
         # the attention half alone would leak documents into each other
         raise NotImplementedError(
-            "packed-sequence training (segment_ids) is attention-only; block kind "
-            "'hymba' carries recurrent state across documents")
+            f"packed-sequence training (segment_ids) is attention-only; block kind "
+            f"{kind!r} carries recurrent state across documents")
     p = zero.gathered(p)
     if kind == "hymba":
         return ssm_mod.hymba_block_apply(cfg, p, x, positions, window=window), None
+    if kind == "mlstm":
+        return xlstm_mod.mlstm_block_apply(cfg, p, x), None
+    if kind == "slstm":
+        return xlstm_mod.slstm_block_apply(cfg, p, x), None
     h = layers.norm_apply(cfg.norm, p["norm1"], x)
     x = x + attention_apply(cfg, p["attn"], h, positions, causal=True,
                             window=window, segment_ids=segment_ids)
@@ -160,8 +175,15 @@ def block_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 def block_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, t, cache, *, window,
                  kind: str = "dense"):
+    """One token through a block, its cache updated in place → (x, cache)."""
     if kind == "hymba":
         return ssm_mod.hymba_block_decode(cfg, p, x, t, cache, window=window)
+    if kind in ("mlstm", "slstm"):
+        step = xlstm_mod.mlstm_block_decode if kind == "mlstm" else xlstm_mod.slstm_block_decode
+        x, new = step(cfg, p, x, cache)
+        for k, v in new.items():
+            cache[k].copy_(v)
+        return x, cache
     h = layers.norm_apply(cfg.norm, p["norm1"], x)
     h, cache = attention_decode(cfg, p["attn"], h, t, cache, window=window)
     if kind == "moe":
@@ -196,7 +218,8 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig, *, finish=None) -> Params:
     session's shard-and-cast) takes each part as soon as it is drawn: the
     embedding, each block, the final norm and the head, so a model is never
     whole in f32; a block it gives None for (one that another pipeline
-    stage holds) is left out of ``blocks``."""
+    stage holds) is left out of ``blocks``.  A plan that stacks nothing
+    (the xLSTM's) has no ``blocks`` entry, as the reference's has none."""
     kind, n_layers, pre = layer_plan(cfg)
     if cfg.pos_embed == "learned":
         raise NotImplementedError("learned position embeddings are not ported yet")
@@ -206,8 +229,9 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig, *, finish=None) -> Params:
     if pre:
         p["pre_blocks"] = [done(("pre_blocks", i), block_init(gen, cfg, kind=k))
                            for i, k in pre]
-    blocks = (done(("blocks", i), block_init(gen, cfg, kind=kind)) for i in range(n_layers))
-    p["blocks"] = [b for b in blocks if b is not None]
+    if n_layers:
+        blocks = (done(("blocks", i), block_init(gen, cfg, kind=kind)) for i in range(n_layers))
+        p["blocks"] = [b for b in blocks if b is not None]
     p["final_norm"] = done(("final_norm",),
                            layers.norm_init(cfg.norm, cfg.d_model, gen.device))
     if not cfg.tie_embeddings:
@@ -345,7 +369,7 @@ def _forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers_ = ([(bp, k, cfg.swa_window)
                 for bp, (_, k) in zip(params.get("pre_blocks", []), pre)]
-               + [(bp, kind, w) for bp, w in zip(params["blocks"], layer_windows(cfg))])
+               + [(bp, kind, w) for bp, w in zip(params.get("blocks", []), layer_windows(cfg))])
     for bp, k, w in layers_:
         x, a = block(cfg, bp, x, pos, window=w, segment_ids=segment_ids, kind=k)
         if a is not None:
@@ -371,18 +395,33 @@ def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     return xent + AUX_LOSS_COEF * aux, {"xent": xent, "aux": aux}
 
 
+def block_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, kind: str, window,
+                     device, n_kv_heads: Optional[int] = None):
+    """One layer's decode cache: a ring ``window`` wide (``max_len``
+    without one), a hybrid layer's ``{"kv": ring, "ssm_h", "conv"}``, an
+    xLSTM layer's recurrent state."""
+    if kind == "mlstm":
+        return xlstm_mod.mlstm_state_init(cfg, batch, device)
+    if kind == "slstm":
+        return xlstm_mod.slstm_state_init(cfg, batch, device)
+    block = ssm_mod.hymba_cache_init if kind == "hymba" else cache_init
+    return block(cfg, batch, max_len, window=window, device=device, n_kv_heads=n_kv_heads)
+
+
 def lm_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, device,
                   n_kv_heads: Optional[int] = None) -> Dict[str, List]:
-    """A ring a layer, ``window`` wide (``layer_windows``; ``max_len``
-    without one); a hybrid layer's is ``{"kv": ring, "ssm_h", "conv"}``."""
-    kind, _, pre = layer_plan(cfg)
-    block = ssm_mod.hymba_cache_init if kind == "hymba" else cache_init
+    """``{"blocks": a cache a stacked layer (its window from
+    ``layer_windows``), "pre": one an unstacked layer}``, each entry only
+    where the plan has such layers."""
+    kind, n_layers, pre = layer_plan(cfg)
     kw = dict(device=device, n_kv_heads=n_kv_heads)
-    caches = {"blocks": [block(cfg, batch, max_len, window=w, **kw)
-                         for w in layer_windows(cfg)]}
+    caches = {}
+    if n_layers:
+        caches["blocks"] = [block_cache_init(cfg, batch, max_len, kind=kind, window=w, **kw)
+                            for w in layer_windows(cfg)]
     if pre:
-        caches["pre"] = [cache_init(cfg, batch, max_len, window=cfg.swa_window, **kw)
-                         for _ in pre]
+        caches["pre"] = [block_cache_init(cfg, batch, max_len, kind=k, window=cfg.swa_window,
+                                          **kw) for _, k in pre]
     return caches
 
 
@@ -429,21 +468,24 @@ def lm_decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor, t,
     x = _embed(cfg, params, token[:, None])
     for bp, (_, k), c in zip(params.get("pre_blocks", []), pre, caches.get("pre", [])):
         x, _ = block_decode(cfg, bp, x, t, c, window=cfg.swa_window, kind=k)
-    for bp, c, w in zip(params["blocks"], caches["blocks"], layer_windows(cfg)):
+    for bp, c, w in zip(params.get("blocks", []), caches.get("blocks", []),
+                        layer_windows(cfg)):
         x, _ = block_decode(cfg, bp, x, t, c, window=w, kind=kind)
     return _logits(cfg, params, x)[:, 0], caches
 
 
 def lm_prefill_scan(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
-                    caches) -> Tuple[torch.Tensor, Any]:
+                    caches, *, step=None) -> Tuple[torch.Tensor, Any]:
     """The reference's decode-scan prefill (``ModelFamily.prefill_cache``):
-    one :func:`lm_decode_step` a prompt position, every row at that
-    position, so capacity routing sees what decode sees.  → (the last
-    position's logits (B, V), caches)."""
+    one decode step (``step``, :func:`lm_decode_step` by default) a prompt
+    position, every row at that position, so capacity routing sees what
+    decode sees and a recurrent state consumes the prompt as decode does.
+    → (the last position's logits (B, V), caches)."""
+    step = step or lm_decode_step
     tokens = batch["tokens"]
     logits = None
     for t in range(tokens.shape[1]):
-        logits, caches = lm_decode_step(cfg, params, tokens[:, t], t, caches)
+        logits, caches = step(cfg, params, tokens[:, t], t, caches)
     return logits, caches
 
 
@@ -518,7 +560,11 @@ class DecoderOnlyLM:
     def loss(self, cfg, params, batch, *, remat_policy="full"):
         return lm_loss(cfg, params, batch, remat_policy=remat_policy)
 
-    def init_cache(self, cfg, params, batch_size, max_len):
+    def serve_batch(self, cfg, batch_size, *, device):
+        """The non-token inputs a cache init needs: none."""
+        return None
+
+    def init_cache(self, cfg, params, batch_size, max_len, batch=None):
         """Ring caches of the KV heads ``params`` hold (this rank's under tp);
         a hybrid layer's SSM state beside its ring."""
         kv_heads = params["blocks"][0]["attn"]["wk"].shape[1] // cfg.hd
@@ -589,6 +635,27 @@ class HybridLM(DecoderOnlyLM):
     a page table could index; ``init_paged_pool`` raises in
     ``_require_paged_plan``); the prompt goes into the caches through the
     decode scan."""
+
+    def prefill_cache(self, cfg, params, batch, caches):
+        return lm_prefill_scan(cfg, params, batch, caches)
+
+    def supports_padded_prefill(self, cfg):
+        return False
+
+    def param_sharding_hints(self, cfg):
+        return ssm_mod.SHARDING_HINTS
+
+
+class SSMLM(DecoderOnlyLM):
+    """The xLSTM stack (``models.xlstm``: mLSTM and sLSTM blocks, all
+    unstacked): no attention, so no padded prefill and no paged pool, as
+    the reference's (``init_paged_pool`` raises in
+    ``_require_paged_plan``); the prompt goes into the recurrent states
+    through the decode scan.  The placement hints are the hybrid's
+    (``_SSM_SCAN_HINTS`` in the reference)."""
+
+    def init_cache(self, cfg, params, batch_size, max_len, batch=None):
+        return lm_cache_init(cfg, batch_size, max_len, device=params["embed"].device)
 
     def prefill_cache(self, cfg, params, batch, caches):
         return lm_prefill_scan(cfg, params, batch, caches)

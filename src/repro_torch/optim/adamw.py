@@ -9,9 +9,11 @@ held; a skipped step (``skip``, a 0-d bool on the device) leaves params,
 Weight decay follows the reference's leaf rank.  The reference decays leaves
 with ``ndim >= 2``, and its ``blocks/*`` leaves are stacked (L, ...), so
 every block leaf is decayed there, norm scales and biases included (its
-comment says "no decay on norms/biases"; the stacking defeats it).  Only
-unstacked 1-D leaves such as ``final_norm`` escape.  The port's block leaves
-are per layer, one rank lower, so the rank is taken +1 inside ``blocks``.
+comment says "no decay on norms/biases"; the stacking defeats it), and so
+is every leaf of an encoder-decoder's ``enc_blocks`` and ``dec_blocks``.
+Only unstacked 1-D leaves such as ``final_norm`` and those of
+``pre_blocks`` escape.  The port's stacked leaves are per layer, one rank
+lower, so the rank is taken +1 inside those three lists.
 
 Under tensor parallelism and ZeRO (``core.zero``) the gradient norm (the
 clip's and the skip gate's) is the whole model's: :func:`mesh_norm` sums
@@ -71,9 +73,12 @@ def mesh_norm(leaves, owned: Sequence[bool], reduce: Callable[[torch.Tensor], to
     return torch.sqrt(reduce(_sq_sum(leaves, torch.float64, owned))).float()
 
 
+STACKED = ("blocks", "enc_blocks", "dec_blocks")
+
+
 def reference_rank(path: Tuple, p: torch.Tensor) -> int:
     """The rank the reference's leaf has: +1 for a leaf of a stacked block."""
-    return p.dim() + (1 if "blocks" in path else 0)
+    return p.dim() + (1 if any(s in path for s in STACKED) else 0)
 
 
 def adamw_update(grads, opt_state, params, lr: torch.Tensor, gnorm: torch.Tensor,

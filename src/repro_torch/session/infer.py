@@ -156,13 +156,20 @@ class InferenceSession:
         """Teacher-forced full-sequence forward (the prefill phase), without
         a cache: fp32 logits (B, 1, V) for the last position when
         ``last_only``, else (B, S, V).  ``batch`` holds ``tokens`` (B, S)
-        (and optionally ``segment_ids``), numpy or tensors, moved to the
+        (and optionally ``segment_ids``; a VLM's ``vision_embeds``, an
+        encoder-decoder's ``frames``), numpy or tensors, moved to the
         session's device."""
         step = stepfn.make_prefill(self.cfg, self.plan, self.mesh, last_only=last_only)
         return step(self.params, to_device(batch, self.device))
 
-    def init_cache(self, batch_size: int, max_len: int) -> Any:
-        return model_api.init_cache(self.cfg, self.params, batch_size, max_len)
+    def init_cache(self, batch_size: int, max_len: int, batch=None) -> Any:
+        """The family's decode caches; ``batch`` holds its non-token inputs
+        (an encoder-decoder's ``frames`` (B, F, d)), stubbed through the
+        family's ``serve_batch`` (zero frames) when absent, as the
+        reference's."""
+        if batch is not None:
+            batch = to_device(batch, self.device)
+        return model_api.init_cache(self.cfg, self.params, batch_size, max_len, batch)
 
     # continuous-batching slot operations, in place on the caches
     def insert_slot(self, caches, slot_caches, i: int):
@@ -174,8 +181,9 @@ class InferenceSession:
         return stepfn.cache_take_slot(self.cfg, caches, i)
 
     def zero_slot(self, caches, i: int):
-        """Reset request slot ``i`` (positions -1, K/V 0): retire uses this
-        so a freed slot never holds stale K/V."""
+        """Reset request slot ``i`` to a fresh cache's values (positions -1,
+        a recurrent stabilizer ``m`` -1e30, the rest 0): retire uses this so
+        a freed slot never holds stale K/V or state."""
         return stepfn.cache_zero_slot(self.cfg, caches, i)
 
     # block-paged KV pool (repro_torch.session.kvpool)
@@ -190,13 +198,16 @@ class InferenceSession:
         return stepfn.pool_copy_page(self.cfg, pool, src, dst)
 
     def generate(self, prompts, max_new_tokens, *,
-                 stop_token: Optional[int] = None, n_slots: Optional[int] = None):
+                 stop_token: Optional[int] = None, n_slots: Optional[int] = None,
+                 frames=None):
         """Greedy decode.
 
         Uniform mode (a 2-D ``prompts`` array and an int ``max_new_tokens``):
         one cache-populating prefill ingests the (B, P) prompts, then argmax
         decode.  Returns (B, P + max_new_tokens) int32 token ids on the
-        session's device; after ``stop_token`` a row is padded with it.
+        session's device; after ``stop_token`` a row is padded with it.  An
+        encoder-decoder encodes ``frames`` (B, F, d) at the cache init (zero
+        frames without them, as the reference's ``generate``).
 
         Mixed-length mode (a list of prompts, or per-request
         ``max_new_tokens``): delegates to :meth:`serve` and returns its list
@@ -213,7 +224,8 @@ class InferenceSession:
                 return prompts
             B, P = prompts.shape
             max_len = P + max_new_tokens
-            caches = self.init_cache(B, max_len)
+            caches = self.init_cache(B, max_len,
+                                     None if frames is None else {"frames": frames})
             logits, caches = self.prefill_cache_step(self.params, {"tokens": prompts}, caches)
             tok = logits.argmax(dim=-1).to(torch.int32)
             cols = [prompts, tok[:, None]]

@@ -139,14 +139,26 @@ def test_config_matches_reference(arch, reduced):
 
 
 def test_registry_names_match_reference_and_unported_raise():
+    """Every architecture is ported: ``PORTED`` is ``ARCH_IDS``, each name
+    gives the reference's config; an unknown name, and a config of a family
+    that no module registers, raise as the reference's do."""
     from repro import configs as ref_configs
+    from repro.models import registry as ref_registry
+    from repro_torch.models import api
     assert ARCH_IDS == ref_configs.ARCH_IDS and ALIASES == ref_configs.ALIASES
+    assert PORTED == ARCH_IDS
     assert get_config("granite-3-2b") is get_config("granite_3_2b")
-    for arch in set(ARCH_IDS) - set(PORTED):
-        with pytest.raises(NotImplementedError, match=r"later PR.*Queue 1, item 4"):
-            get_config(arch)
+    assert get_config("whisper-base") is get_config("whisper_base")
+    for arch in ARCH_IDS:
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(ref_configs.get_config(arch))
     with pytest.raises(KeyError):
         get_config("no_such_model")
+    odd = dataclasses.replace(get_config("granite_3_2b"), family="rwkv")
+    with pytest.raises(KeyError, match="unknown model family 'rwkv'"):
+        api.family_of(odd)
+    with pytest.raises(KeyError, match="unknown model family 'rwkv'"):
+        ref_registry.family_of(odd)
     xlstm = dataclasses.replace(get_config("granite_3_2b"), family="ssm")
-    with pytest.raises(NotImplementedError):
-        xlstm.n_params()
+    assert xlstm.n_params() == dataclasses.replace(ref_get_config("granite_3_2b"),
+                                                   family="ssm").n_params()

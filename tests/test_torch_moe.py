@@ -386,6 +386,16 @@ def test_pp_refuses_an_unsplittable_moe_stack_and_builds_olmoe():
 
 
 def test_other_families_still_raise():
+    """Every architecture of the reference builds now (the xLSTM and the
+    encoder-decoder were the last); what those two still refuse is a mesh
+    or a pipeline (ROADMAP Queue 1, item 3.8), where the MoE family runs,
+    and a family the reference does not have raises as its registry does."""
+    from repro_torch.models import registry
     for arch in ("xlstm_125m", "whisper_base"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-            get_config(arch)
+        cfg = get_config(arch).reduced()
+        with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
+            stepfn.check_plan(ParallelismConfig(pp=2, gas=2), None, cfg)
+    stepfn.check_plan(ParallelismConfig(pp=2, gas=2), None,
+                      dataclasses.replace(get_config("olmoe_1b_7b").reduced(), n_layers=4))
+    with pytest.raises(KeyError, match="unknown model family"):
+        registry.family_of(dataclasses.replace(get_config("olmoe_1b_7b"), family="rwkv"))

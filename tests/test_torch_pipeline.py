@@ -363,8 +363,10 @@ RULE_PLANS = [dict(pp=2, vpp=1), dict(pp=2, vpp=2), dict(pp=2, dp=2, zero_stage=
 
 # the configs the port pipelines: deepseek-moe's stack of 27 layers after its
 # dense first one is divisible by no pp·vpp > 1 (it raises, as in the
-# reference)
-PP_ARCHS = [a for a in PORTED if a != "deepseek_moe_16b"]
+# reference); the xLSTM and the encoder-decoder have no ``blocks`` stack,
+# which is all the reference's pipeline stacks, and it cannot pipeline them
+# (its step fails on both: ``test_torch_xlstm``/``test_torch_whisper``)
+PP_ARCHS = [a for a in PORTED if a not in ("deepseek_moe_16b", "xlstm_125m", "whisper_base")]
 
 
 @functools.lru_cache(maxsize=None)

@@ -236,10 +236,19 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, capsys):
 
 
 def test_unported_paths_raise():
-    """The other model families, and the reference's compile-only lowering
-    (which waits for the parallel recipe), are not ported yet."""
+    """The reference's compile-only lowering (which waits for the parallel
+    recipe) is not ported, nor is serving the xLSTM or the encoder-decoder
+    on a mesh (ROADMAP Queue 1, item 3.8); a family that no module
+    registers raises."""
+    from types import SimpleNamespace
+    from repro_torch.core.recipe import ParallelismConfig
     _, port = _sessions("granite_3_2b")
     assert not hasattr(port, "lower_prefill") and not hasattr(port, "lower_decode")
-    xlstm = dataclasses.replace(get_config("granite_3_2b").reduced(), family="ssm")
-    with pytest.raises(NotImplementedError):
-        InferenceSession.from_recipe(xlstm, device="cpu")
+    mesh = SimpleNamespace(shape={"tp": 2, "pp": 1, "data": 1, "pod": 1})
+    for arch in ("xlstm_125m", "whisper_base"):
+        with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
+            InferenceSession.from_recipe(arch, reduced=True, device="cpu",
+                                         plan=ParallelismConfig(tp=2), mesh=mesh)
+    odd = dataclasses.replace(get_config("granite_3_2b").reduced(), family="rwkv")
+    with pytest.raises(KeyError, match="unknown model family"):
+        InferenceSession.from_recipe(odd, device="cpu")

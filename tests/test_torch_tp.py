@@ -135,11 +135,13 @@ def test_param_rules_equal_reference(arch, tp_size):
     jhints, hints = jzero.family_hints(jget_config(arch)), zero.family_hints(get_config(arch))
     assert hints == jhints
     for path, leaf in _ref_shapes(arch):
-        stacked = path.startswith("blocks/")
+        # the reference's stacks: ``blocks``, an encoder-decoder's two
+        stack = path.split("/")[0]
+        stacked = stack in ("blocks", "enc_blocks", "dec_blocks")
         want = jshd.spec_for_path(path, leaf.shape, stacked_axes=int(stacked),
                                   extra_rules=jhints)
         shape = leaf.shape[1:] if stacked else leaf.shape
-        ppath = path.replace("blocks/", "blocks/0/") if stacked else path
+        ppath = path.replace(f"{stack}/", f"{stack}/0/", 1) if stacked else path
         got = sharding.spec_for_path(ppath, shape, extra_rules=hints)
         assert got == (want[1:] if stacked else want), path
         jspec = tuple(jshd.sanitize(jax.sharding.NamedSharding(jmesh, jrules.resolve(want)),

@@ -136,6 +136,9 @@ def _jpaths(tree):
             for path, leaf in flat}
 
 
+STACKS = ("blocks", "enc_blocks", "dec_blocks")
+
+
 def _pad(spec, n):
     spec = tuple(spec)
     return spec + (None,) * (n - len(spec))
@@ -150,7 +153,10 @@ def test_zero_rules_equal_reference(arch, zero_stage, reduced):
     at dp 2, 4 and 8, pods 2 and tp 1 and 2."""
     params = _ref_params(arch, reduced)
     shapes = _jpaths(params)
-    n_layers = shapes["blocks/attn/wq"].shape[0]
+    # each stack's layers: ``blocks`` (none in the xLSTM, whose layers are
+    # all unstacked), an encoder-decoder's ``enc_blocks`` and ``dec_blocks``
+    n_layers = {s: shapes[f"{s}/attn/wq"].shape[0] for s in STACKS
+                if f"{s}/attn/wq" in shapes}
     layer_axis = set()
     for dp, pods, tp_size in MESH_SHAPES:
         sizes = (pods, dp, 1, tp_size)
@@ -165,15 +171,16 @@ def test_zero_rules_equal_reference(arch, zero_stage, reduced):
         plan = ParallelismConfig(dp=dp, pods=pods, tp=tp_size, zero_stage=zero_stage)
         port_shapes = []
         for path, leaf in shapes.items():
-            stacked = path.startswith("blocks/")
-            port_shapes.append((tuple(path.replace("blocks/", "blocks/0/").split("/"))
+            stack = path.split("/")[0]
+            stacked = stack in STACKS
+            port_shapes.append((tuple(path.replace(f"{stack}/", f"{stack}/0/", 1).split("/"))
                                 if stacked else tuple(path.split("/")),
                                 leaf.shape[1:] if stacked else leaf.shape))
         pp_ = zero.param_shardings(port_shapes, mesh, plan,
                                    hints=zero.family_hints(get_config(arch)))
         po = zero.opt_shardings(pp_, port_shapes, mesh, plan, n_layers)
         for (path, leaf), (ppath, shape) in zip(shapes.items(), port_shapes):
-            k = 1 if path.startswith("blocks/") else 0
+            k = 1 if path.split("/")[0] in STACKS else 0
             want_o = _pad(jo[path].spec, len(leaf.shape))
             assert _pad(pp_[ppath], len(shape)) == _pad(jp[path].spec, len(leaf.shape))[k:], \
                 (arch, dp, pods, tp_size, path, "param")
