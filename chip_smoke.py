@@ -162,8 +162,9 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    ``Exclusive_Process``; times are labelled as two time-sliced ranks;
 21. (run after 20) sharded data parallelism at dp = 2 as two processes on
    the one card, as 20 runs them: gpt-3.6b at published width, 1 of 30
-   layers, 4 x 1024 tokens in 2 micro-batches, remat full, bf16 over f32
-   masters, one counted step after a first at ZeRO 0, 1, 2 and 3, then
+   layers and a 4096-token vocabulary, 4 x 1024 tokens in 2 micro-batches,
+   remat full, bf16 over f32 masters, one counted step after a first at
+   ZeRO 0, 1, 2 and 3, then
    ``overlap_zero`` at stage 2 and ``gather_params_once`` at stage 3 (the
    GAS path, consensus off): each rank's peak memory beside
    ``core.memory.per_device_bytes``, the collectives by kind and group
@@ -181,7 +182,8 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    device (the same loss);
 22. (run after 21) pipeline parallelism at pp = 2 as two processes on the
    one card, as 20 and 21 run them: gpt-3.6b at published width, 4 of 30
-   layers (1 a chunk at vpp 2), 8 x 1024 tokens in 4 micro-batches (mbs
+   layers (1 a chunk at vpp 2) and a 4096-token vocabulary, 8 x 1024
+   tokens in 4 micro-batches (mbs
    2), remat full, bf16 over f32 masters, one counted step (at vpp 1 after
    a first), at vpp 1, vpp 2 and vpp 2 under remat "stage", then vpp 1 at
    gas 8 (16 x 1024): each rank's K1-K4 launches exact (K1 2 a layer of its stage a
@@ -193,9 +195,9 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    stash of its peak at gas 4, times labelled as time-sliced ranks; the
    per-token losses after the first step against pp = 1's (computed first
    in this process) within 2x bf16's own error; the f32 identities at 4
-   layers (vpp 1 and 2 against one device at the same plan, the stages in
-   one process, and against pp = 1: loss 1e-5 relative, params 1e-5 but
-   for Adam's noise floor) with the leaves every stage holds equal in bits
+   layers (vpp 1 and 2 against one device at
+   the same plan, the stages in one process, and against pp = 1: loss 1e-5
+   relative, params 1e-5 but for Adam's noise floor) with the leaves every stage holds equal in bits
    on every rank; pp 2 x dp 2 as four ranks at ZeRO-1 (the f32 identity and
    a bf16 step, counted).  No checkpoint on the card (the run's disk writes
    are spent): the pipeline's checkpoint and re-plan are held on the CPU;
@@ -279,10 +281,25 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    and K5 over the decoder's ring timed beside their bounds, plain
    versions and SDPA; the f32 identity at 2 + 2 layers (tokens and prefill
    logits of kernels and plain versions);
-29. prints each phase's seconds, a ``{"planning": {...}}`` line, a
+29. (run after 28) every family under the paper's tp and dp, as ranks
+   time-sliced on the card over gloo, each held to one device on the same
+   card and seeds (the references first, in this process): hymba-1.5b at
+   tp 5 in a world of five (5/1 attention heads and 5 SSM heads a rank, a
+   GQA group of 5; its d_ff of 5504 whole on every rank) at published
+   width, ``generate`` and ``prefill`` (2 x 1280) at full depth, the f32
+   tokens and one f32 step at 4 of 32 layers (a global layer and a
+   windowed one); xlstm-125m and whisper-base at tp 2 x dp 2 in one world
+   of four at full depth (``generate``, ``prefill``, the f32 tokens and one
+   f32 step at ZeRO-3).  The f32 tokens exact, the f32 step's loss 1e-5
+   relative, the bf16 prefill logits and the first token's logits within
+   2x the bf16 floor and the first token equal wherever one device's
+   top-1 margin exceeds that; K1-K5's launches exact at the local heads;
+   collectives by group and bytes beside the cost model's ``t_tp`` and
+   ``t_dp``, peak memory a rank beside ``per_device_bytes`` (reported);
+30. prints each phase's seconds, a ``{"planning": {...}}`` line, a
    ``{"tp": {...}}`` line, a ``{"dp": {...}}`` line, a ``{"pp": {...}}``
-   line, a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
-   {...}}``.
+   line, a ``{"families": {...}}`` line, a ``{"kernels": [...]}`` line
+   and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line.  It also exits non-zero
 when CUDA is not available, or when it does not stand in a checkout of the
@@ -384,7 +401,6 @@ HYBRID = dict(arch="hymba_15b", batch=4, prompt_len=64, new_tokens=64, prefill=(
 TRAIN_HYMBA = dict(arch="hymba_15b", seq_len=2048, global_batch=4, gas=1, steps=3)
 HYBRID_PP = dict(ranks=2, arch="hymba_15b", n_layers=8, seq_len=1024, global_batch=4, gas=2,
                  vpps=(1, 2))
-HYBRID_PP_DIR = ROOT / "build" / "chip_smoke_hybrid_pp"
 # phase 27: xlstm-125m at full width and depth (12 layers, d 768, 4 heads,
 # sLSTM at 1 and 3, an mLSTM inner width of 1536): generate at B 4 (a
 # 64-token prompt through the decode scan, 64 new tokens), prefill at 2 x
@@ -404,6 +420,25 @@ WHISPER = dict(arch="whisper_base", batch=4, prompt_len=16, new_tokens=64, prefi
                slots=2, stream_lens=(24, 40, 9, 33, 17), stream_gens=(16, 8, 12, 8, 4),
                f32_layers=2)
 TRAIN_WHISPER = dict(arch="whisper_base", seq_len=448, global_batch=8, gas=1, steps=3)
+# phase 29: every family under the paper's tp and dp, as ranks time-sliced
+# on the one card over gloo, each held to one device on the same card and
+# seeds.  hymba-1.5b at tp 5 (25/5 attention heads and 25 SSM heads: 5/1 and
+# 5 a rank, a GQA group of 5; d_ff 5504, which 5 does not divide, whole on
+# every rank) at full width: generate and prefill at full depth (32
+# layers), the f32 tokens and one f32 training step cut to 4 layers (global
+# attention on 0, 2 and 3, a window of 1024 on 1, which the 1280-token
+# sequences pass).  xlstm-125m and whisper-base at tp 2 x dp 2 in one world
+# of four at full width and depth: generate, prefill (whisper over random
+# frames), the f32 tokens and one f32 step at ZeRO-3 on the GAS path
+FAMILY_TP = {
+    "hybrid": dict(ranks=5, tp=5, archs=("hymba_15b",), batch=2, prompt_len=8, new_tokens=6,
+                   prefill=(2, 1280), f32_layers=4, zero_stage=1,
+                   train=dict(seq_len=1280, global_batch=1, gas=1)),
+    "tp_dp": dict(ranks=4, tp=2, archs=("xlstm_125m", "whisper_base"), batch=4, prompt_len=16,
+                  new_tokens=8, prefill=(4, 448), f32_layers=None, zero_stage=3,
+                  train=dict(seq_len=256, global_batch=4, gas=1)),
+}
+FAMILY_TP_LABEL = "ranks time-sliced on one card over gloo"
 # the GEMM sweep of the planning phase: bf16 (M x K) @ (K x N), granite's
 # MLP up-projection, M from 16 to 16384 in powers of two
 GEMM = dict(k=2048, n=8192, ms=tuple(2**i for i in range(4, 15)))
@@ -445,14 +480,15 @@ TP_LABEL = "two ranks time-sliced on one card over gloo"
 # over gloo (and tp = 2 x dp = 2 as four): gpt-3.6b at published width, 1 of
 # its 30 layers (4 until phases 24 and 25, 2 until phases 27 and 28 took the
 # time), global batch 4 x 1024 in 2 micro-batches, remat full, bf16 over f32
-# masters; the dp = 2 f32 identities and the checkpoint at 1 layer and a
+# masters, at a 4096-token vocabulary (the whole table until phase 29 took
+# the time); the dp = 2 f32 identities and the checkpoint at 1 layer and a
 # 4096-token vocabulary (every byte of state crosses gloo through the host,
 # so their time goes with the table's size; the checkpoint writes 1.5 GB: the
 # 45 GiB the card's host lets a run write holds no more beside phases 11-13
 # and 20); tp = 2 x dp = 2's f32 identity at 2 layers and the whole
 # vocabulary (at 1 layer and 4096 tokens one parameter parted from one
 # device by 1.11e-5, past the check's 1e-5)
-DP = dict(ranks=2, arch="gpt_36b", n_layers=1, seq_len=1024, global_batch=4, gas=2,
+DP = dict(ranks=2, arch="gpt_36b", n_layers=1, vocab=4096, seq_len=1024, global_batch=4, gas=2,
           f32_layers=1, f32_vocab=4096, tp_dp_f32_layers=2,
           ckpt=dict(n_layers=1, vocab=4096, global_batch=4, steps=3, ckpt_every=2, fail_at=2))
 DP_RUNS = ((0, {}), (1, {}), (2, {}), (3, {}), (2, {"overlap_zero": True}),
@@ -465,10 +501,12 @@ DP_DIR = ROOT / "build" / "chip_smoke_dp"
 DP_LABEL = "ranks time-sliced on one card over gloo: they say nothing of NVLink"
 # phase 22: gpt-3.6b at published width, 4 of its 30 layers (1 a chunk at pp
 # 2 x vpp 2; 8 until phase 26 took the time), 8 x 1024 tokens in 4
-# micro-batches, bf16 over f32 masters; the f32 identities at 4 layers; the
-# memory check at gas 8 (16 x 1024)
-PP = dict(ranks=2, arch="gpt_36b", n_layers=4, f32_layers=4, seq_len=1024, global_batch=8,
-          gas=4, big_gas=8, eval_step=5)
+# micro-batches, bf16 over f32 masters, and the f32 identities at 4 layers,
+# all at a 4096-token vocabulary (the whole table until phase 29 took the
+# time: every byte of state crosses gloo through the host); the memory check
+# at gas 8 (16 x 1024)
+PP = dict(ranks=2, arch="gpt_36b", n_layers=4, f32_layers=4, vocab=4096, seq_len=1024,
+          global_batch=8, gas=4, big_gas=8, eval_step=5)
 PP_RUNS = (("pp2", {}), ("pp2-vpp2", {"vpp": 2}),
            ("pp2-vpp2-stage", {"vpp": 2, "remat_policy": "stage"}),
            ("pp2-gas8", {"gas": 8, "global_batch": 16}))
@@ -3019,17 +3057,18 @@ def expected_pp_p2p(pp: int, vpp: int, gas: int, stage: int, tp: int = 1, *, mbs
 
 
 def expected_serving_collectives(L: int, decode_steps: int, *, vocab_parallel: bool,
-                                 sp: bool = False):
+                                 sp: bool = False, whole_mlp: bool = False):
     """The collectives of a prefill and ``decode_steps`` decode steps at
     tp > 1: a block's two row-parallel exits (all-reduces; under sequence
     parallel, in the prefill, reduce-scatters, with its entries
-    all-gathers and the last hidden states gathered), and with a
+    all-gathers and the last hidden states gathered), one where tp does not
+    divide the MLP (``whole_mlp``: every rank computes it whole), and with a
     vocab-parallel table the embedding's and the gathered logits'
     all-reduces each pass.  Decode steps run without sequence parallel."""
-    vp = int(vocab_parallel)
-    out = {"all_reduce": 2 * vp + (0 if sp else 2 * L) + decode_steps * (2 * L + 2 * vp)}
+    vp, x = int(vocab_parallel), 2 - int(whole_mlp)
+    out = {"all_reduce": 2 * vp + (0 if sp else x * L) + decode_steps * (x * L + 2 * vp)}
     if sp:
-        out.update(all_gather=2 * L + 1, reduce_scatter=2 * L)
+        out.update(all_gather=x * L + 1, reduce_scatter=x * L)
     return {k: v for k, v in out.items() if v}
 
 
@@ -3545,7 +3584,8 @@ def phase_dp(torch, get_config, store, smi):
     if DP_DIR.exists():
         shutil.rmtree(DP_DIR)
     DP_DIR.mkdir(parents=True)
-    cfg, full = _dense_cfg(get_config, dict(arch=DP["arch"], n_layers=DP["n_layers"]))
+    cfg = _dp_cfg(get_config, DP["n_layers"], vocab=DP["vocab"])
+    full = get_config(DP["arch"]).n_layers
     ref = {}
     sess = _dp_session(mods, cfg, vote=False)
     _timed_step(torch, sess)
@@ -3688,7 +3728,7 @@ def _dp_rank_runs(torch, np, world):
     # bf16 at full width: the ZeRO sweep on the GAS path (consensus off, so
     # ZeRO-3 gathers as the blocks run and overlap_zero applies); then the
     # vote (the reference's default) at every stage
-    cfg = _dp_cfg(get_config, DP["n_layers"])
+    cfg = _dp_cfg(get_config, DP["n_layers"], vocab=DP["vocab"])
     runs = DP_SWEEP if world == DP["ranks"] else ((1, {}, True),)
     for z, kw, vote in runs:
         tag = _dp_tag(z, kw, vote and world == DP["ranks"])
@@ -3788,7 +3828,7 @@ def _dp_check(get_config, ref, outs, ranks_s, smi, dp1):
     from repro_torch.core.memory import per_device_bytes
     two, four = outs[DP["ranks"]], outs[4]
     out = two[0]
-    cfg = _dp_cfg(get_config, DP["n_layers"])
+    cfg = _dp_cfg(get_config, DP["n_layers"], vocab=DP["vocab"])
     L, G = cfg.n_layers, DP["gas"]
     n = cfg.n_params()
     log(f"[dp] {DP['ranks']} ranks ({out['mesh']}) then 4 ({four[0]['mesh']}) ran in "
@@ -3932,7 +3972,8 @@ def _dp_check(get_config, ref, outs, ranks_s, smi, dp1):
 # ---------------------------------------------------------------------------
 
 def _pp_cfg(get_config, n_layers, dtype=None):
-    cfg = dataclasses.replace(get_config(PP["arch"]), n_layers=n_layers)
+    cfg = dataclasses.replace(get_config(PP["arch"]), n_layers=n_layers,
+                              vocab_size=PP["vocab"])
     return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
 
 
@@ -3970,7 +4011,7 @@ def phase_pp(torch, get_config, smi):
     if PP_DIR.exists():
         shutil.rmtree(PP_DIR)
     PP_DIR.mkdir(parents=True)
-    cfg, full = _dense_cfg(get_config, dict(arch=PP["arch"], n_layers=PP["n_layers"]))
+    cfg, full = _pp_cfg(get_config, PP["n_layers"]), get_config(PP["arch"]).n_layers
     sess = _pp_session(mods, cfg, pp=1)
     m = {k: float(v) for k, v in sess.step().items()}
     batch = sess._to_device(sess.batches(PP["eval_step"]))
@@ -4150,7 +4191,8 @@ def _pp_check(get_config, ref, outs, ranks_s, smi):
                     continue
                 h = r[key]
                 rel = abs(r["loss"] - h["ref_loss"]) / abs(h["ref_loss"])
-                log(f"[pp] f32 {PP['f32_layers']} layers, {tag} over {world} ranks "
+                log(f"[pp] f32 {PP['f32_layers']} layers, vocab {PP['vocab']}, {tag} over "
+                    f"{world} ranks "
                     f"{'vs one device, the same plan' if key == 'vs_one' else 'vs pp 1'}: "
                     f"loss {r['loss']:.7f} vs {h['ref_loss']:.7f} (rel {rel:.3g}); params max "
                     f"|diff| {h['max_param_diff']:.3g}, {h['floor']} of {h['entries']} past "
@@ -4506,12 +4548,19 @@ def _rank_main(rank: int, world: int, port: int, runs: str, out_dir: str) -> Non
         torch.save(globals()[runs](torch), Path(out_dir) / f"rank{rank}.pt")
 
 
-def phase_moe_pp(torch, get_config, smi):
-    """olmoe at pp = 2 as two processes on the one card over gloo
-    (``_moe_pp_rank_runs``), as phase 22 runs them; rank 0 computes the
-    one-device runs itself first."""
-    outs, ranks_s = _spawn_ranks(torch, "_moe_pp_rank_runs", MOE_PP["ranks"], MOE_PP_DIR)
-    return _moe_pp_check(get_config, outs, ranks_s, smi)
+def phase_family_pp(torch, get_config, smi):
+    """Phases 25 and 26's pipelines in one spawn (a world costs ~12 s to
+    start): olmoe then hymba at pp = 2 as two processes on the one card
+    over gloo (``_family_pp_rank_runs``), as phase 22 runs them; rank 0
+    computes each one-device run itself first.  → (olmoe's and hymba's
+    counted launches)."""
+    outs, ranks_s = _spawn_ranks(torch, "_family_pp_rank_runs", MOE_PP["ranks"], MOE_PP_DIR)
+    return (_moe_pp_check(get_config, [o["moe"] for o in outs], ranks_s, smi),
+            _hybrid_pp_check(get_config, [o["hybrid"] for o in outs], ranks_s, smi))
+
+
+def _family_pp_rank_runs(torch):
+    return {"moe": _moe_pp_rank_runs(torch), "hybrid": _hybrid_pp_rank_runs(torch)}
 
 
 def _moe_pp_rank_runs(torch):
@@ -4846,15 +4895,6 @@ def _time_hybrid(torch, fa, da, smi):
 # ---------------------------------------------------------------------------
 # phase 26: the hybrid family under pipeline parallelism
 # ---------------------------------------------------------------------------
-
-def phase_hybrid_pp(torch, get_config, smi):
-    """hymba at pp = 2 as two processes on the one card over gloo
-    (``_hybrid_pp_rank_runs``), as phase 25 runs olmoe; rank 0 computes the
-    one-device pipeline itself first."""
-    outs, ranks_s = _spawn_ranks(torch, "_hybrid_pp_rank_runs", HYBRID_PP["ranks"],
-                                 HYBRID_PP_DIR)
-    return _hybrid_pp_check(get_config, outs, ranks_s, smi)
-
 
 def _hybrid_pp_rank_runs(torch):
     import torch.distributed as dist
@@ -5248,6 +5288,293 @@ def _time_whisper(torch, fa, da, smi):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 29: every family under the paper's tp and dp
+# ---------------------------------------------------------------------------
+
+def _family_cfgs(get_config, spec, arch):
+    """(the served config, the f32 tokens' and training step's: cut where
+    the spec says)."""
+    cfg = get_config(arch)
+    cut = cfg if spec["f32_layers"] is None else dataclasses.replace(
+        cfg, n_layers=spec["f32_layers"])
+    return cfg, dataclasses.replace(cut, dtype="float32")
+
+
+def _family_inputs(np, cfg, spec, arch):
+    """(the generate prompts and its keywords, the prefill batch), from a
+    seed: an encoder-decoder's frames random."""
+    rs = np.random.RandomState(29)
+    B, P = spec["batch"], spec["prompt_len"]
+    Bp, S = spec["prefill"]
+    prompts = rs.randint(0, cfg.vocab_size, size=(B, P)).astype(np.int32)
+    batch = {"tokens": rs.randint(0, cfg.vocab_size, size=(Bp, S)).astype(np.int32)}
+    kw = {}
+    if cfg.family == "encdec":
+        kw["frames"] = _frames(np, cfg, B, 29)
+        batch["frames"] = _frames(np, cfg, Bp, 30)
+    return prompts, kw, batch
+
+
+def _family_train(mods, cfg, spec, mesh=None):
+    """A TrainSession of phase 29: remat full, the GAS path (no vote), the
+    spec's tp x dp on a mesh at its ZeRO stage."""
+    t = spec["train"]
+    shape = mesh.shape if mesh is not None else {"tp": 1, "data": 1}
+    plan = mods.ParallelismConfig(tp=shape["tp"], dp=shape["data"], gas=t["gas"],
+                                  remat_policy="full",
+                                  zero_stage=spec["zero_stage"] if mesh is not None else 1)
+    return mods.TrainSession.from_recipe(
+        cfg, seed=0, plan=plan, mesh=mesh,
+        train_cfg=mods.stepfn.TrainConfig(total_steps=4, warmup=2,
+                                          resilience=mods.ResilienceConfig(consensus=False)),
+        data_cfg=mods.DataConfig(seq_len=t["seq_len"], global_batch=t["global_batch"]))
+
+
+def phase_family_tp(torch, np, get_config, InferenceSession, tree_map, smi):
+    """Phase 29: the one-device references on the card (this process, kept
+    on the host), then each world's ranks (``_family_tp_runs``: hymba at tp
+    5 in a world of five, the xLSTM and Whisper at tp 2 x dp 2 in one of
+    four), each result held to the references.  → (the ``{"families":
+    ...}`` summary, rank 0's counted launches)."""
+    mods = _dp_mods()
+    ref = {}
+    t0 = time.perf_counter()
+    for key, spec in FAMILY_TP.items():
+        N = spec["new_tokens"]
+        for arch in spec["archs"]:
+            cfg, f32 = _family_cfgs(get_config, spec, arch)
+            prompts, kw, batch = _family_inputs(np, cfg, spec, arch)
+            with torch.inference_mode():
+                sess = InferenceSession.from_recipe(arch, seed=0)
+                ts = time.perf_counter()
+                ref[f"{arch}/tokens"] = sess.generate(prompts, N, **kw).cpu()
+                torch.cuda.synchronize()
+                ref[f"{arch}/generate_s"] = time.perf_counter() - ts
+                ref[f"{arch}/prefill"] = sess.prefill(batch, last_only=False).cpu()
+                ref[f"{arch}/first"] = sess.prefill(dict(kw, tokens=prompts)).cpu()
+                params32 = tree_map(lambda x: x.float(), sess.params)
+                device = sess.device
+                del sess
+                s32 = InferenceSession(dataclasses.replace(cfg, dtype="float32"), params32,
+                                       device=device)
+                ref[f"{arch}/prefill_f32"] = s32.prefill(batch, last_only=False).cpu()
+                ref[f"{arch}/first_f32"] = s32.prefill(dict(kw, tokens=prompts)).cpu()
+                del s32, params32
+                torch.cuda.empty_cache()
+                sess = InferenceSession.from_recipe(f32, seed=1)
+                ref[f"{arch}/f32_tokens"] = sess.generate(prompts, N, **kw).cpu()
+                del sess
+                torch.cuda.empty_cache()
+            sess = _family_train(mods, f32, spec)
+            m = sess.step()
+            ref[f"{arch}/train"] = {k: float(m[k]) for k in ("loss", "xent", "grad_norm")}
+            del sess
+            torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    log(f"[families] one-device references on the card in {ref_s:.1f} s")
+    summary, runs, failed = {"label": FAMILY_TP_LABEL, "card": smi}, [], []
+    for key, spec in FAMILY_TP.items():
+        outs, ranks_s = _spawn_ranks(torch, f"_family_tp_runs_{key}", spec["ranks"],
+                                     ROOT / "build" / f"chip_smoke_family_{key}")
+        log(f"[families] {key}: {spec['ranks']} ranks ({outs[0]['mesh']}) ran in "
+            f"{ranks_s:.1f} s ({FAMILY_TP_LABEL})")
+        summary[key] = {"ranks_s": ranks_s}
+        for arch in spec["archs"]:
+            got = _family_check(torch, get_config, spec, arch, ref, outs, smi)
+            summary[key][arch] = got["summary"]
+            runs.extend(got["launches"])
+            failed.extend(got["failed"])
+    if failed:
+        raise SmokeFailure(f"phase 29: {len(failed)} check(s) failed: {failed}")
+    return summary, runs
+
+
+def _family_tp_runs_hybrid(torch):
+    return _family_tp_runs(torch, FAMILY_TP["hybrid"])
+
+
+def _family_tp_runs_tp_dp(torch):
+    return _family_tp_runs(torch, FAMILY_TP["tp_dp"])
+
+
+def _family_tp_runs(torch, spec):
+    """One rank of phase 29: every family of ``spec`` served and trained on
+    its mesh, with the launches, the heads K1-K5 ran at and the collectives
+    by group counted around each run; the prefill logits on rank 0 only."""
+    import collections
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import tp
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import describe, make_recipe_mesh
+    from repro_torch.session import InferenceSession
+    mods = _dp_mods()
+    mesh = make_recipe_mesh(tp=spec["tp"], device_type="cuda")
+    plan = mods.ParallelismConfig(tp=mesh.shape["tp"], dp=mesh.shape["data"])
+    rank = dist.get_rank()
+    out = {"mesh": describe(mesh)}
+    N = spec["new_tokens"]
+
+    def counted(key, fn):
+        heads = collections.Counter()
+        build.launch_counts.clear()
+        tp.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with recording_heads(heads):
+            res = fn()
+        torch.cuda.synchronize()
+        out[key] = dict(s=time.perf_counter() - t0, launches=dict(build.launch_counts),
+                        heads=dict(heads), collectives=dict(tp.by_group),
+                        bytes=dict(tp.bytes_by_group),
+                        peak_bytes=torch.cuda.max_memory_allocated())
+        return res
+
+    for arch in spec["archs"]:
+        cfg, f32 = _family_cfgs(get_config, spec, arch)
+        prompts, kw, batch = _family_inputs(np, cfg, spec, arch)
+        with torch.inference_mode():
+            sess = InferenceSession.from_recipe(arch, seed=0, plan=plan, mesh=mesh)
+            out[f"{arch}/tokens"] = counted(f"{arch}/generate",
+                                            lambda: sess.generate(prompts, N, **kw)).cpu()
+            lg = counted(f"{arch}/prefill_run", lambda: sess.prefill(batch, last_only=False))
+            first = sess.prefill(dict(kw, tokens=prompts))      # every rank takes part
+            if rank == 0:
+                out[f"{arch}/prefill"], out[f"{arch}/first"] = lg.cpu(), first.cpu()
+            del sess, lg, first
+            torch.cuda.empty_cache()
+            sess = InferenceSession.from_recipe(f32, seed=1, plan=plan, mesh=mesh)
+            out[f"{arch}/f32_tokens"] = sess.generate(prompts, N, **kw).cpu()
+            del sess
+            torch.cuda.empty_cache()
+        sess = _family_train(mods, f32, spec, mesh)
+        sess.batches(0)
+        m = counted(f"{arch}/train", sess.step)
+        out[f"{arch}/train"].update(metrics={k: float(m[k]) for k in ("loss", "xent",
+                                                                      "grad_norm", "skipped")},
+                                    plan=str(sess.plan))
+        del sess
+        torch.cuda.empty_cache()
+    return out
+
+
+def _family_check(torch, get_config, spec, arch, ref, outs, smi):
+    """Phase 29's checks of one family: the ranks agree; f32 tokens exact,
+    bf16 first token exact and prefill logits within 2 x the bf16 floor
+    against one device; the f32 step's loss 1e-5 relative; K1-K5's launches
+    exact at the local head counts; collectives by group and bytes beside
+    the cost model's, peak memory a rank beside ``per_device_bytes``
+    (reported)."""
+    from repro_torch.core.memory import per_device_bytes
+    out, P, N = outs[0], spec["prompt_len"], spec["new_tokens"]
+    failed = []
+
+    def require(cond, msg):          # every check logged before the phase fails
+        if not cond:
+            log(f"[families] FAILED: {msg}")
+            failed.append(msg)
+    cfg, f32t = _family_cfgs(get_config, spec, arch)
+    n_tp = spec["tp"]
+    dp = spec["ranks"] // n_tp
+    hq, hkv = cfg.n_heads // n_tp, cfg.n_kv_heads // n_tp
+    for r, o in enumerate(outs[1:], 1):
+        for k in ("tokens", "f32_tokens"):
+            require(torch.equal(o[f"{arch}/{k}"], out[f"{arch}/{k}"]),
+                    f"{arch}: rank {r}'s {k} differ from rank 0's")
+        require(o[f"{arch}/train"]["metrics"]["loss"] == out[f"{arch}/train"]["metrics"]["loss"],
+                f"{arch}: rank {r}'s loss differs from rank 0's")
+    # the first token: the logits it is drawn from (the prompts' last) within
+    # 2 x the bf16 floor there, and the token itself equal on every row where
+    # one device's top-1 leads its top-2 by more than 2 x that floor (where
+    # bf16 can decide it at all)
+    got, want = out[f"{arch}/tokens"], ref[f"{arch}/tokens"]
+    agree = float((got[:, P:] == want[:, P:]).float().mean())
+    one1 = ref[f"{arch}/first"][:, -1]
+    d1 = float((out[f"{arch}/first"][:, -1] - one1).abs().max())
+    floor1 = float((one1 - ref[f"{arch}/first_f32"][:, -1]).abs().max())
+    top2 = one1.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    decided = margin > LOGIT_FLOOR_FACTOR * floor1
+    log(f"[families] {arch} bf16 generate at tp {n_tp} x dp {dp} vs one device: first token "
+        f"equal by row {(got[:, P] == want[:, P]).tolist()}, {agree:.3f} of the {N} new tokens "
+        f"equal (bf16 near-ties may part later); the first token's logits max |mesh - one "
+        f"device| {d1:.4g}, the bf16 floor there {floor1:.4g} (tol <= {LOGIT_FLOOR_FACTOR} x "
+        f"floor); one device's top-1 - top-2 margin by row {margin.tolist()}: rows bf16 "
+        f"decides {decided.tolist()}")
+    require(d1 <= LOGIT_FLOOR_FACTOR * floor1,
+            f"{arch}: the first token's logits differ by {d1:.4g}, over {LOGIT_FLOOR_FACTOR} x "
+            f"{floor1:.4g}")
+    require(torch.equal(got[decided, :P + 1], want[decided, :P + 1]),
+            f"{arch}: the first generated token differs from one device's where bf16 "
+            f"decides it")
+    got32, want32 = out[f"{arch}/f32_tokens"], ref[f"{arch}/f32_tokens"]
+    log(f"[families] {arch} f32 generate tokens equal to one device's: "
+        f"{bool(torch.equal(got32, want32))}")
+    require(torch.equal(got32, want32), f"{arch}: the f32 tokens differ from one device's")
+    tpl, one, f32 = out[f"{arch}/prefill"], ref[f"{arch}/prefill"], ref[f"{arch}/prefill_f32"]
+    require(bool(tpl.isfinite().all()), f"{arch}: non-finite prefill logits")
+    diff, floor = float((tpl - one).abs().max()), float((one - f32).abs().max())
+    log(f"[families] {arch} bf16 prefill {tuple(tpl.shape)}: max |mesh - one device| "
+        f"{diff:.4g}, the bf16 floor {floor:.4g} (tol <= {LOGIT_FLOOR_FACTOR} x floor)")
+    require(diff <= LOGIT_FLOOR_FACTOR * floor,
+            f"{arch}: prefill differs by {diff:.4g}, over {LOGIT_FLOOR_FACTOR} x {floor:.4g}")
+    m, rm = out[f"{arch}/train"]["metrics"], ref[f"{arch}/train"]
+    rel = abs(m["loss"] - rm["loss"]) / abs(rm["loss"])
+    log(f"[families] {arch} f32 step ({out[f'{arch}/train']['plan']}, {f32t.n_layers} layers, "
+        f"{spec['train']['global_batch']} x {spec['train']['seq_len']}): loss {m['loss']!r} vs "
+        f"one device {rm['loss']!r} (rel {rel:.3g}, tol 1e-5), grad_norm {m['grad_norm']!r} vs "
+        f"{rm['grad_norm']!r}")
+    require(rel <= 1e-5 and m["skipped"] == 0.0, f"{arch}: f32 step {m} vs one device's {rm}")
+    # launches at the local heads
+    E, L, Lt = cfg.enc_layers, cfg.n_layers, f32t.n_layers
+    A, At = _attentions(cfg), _attentions(f32t)
+    if cfg.family == "encdec":
+        gen = {"flash_fwd": E, "decode_attention": L * (P + N - 1)}
+    elif cfg.family == "ssm":
+        gen = {}
+    else:
+        gen = {"decode_attention": L * (P + N - 1)}
+    pre = {"flash_fwd": A} if A else {}
+    train = {"flash_fwd": 2 * At, "flash_delta": At, "flash_dq": At, "flash_dkv": At} if At \
+        else {}
+    summary, launches = {}, []
+    for key, want_l in (("generate", gen), ("prefill_run", pre), ("train", train)):
+        run = out[f"{arch}/{key}"]
+        want_h = {(k, hq, hq if k == "flash_delta" else hkv): c for k, c in want_l.items()}
+        log(f"[families] {arch} {key}: launches {run['launches']} (expected {want_l}), heads "
+            f"{run['heads']}; collectives {run['collectives']}, bytes {run['bytes']}; "
+            f"{run['s']:.2f} s host ({FAMILY_TP_LABEL}); peak {run['peak_bytes'] / 2**30:.3f} "
+            f"GiB a rank")
+        require(run["launches"] == want_l, f"{arch} {key}: launches {run['launches']}")
+        require(run["heads"] == want_h, f"{arch} {key}: K1-K5 ran at {run['heads']}")
+        launches.append(run["launches"])
+        summary[key] = {"collectives": run["collectives"], "bytes": run["bytes"],
+                        "s": run["s"], "peak_bytes": run["peak_bytes"]}
+    t = spec["train"]
+    mbs = t["global_batch"] // t["gas"] // dp
+    cm_tp = 4 * Lt * t["gas"] * mbs * t["seq_len"] * f32t.d_model * 2
+    n = f32t.n_params()
+    cm_dp = 2.0 * (2.0 * n) * (dp - 1) / dp
+    model = per_device_bytes(f32t, dp=dp, tp=n_tp, pp=1, zero_stage=spec["zero_stage"], mbs=mbs,
+                             gas=t["gas"], seq=t["seq_len"], remat="full")
+    run = out[f"{arch}/train"]
+    log(f"[families] {arch} f32 step: the cost model's t_tp {4 * Lt * t['gas']} all-reduces of "
+        f"{cm_tp // max(4 * Lt * t['gas'], 1)} B ({cm_tp} B, bf16 activations), t_dp "
+        f"{cm_dp:.0f} B (bf16 gradients); measured in f32 {run['collectives']} / "
+        f"{run['bytes']} (the SSM's and xLSTM's norms and gathers are outside the model's 4 a "
+        f"layer); peak {run['peak_bytes'] / 2**30:.3f} GiB a rank, "
+        f"memory model {model['total'] / 2**30:.3f} GiB; {smi}")
+    summary["train"].update(cost_model_tp_bytes=cm_tp, cost_model_dp_bytes=cm_dp,
+                            per_device_bytes=model["total"], loss_rel=rel,
+                            prefill_diff=diff, prefill_floor=floor)
+    summary["train"].update(first_token_diff=d1, first_token_floor=floor1,
+                            first_token_margins=margin.tolist())
+    return {"summary": summary, "launches": launches, "failed": failed}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a checkout of "
@@ -5387,7 +5714,8 @@ def main() -> int:
           InferenceSession, VLM["arch"], 2)
     timed("24 vlm f32 train", phase_train_f32_identity, torch, fa, da, get_config,
           TrainSession, stepfn, ParallelismConfig, DataConfig, VLM["arch"], 2)
-    moe_pp_launches = timed("25 moe pipeline", phase_moe_pp, torch, get_config, smi)
+    moe_pp_launches, hybrid_pp_launches = timed("25 + 26 moe and hybrid pipelines",
+                                                phase_family_pp, torch, get_config, smi)
     hybrid_launches = timed("26 hybrid serve", phase_hybrid, torch, np, build,
                             InferenceSession, tree_map, smi)
     hybrid_train, hybrid_measured = timed(
@@ -5400,7 +5728,6 @@ def main() -> int:
     timed("26 hybrid f32 train", phase_train_f32_identity, torch, fa, da, get_config,
           TrainSession, stepfn, ParallelismConfig, DataConfig, HYBRID["arch"], 4,
           f32_floor=True)
-    hybrid_pp_launches = timed("26 hybrid pipeline", phase_hybrid_pp, torch, get_config, smi)
     xlstm_launches = timed("27 xlstm serve", phase_xlstm, torch, np, build, InferenceSession,
                            tree_map, smi)
     xlstm_train, xlstm_measured = timed(
@@ -5417,6 +5744,9 @@ def main() -> int:
     _train_memory(get_config, whisper_measured, TRAIN_WHISPER, "whisper train")
     timed("28 whisper kernels", _time_whisper, torch, fa, da, smi)
     timed("28 whisper f32", phase_whisper_f32_identity, torch, np, get_config, InferenceSession)
+    family_summary, family_launches = timed("29 every family under tp and dp", phase_family_tp,
+                                            torch, np, get_config, InferenceSession, tree_map,
+                                            smi)
     timing = timed("14 timing", phase_timing, torch, fa, da, rn, smi)
     log(f"[phase] all phases {sum(seconds.values()):.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
@@ -5448,7 +5778,8 @@ def main() -> int:
             *h2o_stream_launches.values(), h2o_train_launches, *tp_launches, *dp_launches,
             *pp_launches, *moe_launches, moe_train, moe_eval, *vlm_launches, vlm_train,
             *moe_pp_launches, *hybrid_launches, hybrid_train, *hybrid_pp_launches,
-            *xlstm_launches, xlstm_train, *whisper_launches, whisper_train]
+            *xlstm_launches, xlstm_train, *whisper_launches, whisper_train,
+            *family_launches]
     log(f"[launches] generate {serve_launches}; train step {train_launches}; stream "
         f"{stream_launches}; training CLI (crashed, resumed) {cli_launches}; eval sweep "
         f"{eval_launches}; dense arm (prefill, generate) {dense_launches}; h2o stream "
@@ -5464,7 +5795,9 @@ def main() -> int:
         f"{hybrid_launches}; hymba train step {hybrid_train}; hymba pp = 2 rank 0 (stage 0: "
         f"a step of vpp 2) {hybrid_pp_launches}; xLSTM (xlstm generate, prefill, stream) "
         f"{xlstm_launches}; xlstm train step {xlstm_train}; encoder-decoder (whisper "
-        f"generate, prefill, stream) {whisper_launches}; whisper train step {whisper_train}")
+        f"generate, prefill, stream) {whisper_launches}; whisper train step {whisper_train}; "
+        f"every family under tp and dp rank 0 (hymba at tp 5, xlstm and whisper at tp 2 x dp "
+        f"2: generate, prefill, an f32 step each) {family_launches}")
     for kr in kernels:
         r = timing[kr["name"]]
         n = sum(c.get(kr["name"], 0) for c in runs)
@@ -5476,6 +5809,7 @@ def main() -> int:
     print(json.dumps({"tp": tp_summary}), flush=True)
     print(json.dumps({"dp": dp_summary}), flush=True)
     print(json.dumps({"pp": pp_summary}), flush=True)
+    print(json.dumps({"families": family_summary}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

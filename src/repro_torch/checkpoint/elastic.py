@@ -48,7 +48,8 @@ def canonicalize_state(state: Dict[str, Any], plan: ParallelismConfig) -> Dict[s
 
 def _reference_leaf(path: Tuple) -> str:
     """A port leaf's reference path (the layer index of a block dropped)."""
-    return "/".join(str(p) for i, p in enumerate(path) if not (i and path[i - 1] == "blocks"))
+    return "/".join(str(p) for i, p in enumerate(path)
+                    if not (i and path[i - 1] in sharding.STACKS))
 
 
 def host_snapshot(state: Dict[str, Any], plan: ParallelismConfig, *, mesh, cfg,
@@ -64,9 +65,9 @@ def host_snapshot(state: Dict[str, Any], plan: ParallelismConfig, *, mesh, cfg,
     from repro_torch.core import zero
     hints = zero.family_hints(cfg)
     shapes = sharding.whole_shapes(state["params"], mesh, plan, cfg.vocab_size, cfg.d_model,
-                                   hints=hints)
+                                   hints=hints, d_ff=cfg.d_ff)
     p_specs = zero.param_shardings(shapes, mesh, plan, hints=hints)
-    o_specs = zero.opt_shardings(p_specs, shapes, mesh, plan, zero.n_stacked(cfg))
+    o_specs = zero.opt_shardings(p_specs, shapes, mesh, plan, zero.stacks(cfg))
     stages = pipeline.split_stages(mesh, plan)
     rows = None
     if stages:
@@ -75,15 +76,15 @@ def host_snapshot(state: Dict[str, Any], plan: ParallelismConfig, *, mesh, cfg,
     specs = {}
     for path, _ in shapes:
         key = _reference_leaf(path)
-        specs["params/" + key] = p_specs[path]
+        specs["params/" + key] = (path, p_specs[path])
         for tree in ("opt/m/", "opt/v/", "ef/"):
-            specs[tree + key] = o_specs[path]
+            specs[tree + key] = (path, o_specs[path])
     out = []
     with torch.no_grad():
         for key, leaf in state_leaves(state):
             spec = specs.get(key)
             fetch = torch.Tensor.detach if spec is None else (
-                lambda x, spec=spec: zero.gather(x.detach(), spec, mesh))
+                lambda x, spec=spec: sharding.gather_leaf(spec[0], x.detach(), spec[1], mesh))
             split = stages and isinstance(leaf, list)
             if split:
                 # this stage's i-th layer beside every other stage's

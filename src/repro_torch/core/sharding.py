@@ -209,6 +209,53 @@ def _map_with_path(fn, tree, path=()):
     return fn(path, tree)
 
 
+# leaves whose tp-cut dim is two halves side by side (x and the gate z of
+# the SSD's and the mLSTM's ``in_proj``): a rank holds its heads' columns of
+# each half, where a contiguous cut would give it whole halves
+HALVES = re.compile(r"\bin_proj\b$")
+# the reference's stacked layer lists (per-layer lists in the port)
+STACKS = ("blocks", "enc_blocks", "dec_blocks")
+
+
+def _halves(path: Tuple, spec: Tuple, mesh) -> Optional[int]:
+    """The dim of a halves leaf that tp cuts, or None."""
+    if not HALVES.search("/".join(map(str, path))):
+        return None
+    from repro_torch.core import zero
+    for d, e in enumerate(spec):
+        if "tp" in zero.live_axes(mesh, e):
+            return d
+    return None
+
+
+def _swap_halves(x: torch.Tensor, d: int, n: int, inverse: bool = False) -> torch.Tensor:
+    """Along dim ``d``: the reference's [x | z], each of n blocks, ↔ the
+    order [x_0 z_0 | x_1 z_1 | ...] whose contiguous cut gives rank r its
+    blocks of both halves."""
+    w = x.shape[d] // (2 * n)
+    lead, tail = x.shape[:d], x.shape[d + 1:]
+    y = x.reshape(lead + ((n, 2) if inverse else (2, n)) + (w,) + tail)
+    return y.transpose(d, d + 1).reshape(x.shape)
+
+
+def local_leaf(path: Tuple, x: torch.Tensor, spec: Tuple, mesh) -> torch.Tensor:
+    """This rank's block of leaf ``path`` laid out as ``spec``
+    (``zero.local``; a halves leaf takes its heads' columns of each half)."""
+    from repro_torch.core import zero
+    d = _halves(path, spec, mesh)
+    if d is not None:
+        x = _swap_halves(x, d, mesh.shape["tp"])
+    return zero.local(x, spec, mesh)
+
+
+def gather_leaf(path: Tuple, x: torch.Tensor, spec: Tuple, mesh) -> torch.Tensor:
+    """The inverse of :func:`local_leaf`."""
+    from repro_torch.core import zero
+    x = zero.gather(x, spec, mesh)
+    d = _halves(path, spec, mesh)
+    return x if d is None else _swap_halves(x, d, mesh.shape["tp"], inverse=True)
+
+
 def shard_params(params, mesh, plan: ParallelismConfig, device=None, *, prefix: Tuple = (),
                  hints: Tuple = ()):
     """Whole parameters (every rank holds the same) → this rank's: each leaf
@@ -224,7 +271,8 @@ def shard_params(params, mesh, plan: ParallelismConfig, device=None, *, prefix: 
                                   for p, x in tree_leaves(params)], mesh, plan, hints=hints)
     tree = params if prefix else pipeline.keep_stage(params, plan, mesh)
     return _map_with_path(
-        lambda path, x: _own(zero.local(x, specs[prefix + path], mesh), x, device), tree)
+        lambda path, x: _own(local_leaf(prefix + path, x, specs[prefix + path], mesh), x,
+                             device), tree)
 
 
 def _own(part: torch.Tensor, whole: torch.Tensor, device=None) -> torch.Tensor:
@@ -240,23 +288,24 @@ def shard_state(tree, mesh, plan: ParallelismConfig, device=None, *, hints: Tupl
     from repro_torch.core import pipeline, zero
     shapes = [(p, tuple(x.shape)) for p, x in tree_leaves(tree)]
     specs = zero.opt_shardings(zero.param_shardings(shapes, mesh, plan, hints=hints), shapes,
-                               mesh, plan, len(tree["blocks"]))
+                               mesh, plan, {k: len(tree[k]) for k in STACKS if k in tree})
     return _map_with_path(
-        lambda path, x: _own(zero.local(x, specs[path], mesh), x, device),
+        lambda path, x: _own(local_leaf(path, x, specs[path], mesh), x, device),
         pipeline.keep_stage(tree, plan, mesh))
 
 
 def whole_shapes(local, mesh, plan: ParallelismConfig, vocab_size: int,
-                 d_model: Optional[int] = None, *, hints: Tuple = ()):
+                 d_model: Optional[int] = None, *, hints: Tuple = (),
+                 d_ff: Optional[int] = None):
     """[(leaf path, the shape the leaf has whole)] for this rank's parameter
-    leaves: the tp dim of a sharded leaf is tp times as long, and under
-    ZeRO-3 its ``embed`` dim (``d_model`` whole) data times.  Only a
-    vocabulary's dim and a MoE block's expert dim can be left whole by
-    ``sanitize`` under tp (``core.stepfn.check_plan`` has tp divide the
-    heads and the widths), so a vocabulary table as long as ``vocab_size``
-    is whole, and so is an expert stack with as many experts as its
-    (replicated) router has columns.  ``hints`` as for
-    :func:`shard_params`."""
+    leaves: a dim its rule cuts is ways times as long whole, unless
+    ``sanitize`` left it whole.  A dim whose ways do not divide it is
+    whole; so a dim cut over tp is whole where it is as long as a
+    vocabulary table's ``vocab_size``, a MoE block's expert count (its
+    replicated router's columns) or an MLP's ``d_ff`` and tp does not
+    divide that width, and a dim cut over the data axis (ZeRO-3's
+    ``embed``) where it is ``d_model`` long and dp does not divide it.
+    ``hints`` as for :func:`shard_params`."""
     rules = AxisRules(mesh, axis_mapping(plan))
     tp_axis = rules._present("tp")
     n, dp = mesh.shape[tp_axis], mesh.shape["data"]
@@ -268,31 +317,35 @@ def whole_shapes(local, mesh, plan: ParallelismConfig, vocab_size: int,
         logical = spec_for_path("/".join(map(str, path)), shape, extra_rules=hints)
         spec = rules.resolve(logical)
         for d, ax in enumerate(spec):
-            whole = ((path[-1] in ("embed", "lm_head") and shape[d] == vocab_size)
-                     or (logical[d] == "expert" and shape[d] == routers.get(path[:-1])))
-            if ax == tp_axis and n > 1 and not whole:
-                shape = shape[:d] + (shape[d] * n,) + shape[d + 1:]
+            if ax == tp_axis and n > 1:
+                whole = ((path[-1] in ("embed", "lm_head") and shape[d] == vocab_size)
+                         or (logical[d] == "expert" and shape[d] == routers.get(path[:-1]))
+                         or (shape[d] == d_ff and shape[d] % n != 0))
             elif ax == "data" and dp > 1:
                 if d_model is None:
                     raise ValueError("whole_shapes: ZeRO-3 leaves need d_model")
-                if shape[d] != d_model:
-                    shape = shape[:d] + (shape[d] * dp,) + shape[d + 1:]
+                whole = shape[d] == d_model and shape[d] % dp != 0
+            else:
+                continue
+            if not whole:
+                shape = shape[:d] + (shape[d] * (n if ax == tp_axis else dp),) + shape[d + 1:]
         out.append((path, shape))
     return out
 
 
 def gather_params(local, mesh, plan: ParallelismConfig, vocab_size: int,
-                  d_model: Optional[int] = None, *, hints: Tuple = ()):
+                  d_model: Optional[int] = None, *, hints: Tuple = (),
+                  d_ff: Optional[int] = None):
     """The inverse of :func:`shard_params`: this rank's leaves → the whole
     parameters in the reference layout, on every rank (an all-gather per
     sharded dim of a leaf, over the tp group or the data line, and at pp >
-    1 one over the ``pp`` line per layer of a stage and leaf).  ``hints`` as
-    for :func:`shard_params`."""
+    1 one over the ``pp`` line per layer of a stage and leaf).  ``hints``
+    as for :func:`shard_params`, ``d_ff`` as for :func:`whole_shapes`."""
     from repro_torch.core import pipeline, zero
     specs = zero.param_shardings(whole_shapes(local, mesh, plan, vocab_size, d_model,
-                                              hints=hints), mesh, plan, hints=hints)
+                                              hints=hints, d_ff=d_ff), mesh, plan, hints=hints)
     with torch.no_grad():
-        whole = _map_with_path(lambda path, x: zero.gather(x.detach(), specs[path], mesh),
+        whole = _map_with_path(lambda path, x: gather_leaf(path, x.detach(), specs[path], mesh),
                                local)
         if pipeline.split_stages(mesh, plan):
             whole["blocks"] = pipeline.gather_stages(whole["blocks"], plan, mesh)

@@ -22,9 +22,10 @@ caches and pools in place, where the reference donates them;
 a step over ``torch.distributed``: each step installs the recipe's axis
 rules (``core.sharding.axis_rules``) around its body.  Under tp the state
 holds this rank's slices (``core.sharding.shard_params``), the int8 scale
-is taken over the tp group, and under sequence parallel the replicated
-norms' gradients (partial sums over this rank's positions) are all-reduced
-before anything reads them.  Over the ``(pod, data)`` plane each rank is a
+is taken over the tp group, and the gradients of whole leaves that are
+partial sums over tp (:func:`tp_partial`: those used for this rank's heads;
+under sequence parallel the norms and whole MLPs run on this rank's
+positions) are all-reduced before anything reads them.  Over the ``(pod, data)`` plane each rank is a
 data-parallel replica: it takes the reference's rows of the global batch,
 its gradients are summed over the plane into ZeRO's layout
 (``core.zero.Layout``: all-reduced to stage 1, reduce-scattered from stage
@@ -54,7 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import math
+import re
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -83,15 +84,22 @@ class TrainConfig:
 
 PARALLEL = "(ROADMAP Queue 1, item 3: the parallel recipe over torch.distributed)"
 # the families whose layers the reference keeps outside a stacked ``blocks``
-# (the xLSTM's) or in stacks of their own (the encoder-decoder's)
+# (the xLSTM's) or in stacks of their own (the encoder-decoder's): its
+# pipeline stacks ``blocks`` alone, so neither pipelines
 UNSTACKED_FAMILIES = ("ssm", "encdec")
 # what a freed request slot's leaves are reset to, by leaf name (else 0):
 # an empty ring position, and the recurrent stabilizer of a fresh state
 SLOT_RESET = {"pos": -1, "m": -1e30}
 
 
-def mesh_ranks(mesh) -> int:
-    return math.prod(mesh.shape[a] for a in ("tp", "pp", "data", "pod"))
+def head_counts(cfg: ModelConfig) -> Dict[str, int]:
+    """Every kind of head tp splits whole: the attention's query and KV
+    heads, a hybrid's SSM heads, the xLSTM's (its mLSTM and sLSTM both use
+    ``n_heads``)."""
+    out = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads}
+    if cfg.family == "hybrid":
+        out["ssm_heads"] = cfg.ssm_heads or cfg.n_heads
+    return out
 
 
 def check_plan(plan: ParallelismConfig, mesh=None, cfg: Optional[ModelConfig] = None) -> None:
@@ -100,23 +108,17 @@ def check_plan(plan: ParallelismConfig, mesh=None, cfg: Optional[ModelConfig] = 
     this process.  At pp > 1 ``plan.validate`` holds for ``cfg``'s layers
     (pp·vpp divides them; gas % pp == 0 when vpp > 1), and pp·vpp divides
     the stacked blocks after a MoE config's ``first_k_dense`` unstacked
-    ones (``pipeline.check_layers``).  On a mesh its tp, pp, data and pod
-    axes must be the plan's tp, pp, dp and pods, and tp must divide
-    ``cfg``'s heads, KV heads and d_ff, and a MoE config's ``moe_d_ff``
-    (the port shards whole heads and whole columns).  A hybrid config at tp
-    > 1 raises, mesh or not: the split of its SSM heads over tp is not
-    ported.  An xLSTM or encoder-decoder config raises on a mesh of more
-    than one rank and at pp > 1 (the reference pipelines neither: its
-    pipeline stacks ``blocks`` alone); without a mesh its tp, dp and pods
-    compute as one device."""
-    if cfg is not None and cfg.family == "hybrid" and plan.tp > 1:
-        raise NotImplementedError(f"{cfg.name}: tp={plan.tp} needs the SSM heads split "
-                                  f"over tp, which is not ported yet {PARALLEL}")
-    if cfg is not None and cfg.family in UNSTACKED_FAMILIES and (
-            plan.pp > 1 or (mesh is not None and mesh_ranks(mesh) > 1)):
+    ones (``pipeline.check_layers``); an xLSTM or encoder-decoder config
+    raises at pp > 1, mesh or not (the reference pipelines neither: its
+    pipeline stacks ``blocks`` alone).  On a mesh its tp, pp, data and pod
+    axes must be the plan's tp, pp, dp and pods, and tp must divide every
+    head count of ``cfg`` (:func:`head_counts`: the port splits whole
+    heads).  A width tp does not divide stays whole, as ``sanitize`` places
+    it: an MLP's (``layers.mlp_apply``), a MoE config's experts."""
+    if cfg is not None and cfg.family in UNSTACKED_FAMILIES and plan.pp > 1:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} at tp={plan.tp}, dp={plan.dp}, pp={plan.pp} "
-            f"on a mesh or a pipeline is not ported yet (item 3.8) {PARALLEL}")
+            f"{cfg.name}: family {cfg.family!r} at pp={plan.pp}: the reference's pipeline "
+            f"stacks ``blocks`` alone, so this family is not pipelined {PARALLEL}")
     if plan.pp > 1 and cfg is not None:
         pipeline.check_layers(cfg, plan)
     if mesh is None:
@@ -126,12 +128,36 @@ def check_plan(plan: ParallelismConfig, mesh=None, cfg: Optional[ModelConfig] = 
             raise ValueError(f"plan {name}={getattr(plan, name)} but the mesh's {axis} axis "
                              f"is {mesh.shape[axis]} ranks wide")
     if cfg is not None:
-        for what in ("n_heads", "n_kv_heads", "d_ff") + (
-                ("moe_d_ff",) if cfg.family == "moe" else ()):
-            if getattr(cfg, what) % plan.tp:
-                raise ValueError(f"{cfg.name}: tp={plan.tp} does not divide {what}="
-                                 f"{getattr(cfg, what)} (the port shards whole heads and "
-                                 "d_ff columns)")
+        for what, n in head_counts(cfg).items():
+            if n % plan.tp:
+                raise ValueError(f"{cfg.name}: tp={plan.tp} does not divide {what}={n} "
+                                 "(the port shards whole heads)")
+
+
+# the leaves every tp rank holds whole but uses for its own heads only: the
+# SSD's B/C/dt projection and per-head vectors, the xLSTM's gate weights
+# and biases and the sLSTM's recurrent weights, and the norm scales over a
+# width the heads split.  Each rank's gradient covers its heads, so it is
+# a partial sum over tp, with or without sequence parallel
+HEAD_SLICED = re.compile(r"/(bc_proj|A_log|D|dt_bias|w_igate|w_fgate|b_igate|b_fgate"
+                         r"|rz|ri|rf|ro|bz|bi|bf|bo|out_norm/scale)$")
+
+
+def tp_partial(leaf) -> bool:
+    """Whether a rank's gradient of ``leaf`` (a ``zero.Layout`` record) is a
+    partial sum over tp, to be all-reduced: a whole leaf used for this
+    rank's heads (``HEAD_SLICED``), and under sequence parallel a whole
+    leaf used on this rank's S/tp rows of the residual stream (the norms,
+    an MLP that tp does not divide).  The other whole leaves (a whole MLP
+    without sequence parallel, the position tables) see the same input on
+    every rank and have the same whole gradient there."""
+    if leaf.tp_sharded:
+        return False
+    path = "/" + "/".join(map(str, leaf.path))
+    if HEAD_SLICED.search(path):
+        return True
+    return tp.sequence_parallel() and any(
+        "norm" in str(k) or k == "mlp" for k in leaf.path[:-1])
 
 
 def _rules(plan: ParallelismConfig, mesh, **override):
@@ -237,9 +263,8 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
     dp = n_plane > 1
     # filled on a mesh's first step (under its rules): the ZeRO layout, per
     # leaf (``tree_leaves`` order) tp-sharded, counted by this rank in the
-    # step's norm (``owned``) and in its replica's (``tp_owned``), and under
-    # sequence parallel the replicated norm leaves whose gradient is a
-    # partial sum
+    # step's norm (``owned``) and in its replica's (``tp_owned``), and the
+    # whole leaves whose gradient is a partial sum over tp (``tp_partial``)
     layout: Dict[str, Any] = {}
     # at pp > 1: the most activations each local stage kept in the last step
     in_flight: List[int] = []
@@ -252,9 +277,8 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
         layout["sharded"] = [lf.tp_sharded for lf in zl.leaves]
         layout["owned"] = [zl.owned(i) for i in range(len(zl.leaves))]
         layout["tp_owned"] = [lf.tp_sharded or mesh.coords["tp"] == 0 for lf in zl.leaves]
-        layout["sp_partial"] = [i for i, lf in enumerate(zl.leaves)
-                                if tp.sequence_parallel() and not lf.tp_sharded
-                                and any("norm" in str(k) for k in lf.path[:-1])]
+        layout["tp_partial"] = [i for i, lf in enumerate(zl.leaves)
+                                if tp.size() > 1 and tp_partial(lf)]
         layout["fsdp"] = any(lf.fsdp_dim is not None for lf in zl.leaves)
         # the leaves every stage holds (outside the blocks)
         layout["shared"] = [i for i, lf in enumerate(zl.leaves)
@@ -365,7 +389,7 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         # one all-reduce for every norm's partial sums over the positions
-        grads = summed(grads, layout.get("sp_partial"), tp.all_reduce)
+        grads = summed(grads, layout.get("tp_partial"), tp.all_reduce)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def token_weights(batch, n: int) -> torch.Tensor:
@@ -498,7 +522,7 @@ def make_train_step(cfg: ModelConfig, plan: ParallelismConfig,
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
         for p in leaves:
             p.grad = None
-        grads = summed(grads, layout.get("sp_partial"), tp.all_reduce)
+        grads = summed(grads, layout.get("tp_partial"), tp.all_reduce)
         grads = reduce(grads, region)
         grads = summed(grads, layout.get("shared"),
                        lambda x: tp.collective("all_reduce", x, mesh.groups["pp"]))
@@ -820,6 +844,19 @@ def make_prefill_cache(cfg: ModelConfig, plan: Optional[ParallelismConfig] = Non
             return _whole_logits(cfg, logits), caches
 
     return prefill_cache
+
+
+def make_cache_init(cfg: ModelConfig, plan: Optional[ParallelismConfig] = None, mesh=None):
+    """(params, batch_size, max_len, batch) → the family's decode caches at
+    this rank's heads, under the serving rules (an encoder-decoder runs its
+    encoder there, over tp on a mesh, without sequence parallel)."""
+    plan = plan or ParallelismConfig()
+
+    def cache_init(params, batch_size, max_len, batch=None):
+        with torch.no_grad(), _rules(plan, mesh, seq=None):
+            return model_api.init_cache(cfg, params, batch_size, max_len, batch)
+
+    return cache_init
 
 
 def one_device(what: str, mesh) -> None:

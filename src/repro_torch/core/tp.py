@@ -17,7 +17,11 @@ sharding rules.  The port does it by hand, in the regions of Megatron-LM
   all-reduced) and :func:`vocab_cross_entropy` (max, sum of exp and the
   gold logit by the reference's mask-sum, each all-reduced; the backward is
   ``softmax - onehot`` on the local shard), and :func:`gather_vocab` for the
-  logits a sampler reads.
+  logits a sampler reads;
+* for heads that split a recurrent block (the SSD's, the xLSTM's):
+  :func:`mine` (this rank's heads of a whole leaf), :func:`sum_sq` (a
+  norm's statistic over a head-split width) and :func:`leave_cols` (this
+  rank's channels back into the residual stream).
 
 Every collective of the port goes through :func:`collective`, and every
 point-to-point message (the pipeline's activations and their gradients)
@@ -90,6 +94,13 @@ def size() -> int:
 def rank() -> int:
     r = sharding.installed()
     return 0 if r is None else r.mesh.coords[axis_name(r.mesh)]
+
+
+def divides(width: int) -> bool:
+    """Whether the installed tp axis cuts a dim of ``width`` (``sanitize``
+    leaves it whole otherwise)."""
+    n = size()
+    return width % n == 0 and width >= n
 
 
 def sequence_parallel() -> bool:
@@ -343,6 +354,38 @@ def split(x: torch.Tensor, dim: int) -> torch.Tensor:
     """This rank's slice of a whole ``x`` along ``dim`` (the backward
     all-gathers)."""
     return x if size() == 1 else _Split.apply(x, group(), dim)
+
+
+def mine(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's heads of a leaf every tp rank holds whole (a view along
+    ``dim``, no collective: the backward fills the other ranks' part with
+    zeros, so the leaf's gradient is a partial sum over tp)."""
+    n = size()
+    if n == 1:
+        return x
+    w = x.shape[dim] // n
+    return x.narrow(dim, rank() * w, w)
+
+
+def sum_sq(x: torch.Tensor) -> torch.Tensor:
+    """Σ x² over the last dim, whose channels the tp ranks split: a norm's
+    statistic over the whole width (summed over tp; the backward sums the
+    cotangents, every rank's output reading the sum)."""
+    s = torch.sum(x * x, dim=-1, keepdim=True)
+    return s if size() == 1 else sum_over(s, group())
+
+
+def leave_cols(x: torch.Tensor) -> torch.Tensor:
+    """This rank's channels (..., d/tp) of a whole (..., d) tensor, placed
+    in zeros and summed into the residual stream's layout (the sum of one
+    nonzero term per entry, so exact): the row-parallel exit of a block
+    whose last product is column-parallel."""
+    n = size()
+    if n == 1:
+        return x
+    w, r = x.shape[-1], rank()
+    z = x.new_zeros(x.shape[:-1] + (w * (n - 1),))
+    return leave(torch.cat([z[..., :r * w], x, z[..., r * w:]], dim=-1))
 
 
 def enter(x: torch.Tensor) -> torch.Tensor:

@@ -99,6 +99,15 @@ def family_hints(cfg) -> Tuple:
     return tuple(api.family_of(cfg).param_sharding_hints(cfg))
 
 
+def stacks(cfg) -> Dict[str, int]:
+    """{stack: its layers} of the reference's stacked layer lists: the
+    ``blocks`` of :func:`n_stacked` layers, an encoder-decoder's
+    ``enc_blocks`` and ``dec_blocks``; none for the xLSTM."""
+    if cfg.family == "encdec":
+        return {"enc_blocks": cfg.enc_layers, "dec_blocks": cfg.n_layers}
+    return {"blocks": n_stacked(cfg)} if n_stacked(cfg) else {}
+
+
 def n_stacked(cfg) -> int:
     """The layers of the reference's stacked ``blocks`` (its unstacked
     ``pre_blocks`` apart; the xLSTM stacks none)."""
@@ -236,9 +245,9 @@ class Layout:
         self.plan, self.mesh = plan, mesh
         hints = family_hints(cfg)
         shapes = sharding.whole_shapes(params, mesh, plan, cfg.vocab_size, cfg.d_model,
-                                       hints=hints)
+                                       hints=hints, d_ff=cfg.d_ff)
         p_specs = param_shardings(shapes, mesh, plan, hints=hints)
-        o_specs = opt_shardings(p_specs, shapes, mesh, plan, n_stacked(cfg))
+        o_specs = opt_shardings(p_specs, shapes, mesh, plan, stacks(cfg))
         g_specs = grad_constraint(p_specs, o_specs, plan)
         self.shapes = shapes
         self.leaves: List[SimpleNamespace] = []
@@ -361,7 +370,8 @@ def gathered(tree):
 
 
 def gathered_top(params):
-    """The parameters outside the blocks gathered (once a forward)."""
+    """The parameters outside the stacked blocks gathered (once a forward):
+    a stack's blocks are gathered as each runs."""
     if not _fsdp.dims:
         return params
-    return {k: v if k == "blocks" else gathered(v) for k, v in params.items()}
+    return {k: v if k in sharding.STACKS else gathered(v) for k, v in params.items()}

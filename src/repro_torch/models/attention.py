@@ -120,7 +120,9 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     queries over its keys and values, every key visible (K1 non-causal,
     Sq != Sk); ``segment_ids`` apply to self-attention only.  The
     reference's ``kv_positions`` reach only RoPE on self-attention, so a
-    cross call never reads them: the port takes none."""
+    cross call never reads them: the port takes none.  Under tp
+    ``kv_source`` is whole and already inside the region (its caller enters
+    it once for every layer that reads it)."""
     if kv_source is None:
         x = tp.enter(x)
         B, S, _ = x.shape
@@ -132,6 +134,7 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
         return tp.leave(out.reshape(B, S, -1) @ p["wo"].to(x.dtype))
     if segment_ids is not None:
         raise ValueError("segment_ids only apply to self-attention")
+    x = tp.enter(x)
     B, S, _ = x.shape
     dt = x.dtype
     Sk = kv_source.shape[1]
@@ -139,7 +142,7 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     k = (kv_source @ p["wk"].to(dt)).reshape(B, Sk, -1, cfg.hd)
     v = (kv_source @ p["wv"].to(dt)).reshape(B, Sk, -1, cfg.hd)
     out = sdpa(q, k, v, causal=False, window=None)
-    return out.reshape(B, S, -1) @ p["wo"].to(dt)
+    return tp.leave(out.reshape(B, S, -1) @ p["wo"].to(dt))
 
 
 def attention_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -219,6 +222,7 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def _cross_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: Cache) -> torch.Tensor:
+    x = tp.enter(x)
     B = x.shape[0]
     dt = x.dtype
     q = (x @ p["wq"].to(dt)).reshape(B, 1, -1, cfg.hd)
@@ -226,7 +230,7 @@ def _cross_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: Cache) ->
     bias = _mask_bias(torch.zeros((B, 1), dtype=torch.int32, device=x.device), kpos,
                       causal=False, window=None, k_valid=kpos >= 0)
     out = sdpa(q, cache["k"].to(dt), cache["v"].to(dt), bias, causal=False)
-    return out.reshape(B, 1, -1) @ p["wo"].to(dt)
+    return tp.leave(out.reshape(B, 1, -1) @ p["wo"].to(dt))
 
 
 # ---------------------------------------------------------------------------

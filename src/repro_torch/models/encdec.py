@@ -20,6 +20,17 @@ K/V is computed there; a decode step writes its self-attention ring in
 place (K5) and reads the cross K/V through the masked einsum, as the
 reference's does.  A prompt goes into the caches through the decode scan
 (the reference's default ``prefill_cache``).
+
+Under tensor parallelism (Megatron's regions, ``core.tp``) the encoder's and
+the decoder's self-attention and MLP run as the dense stack's; under
+sequence parallel both streams lie over tp (the frames' and the tokens'
+counts divisible by it).  The cross K/V are cut by heads and read the
+encoder's output whole: it enters the tp region once a forward (gathered
+over the sequence under sequence parallel) and every layer reads it.  The
+caches hold each layer's cross K/V and self ring at this rank's heads.
+The learned position tables stay whole, as the rules place them; the
+vocabulary table is cut over tp where tp divides it (whisper-base's 51865
+rows stay whole) and the unembed is vocab-parallel then.
 """
 
 from __future__ import annotations
@@ -30,7 +41,9 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import tp, zero
 from repro_torch.models import layers
+from repro_torch.models import transformer as T
 from repro_torch.models.attention import (attention_apply, attention_decode,
                                           attention_init, cache_init)
 from repro_torch.models.config import ModelConfig
@@ -83,20 +96,22 @@ def _aranges(B: int, S: int, device) -> torch.Tensor:
 
 
 def _enc_block(cfg: ModelConfig, bp: Params, x: torch.Tensor, pos: torch.Tensor):
+    bp = zero.gathered(bp)
     h = layers.norm_apply(cfg.norm, bp["norm1"], x)
     x = x + attention_apply(cfg, bp["attn"], h, pos, causal=False)
     h = layers.norm_apply(cfg.norm, bp["norm2"], x)
-    return x + layers.mlp_apply(bp["mlp"], h, gated=cfg.gated_mlp, act=cfg.act)
+    return x + layers.mlp_apply(bp["mlp"], h, gated=cfg.gated_mlp, act=cfg.act, d_ff=cfg.d_ff)
 
 
 def _dec_block(cfg: ModelConfig, bp: Params, x: torch.Tensor, pos: torch.Tensor,
                enc_out: torch.Tensor):
+    bp = zero.gathered(bp)
     h = layers.norm_apply(cfg.norm, bp["norm1"], x)
     x = x + attention_apply(cfg, bp["attn"], h, pos, causal=True)
     h = layers.norm_apply(cfg.norm, bp["normx"], x)
     x = x + attention_apply(cfg, bp["xattn"], h, pos, causal=False, kv_source=enc_out)
     h = layers.norm_apply(cfg.norm, bp["norm2"], x)
-    return x + layers.mlp_apply(bp["mlp"], h, gated=cfg.gated_mlp, act=cfg.act)
+    return x + layers.mlp_apply(bp["mlp"], h, gated=cfg.gated_mlp, act=cfg.act, d_ff=cfg.d_ff)
 
 
 def _remat(fn, remat_policy: str):
@@ -110,7 +125,7 @@ def _remat(fn, remat_policy: str):
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
            remat_policy: str = "full") -> torch.Tensor:
     dt = cfg.compute_dtype
-    x = frames.to(dt) + params["enc_pos"].to(dt)[None]
+    x = T.seq_layout(frames.to(dt) + params["enc_pos"].to(dt)[None])
     pos = _aranges(x.shape[0], x.shape[1], x.device)
     block = _remat(_enc_block, remat_policy)
     for bp in params["enc_blocks"]:
@@ -122,26 +137,29 @@ def decode_train(cfg: ModelConfig, params: Params, enc_out: torch.Tensor,
                  tokens: torch.Tensor, *, remat_policy: str = "full",
                  last_only: bool = False) -> torch.Tensor:
     """→ fp32 logits (B, S, V), or (B, 1, V) when ``last_only`` (sliced
-    before the unembed)."""
+    before the unembed); ``enc_out`` in the residual stream's layout."""
     dt = cfg.compute_dtype
     B, S = tokens.shape
-    x = layers.embed_lookup(params["embed"], tokens, dt)
-    x = x + params["dec_pos"][:S].to(dt)[None]
+    x = layers.embed_lookup(params["embed"], tokens, dt, cfg.vocab_size)
+    x = T.seq_layout(x + params["dec_pos"][:S].to(dt)[None])
     pos = _aranges(B, S, x.device)
+    # every layer's cross K/V read the whole frames: entered once
+    kv = tp.enter(enc_out)
     block = _remat(_dec_block, remat_policy)
     for bp in params["dec_blocks"]:
-        x = block(cfg, bp, x, pos, enc_out)
+        x = block(cfg, bp, x, pos, kv)
     if last_only:
-        x = x[:, -1:]
-    x = layers.norm_apply(cfg.norm, params["final_norm"], x)
-    return layers.unembed(params["embed"], x)
+        return T.head_logits(cfg, params, T.gather_seq(x)[:, -1:])
+    return T.head_logits(cfg, params, x, seq_sharded=tp.sequence_parallel())
 
 
 def encdec_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
                 remat_policy: str = "full"):
+    params = zero.gathered_top(params)
     enc_out = encode(cfg, params, batch["frames"], remat_policy=remat_policy)
     logits = decode_train(cfg, params, enc_out, batch["tokens"], remat_policy=remat_policy)
-    xent = layers.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    xent = layers.cross_entropy(logits, batch["labels"], batch.get("loss_mask"),
+                                vocab_size=cfg.vocab_size)
     return xent, {"xent": xent, "aux": torch.zeros((), dtype=torch.float32, device=xent.device)}
 
 
@@ -152,8 +170,9 @@ def encdec_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
 @torch.no_grad()
 def encdec_cache_init(cfg: ModelConfig, params: Params, frames: torch.Tensor,
                       max_len: int) -> Dict[str, Any]:
-    """Run the encoder once and compute each decoder layer's cross K/V."""
-    enc_out = encode(cfg, params, frames, remat_policy="none")
+    """Run the encoder once and compute each decoder layer's cross K/V and
+    its self-attention ring (this rank's heads under tp)."""
+    enc_out = T.gather_seq(encode(cfg, params, frames, remat_policy="none"))
     B, F_, _ = enc_out.shape
     dt, dev = cfg.compute_dtype, enc_out.device
     cross = []
@@ -163,15 +182,16 @@ def encdec_cache_init(cfg: ModelConfig, params: Params, frames: torch.Tensor,
         v = (enc_out @ xa["wv"].to(dt)).reshape(B, F_, -1, cfg.hd)
         cross.append({"k": k, "v": v, "pos": _aranges(B, F_, dev).contiguous()})
     return {"cross": cross,
-            "self": [cache_init(cfg, B, max_len, window=None, device=dev)
-                     for _ in params["dec_blocks"]]}
+            "self": [cache_init(cfg, B, max_len, window=None, device=dev,
+                                n_kv_heads=bp["attn"]["wk"].shape[1] // cfg.hd)
+                     for bp in params["dec_blocks"]]}
 
 
 def encdec_decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor, t, caches):
     """token: (B,) int; t: an int for every row or a (B,) int32 tensor of one
     position a row → (logits (B, V), caches), the rings updated in place."""
     dt = cfg.compute_dtype
-    x = layers.embed_lookup(params["embed"], token[:, None], dt)
+    x = layers.embed_lookup(params["embed"], token[:, None], dt, cfg.vocab_size)
     maxp = params["dec_pos"].shape[0]
     if isinstance(t, torch.Tensor):
         x = x + params["dec_pos"][t.long().clamp_max(maxp - 1)].to(dt)[:, None]
@@ -185,9 +205,9 @@ def encdec_decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor, t,
         h, _ = attention_decode(cfg, bp["xattn"], h, t, cross_c, cross=True)
         x = x + h
         h = layers.norm_apply(cfg.norm, bp["norm2"], x)
-        x = x + layers.mlp_apply(bp["mlp"], h, gated=cfg.gated_mlp, act=cfg.act)
-    x = layers.norm_apply(cfg.norm, params["final_norm"], x)
-    return layers.unembed(params["embed"], x)[:, 0], caches
+        x = x + layers.mlp_apply(bp["mlp"], h, gated=cfg.gated_mlp, act=cfg.act,
+                                 d_ff=cfg.d_ff)
+    return T.head_logits(cfg, params, x)[:, 0], caches
 
 
 # ---------------------------------------------------------------------------

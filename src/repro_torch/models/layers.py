@@ -7,7 +7,8 @@ the forward pass casts to the compute dtype.  Weights keep the reference's
 
 Under tensor parallelism (rules installed by ``core.sharding.axis_rules``)
 a leaf holds this rank's slice (``core.sharding.shard_params``): the MLP is
-column-parallel in and row-parallel out, inside ``core.tp``'s regions, and
+column-parallel in and row-parallel out, inside ``core.tp``'s regions (or
+whole, where tp does not divide its width), and
 a vocabulary table shorter than the config's vocabulary is looked up and
 unembedded vocab-parallel.  Without rules the regions are the identity.
 """
@@ -59,6 +60,19 @@ def rmsnorm(p: Params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    return out.to(x.dtype)
+
+
+def rmsnorm_heads(p: Params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rmsnorm` over a width whose channels the tp ranks split by
+    heads: ``x`` holds this rank's channels, the mean square is taken over
+    the whole width (its sum all-reduced over tp) and this rank's channels
+    of the whole ``scale`` apply (their gradient a partial sum over tp)."""
+    if tp.size() == 1:
+        return rmsnorm(p, x, eps=eps)
+    xf = x.float()
+    var = tp.sum_sq(xf) / (xf.shape[-1] * tp.size())
+    out = xf * torch.rsqrt(var + eps) * tp.mine(p["scale"], 0).float()
     return out.to(x.dtype)
 
 
@@ -114,19 +128,28 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
 
 
 def mlp_apply(p: Params, x: torch.Tensor, *, gated: bool = True,
-              act: str = "silu") -> torch.Tensor:
+              act: str = "silu", d_ff: Optional[int] = None) -> torch.Tensor:
     """Column-parallel ``w_gate``/``w_up``/``w_in`` (their d_ff columns
     sharded), row-parallel ``w_out``: the regions enter from the residual
-    stream's layout and leave back into it."""
+    stream's layout and leave back into it.  Where tp does not divide the
+    hidden width ``d_ff`` the rules leave the MLP whole (``sanitize``), and
+    every rank computes it whole on its own rows of the residual stream,
+    outside the regions: without sequence parallel every rank computes the
+    same MLP on the same input, so its weights' gradients are whole there
+    and are not summed over tp; under sequence parallel each rank's are a
+    partial sum over its S/tp rows (``core.stepfn`` all-reduces them)."""
     dt = x.dtype
-    x = tp.enter(x)
+    regions = d_ff is None or tp.divides(d_ff)
+    if regions:
+        x = tp.enter(x)
     if gated:
         h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
     else:
         h = x @ p["w_in"].to(dt)
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h, approximate="tanh") if act == "gelu" else F.silu(h)
-    return tp.leave(h @ p["w_out"].to(dt))
+    h = h @ p["w_out"].to(dt)
+    return tp.leave(h) if regions else h
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,18 @@ and averages their RMS-normed outputs.  Its per-layer attention window is
 the caller's (``transformer.layer_windows``).  Parameters keep the
 reference's names and ``(d_in, d_out)`` orientation, so checkpoints cross
 between the packages unchanged.
+
+Under tensor parallelism the SSM heads split over tp, as the attention's
+do: ``in_proj`` holds this rank's heads' columns of its x half and of its
+z half (``core.sharding`` maps the two halves to and from the reference's
+whole leaf), ``conv`` this rank's channels (channel c is head c // P's),
+``out_proj`` its rows (row-parallel, left into the residual stream's
+layout), and the norm over the inner width sums its statistic over tp.
+``bc_proj``, ``A_log``, ``D`` and ``dt_bias`` stay whole, as the rules
+place them: every rank computes B and C (shared by all heads) and takes its
+heads' dt columns and vectors, so each rank's gradient of these leaves, and
+of ``out_norm``'s scale, covers its own heads only and ``core.stepfn`` sums
+them over tp.  The decode state holds this rank's heads and channels.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import tp
 from repro_torch.models import layers
 from repro_torch.models.attention import (attention_apply, attention_decode,
                                           attention_init, cache_init)
@@ -184,24 +197,33 @@ def _ssd_chunk_scan(xh: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torc
 
 
 def _gate_out(p: Params, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    y = layers.rmsnorm(p["out_norm"], y) * F.silu(z)
-    return y @ p["out_proj"].to(y.dtype)
+    """The norm over the whole inner width, the gate, and the row-parallel
+    ``out_proj`` left into the residual stream's layout."""
+    y = layers.rmsnorm_heads(p["out_norm"], y) * F.silu(z)
+    return tp.leave(y @ p["out_proj"].to(y.dtype))
+
+
+def _bc_dt(p: Params, x: torch.Tensor, N: int):
+    """B, C (shared by every head) and this rank's heads' dt from the whole
+    ``bc_proj``, f32."""
+    bcd = x @ p["bc_proj"].to(x.dtype)
+    dt = _softplus(tp.mine(bcd[..., 2 * N:], -1).float() + tp.mine(p["dt_bias"], 0))
+    return bcd[..., :N].float(), bcd[..., N:2 * N].float(), dt
 
 
 def ssd_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
               h0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence SSM.  x: (B, S, d) → (out (B, S, d), final state
     (B, H, N, P) f32)."""
+    x = tp.enter(x)
     Bt, S, _ = x.shape
-    H, P, N = ssm_dims(cfg)
+    _, P, N = ssm_dims(cfg)
     dt_ = x.dtype
     xh, z = torch.chunk(x @ p["in_proj"].to(dt_), 2, dim=-1)
     xh = F.silu(_causal_conv(xh, p["conv"]))
-    bcd = x @ p["bc_proj"].to(dt_)
-    B = bcd[..., :N].float()
-    C = bcd[..., N:2 * N].float()
-    dt = _softplus(bcd[..., 2 * N:].float() + p["dt_bias"])     # (Bt, S, H)
-    A = torch.exp(p["A_log"])
+    B, C, dt = _bc_dt(p, x, N)                                  # dt (Bt, S, H)
+    A = torch.exp(tp.mine(p["A_log"], 0))
+    H = A.shape[0]
     xhh = xh.reshape(Bt, S, H, P).float()
     if h0 is None:
         h0 = torch.zeros((Bt, H, N, P), dtype=torch.float32, device=x.device)
@@ -211,7 +233,7 @@ def ssd_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
         xs = F.pad(xhh, (0, 0, 0, 0, 0, pad))
         dts, Bs, Cs = (F.pad(t, (0, 0, 0, pad)) for t in (dt, B, C))
     y, h_last = _ssd_chunk_scan(xs, dts, Bs, Cs, A, h0)
-    y = y[:, :S] + xhh * p["D"][None, None, :, None]
+    y = y[:, :S] + xhh * tp.mine(p["D"], 0)[None, None, :, None]
     y = y.reshape(Bt, S, H * P).to(dt_)
     return _gate_out(p, y, z), h_last
 
@@ -220,22 +242,21 @@ def ssd_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, h: torch.Tensor,
                conv_buf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token recurrent step.  x: (B, 1, d); h: (B, H, N, P);
     conv_buf: (B, K - 1, inner) → (out, new h, new conv_buf)."""
+    x = tp.enter(x)
     Bt = x.shape[0]
-    H, P, N = ssm_dims(cfg)
+    _, P, N = ssm_dims(cfg)
     dt_ = x.dtype
     xh, z = torch.chunk(x @ p["in_proj"].to(dt_), 2, dim=-1)    # (B, 1, inner)
     window = torch.cat([conv_buf.to(dt_), xh], dim=1)           # (B, K, inner)
     conv_out = torch.einsum("bki,ki->bi", window, p["conv"].to(dt_))[:, None, :]
     xh = F.silu(conv_out)
-    bcd = x @ p["bc_proj"].to(dt_)
-    B = bcd[..., :N].float()[:, 0]                              # (B, N)
-    C = bcd[..., N:2 * N].float()[:, 0]
-    dt = _softplus(bcd[..., 2 * N:].float() + p["dt_bias"])[:, 0]  # (B, H)
-    A = torch.exp(p["A_log"])
+    B, C, dt = (t[:, 0] for t in _bc_dt(p, x, N))               # (B, N), (B, H)
+    A = torch.exp(tp.mine(p["A_log"], 0))
+    H = A.shape[0]
     a = torch.exp(-A[None, :] * dt)
     xp = xh.reshape(Bt, H, P).float()
     h_new = h * a[..., None, None] + torch.einsum("bn,bh,bhp->bhnp", B, dt, xp)
-    y = torch.einsum("bn,bhnp->bhp", C, h_new) + xp * p["D"][None, :, None]
+    y = torch.einsum("bn,bhnp->bhp", C, h_new) + xp * tp.mine(p["D"], 0)[None, :, None]
     y = y.reshape(Bt, 1, H * P).to(dt_)
     return _gate_out(p, y, z), h_new, window[:, 1:]
 
@@ -262,7 +283,7 @@ def _mix(cfg: ModelConfig, p: Params, x: torch.Tensor, a: torch.Tensor,
     mixed = 0.5 * (layers.rmsnorm(p["attn_out_norm"], a) + layers.rmsnorm(p["ssm_out_norm"], s))
     x = x + mixed
     return x + layers.mlp_apply(p["mlp"], layers.norm_apply(cfg.norm, p["norm2"], x),
-                                gated=cfg.gated_mlp, act=cfg.act)
+                                gated=cfg.gated_mlp, act=cfg.act, d_ff=cfg.d_ff)
 
 
 def hymba_block_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -274,14 +295,15 @@ def hymba_block_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def hymba_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
-                     window: Optional[int], device,
-                     n_kv_heads: Optional[int] = None) -> Params:
+                     window: Optional[int], device, ways: int = 1) -> Params:
     """``{"kv": the ring (``window`` wide, or ``max_len`` for a global
-    layer), "ssm_h": (B, H, N, P) f32, "conv": (B, K - 1, inner)}``."""
+    layer), "ssm_h": (B, H, N, P) f32, "conv": (B, K - 1, inner)}``, at the
+    heads and channels of one of ``ways`` tp ranks."""
     H, P, N = ssm_dims(cfg)
+    H //= ways
     return {
         "kv": cache_init(cfg, batch, max_len, window=window, device=device,
-                         n_kv_heads=n_kv_heads),
+                         n_kv_heads=cfg.n_kv_heads // ways),
         "ssm_h": torch.zeros((batch, H, N, P), dtype=torch.float32, device=device),
         "conv": torch.zeros((batch, CONV_K - 1, H * P), dtype=cfg.compute_dtype,
                             device=device),

@@ -129,7 +129,7 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, *, kind: str = "dense") -
 
 def _mlp_half(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     h = layers.norm_apply(cfg.norm, p["norm2"], x)
-    return x + layers.mlp_apply(p["mlp"], h, gated=cfg.gated_mlp, act=cfg.act)
+    return x + layers.mlp_apply(p["mlp"], h, gated=cfg.gated_mlp, act=cfg.act, d_ff=cfg.d_ff)
 
 
 def _moe_half(cfg: ModelConfig, p: Params, x: torch.Tensor):
@@ -248,7 +248,7 @@ def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tens
     return layers.embed_lookup(params["embed"], tokens, cfg.compute_dtype, cfg.vocab_size)
 
 
-def _seq_layout(x: torch.Tensor) -> torch.Tensor:
+def seq_layout(x: torch.Tensor) -> torch.Tensor:
     """The embedded sequence in the residual stream's layout: under
     sequence parallel this rank's S/tp positions (S % tp must be 0)."""
     if tp.sequence_parallel() and x.shape[1] % tp.size():
@@ -276,17 +276,17 @@ def embed_stream(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor
     """:func:`embed_inputs` in the residual stream's layout (the first
     stage's input): the spliced sequence is what sequence parallel
     scatters."""
-    return _seq_layout(embed_inputs(cfg, params, batch))
+    return seq_layout(embed_inputs(cfg, params, batch))
 
 
-def _gather_seq(x: torch.Tensor) -> torch.Tensor:
+def gather_seq(x: torch.Tensor) -> torch.Tensor:
     """Whole hidden states from the residual stream (for every rank to run
     what follows whole)."""
     return tp.gather_seq(x, reduce_grad=False) if tp.sequence_parallel() else x
 
 
-def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
-            seq_sharded: bool = False) -> torch.Tensor:
+def head_logits(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
+                seq_sharded: bool = False) -> torch.Tensor:
     """Final norm and unembed; ``seq_sharded``: x is this rank's S/tp
     positions, gathered after the norm.  A sharded table gives this rank's
     slice of the vocabulary."""
@@ -332,7 +332,7 @@ def nll_sum(cfg: ModelConfig, params: Params, x: torch.Tensor, labels: torch.Ten
             mask: Optional[torch.Tensor]) -> torch.Tensor:
     """The last hidden states (the residual stream's layout) → ``Σ nll·mask``
     (or ``Σ nll``), in f32: the pipeline's last chunk banks this."""
-    logits = _logits(cfg, params, x, seq_sharded=tp.sequence_parallel())
+    logits = head_logits(cfg, params, x, seq_sharded=tp.sequence_parallel())
     nll = layers.token_nll(logits, labels, cfg.vocab_size)
     return torch.sum(nll) if mask is None else torch.sum(nll * mask.to(nll.dtype))
 
@@ -375,8 +375,8 @@ def _forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *
         if a is not None:
             aux = aux + a
     if last_only:
-        return _logits(cfg, params, _gather_seq(x)[:, -1:]), aux
-    return _logits(cfg, params, x, seq_sharded=tp.sequence_parallel()), aux
+        return head_logits(cfg, params, gather_seq(x)[:, -1:]), aux
+    return head_logits(cfg, params, x, seq_sharded=tp.sequence_parallel()), aux
 
 
 def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
@@ -396,25 +396,41 @@ def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
 
 
 def block_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, kind: str, window,
-                     device, n_kv_heads: Optional[int] = None):
+                     device, ways: int = 1):
     """One layer's decode cache: a ring ``window`` wide (``max_len``
     without one), a hybrid layer's ``{"kv": ring, "ssm_h", "conv"}``, an
-    xLSTM layer's recurrent state."""
+    xLSTM layer's recurrent state; at the heads of one of ``ways`` tp
+    ranks."""
     if kind == "mlstm":
-        return xlstm_mod.mlstm_state_init(cfg, batch, device)
+        return xlstm_mod.mlstm_state_init(cfg, batch, device, ways)
     if kind == "slstm":
-        return xlstm_mod.slstm_state_init(cfg, batch, device)
-    block = ssm_mod.hymba_cache_init if kind == "hymba" else cache_init
-    return block(cfg, batch, max_len, window=window, device=device, n_kv_heads=n_kv_heads)
+        return xlstm_mod.slstm_state_init(cfg, batch, device, ways)
+    if kind == "hymba":
+        return ssm_mod.hymba_cache_init(cfg, batch, max_len, window=window, device=device,
+                                        ways=ways)
+    return cache_init(cfg, batch, max_len, window=window, device=device,
+                      n_kv_heads=cfg.n_kv_heads // ways)
+
+
+def tp_ways(cfg: ModelConfig, block: Params) -> int:
+    """How many tp ranks split ``block``'s heads (1: whole), read off its
+    leaves' widths: the attention's KV projection, the mLSTM's ``in_proj``,
+    the sLSTM's ``wz``."""
+    if "attn" in block:
+        return cfg.n_kv_heads * cfg.hd // block["attn"]["wk"].shape[1]
+    if "in_proj" in block:
+        return 2 * xlstm_mod._inner(cfg) // block["in_proj"].shape[1]
+    return cfg.d_model // block["wz"].shape[1]
 
 
 def lm_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, device,
-                  n_kv_heads: Optional[int] = None) -> Dict[str, List]:
+                  ways: int = 1) -> Dict[str, List]:
     """``{"blocks": a cache a stacked layer (its window from
     ``layer_windows``), "pre": one an unstacked layer}``, each entry only
-    where the plan has such layers."""
+    where the plan has such layers, at the heads of one of ``ways`` tp
+    ranks."""
     kind, n_layers, pre = layer_plan(cfg)
-    kw = dict(device=device, n_kv_heads=n_kv_heads)
+    kw = dict(device=device, ways=ways)
     caches = {}
     if n_layers:
         caches["blocks"] = [block_cache_init(cfg, batch, max_len, kind=kind, window=w, **kw)
@@ -450,14 +466,14 @@ def lm_prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     for bp, c in zip(params["blocks"], caches["blocks"]):
         x, _ = block_prefill(cfg, bp, x, pos, c, window=cfg.swa_window,
                              segment_ids=batch.get("segment_ids"))
-    x = _gather_seq(x)
+    x = gather_seq(x)
     lengths = batch.get("lengths")
     if lengths is None:
         x_last = x[:, -1:]
     else:
         x_last = x[torch.arange(x.shape[0], device=x.device), lengths.long() - 1][:, None]
         _invalidate_padded_slots(caches, lengths)
-    return _logits(cfg, params, x_last)[:, 0], caches
+    return head_logits(cfg, params, x_last)[:, 0], caches
 
 
 def lm_decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor, t,
@@ -471,7 +487,7 @@ def lm_decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor, t,
     for bp, c, w in zip(params.get("blocks", []), caches.get("blocks", []),
                         layer_windows(cfg)):
         x, _ = block_decode(cfg, bp, x, t, c, window=w, kind=kind)
-    return _logits(cfg, params, x)[:, 0], caches
+    return head_logits(cfg, params, x)[:, 0], caches
 
 
 def lm_prefill_scan(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
@@ -525,7 +541,7 @@ def lm_paged_decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
     x = layers.embed_lookup(params["embed"], token[:, None], cfg.compute_dtype)
     for bp, lp in zip(params["blocks"], pool["blocks"]):
         x = block_decode_paged(cfg, bp, x, ts, lp, page_tables, window=cfg.swa_window)
-    return _logits(cfg, params, x)[:, 0], pool
+    return head_logits(cfg, params, x)[:, 0], pool
 
 
 def lm_paged_prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
@@ -545,7 +561,7 @@ def lm_paged_prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Te
         x = block_prefill_paged(cfg, bp, x, positions, valid, lp, page_tables,
                                 window=cfg.swa_window)
     x_last = x[torch.arange(B, device=x.device), lengths.long() - 1][:, None]
-    return _logits(cfg, params, x_last)[:, 0], pool
+    return head_logits(cfg, params, x_last)[:, 0], pool
 
 
 class DecoderOnlyLM:
@@ -565,11 +581,12 @@ class DecoderOnlyLM:
         return None
 
     def init_cache(self, cfg, params, batch_size, max_len, batch=None):
-        """Ring caches of the KV heads ``params`` hold (this rank's under tp);
-        a hybrid layer's SSM state beside its ring."""
-        kv_heads = params["blocks"][0]["attn"]["wk"].shape[1] // cfg.hd
+        """Caches of the heads ``params`` hold (this rank's under tp): rings,
+        a hybrid layer's SSM state beside its ring, an xLSTM layer's
+        recurrent state."""
+        first = (params.get("blocks") or params["pre_blocks"])[0]
         return lm_cache_init(cfg, batch_size, max_len, device=params["embed"].device,
-                             n_kv_heads=kv_heads)
+                             ways=tp_ways(cfg, first))
 
     def decode_step(self, cfg, params, token, t, caches):
         return lm_decode_step(cfg, params, token, t, caches)
@@ -653,9 +670,6 @@ class SSMLM(DecoderOnlyLM):
     ``_require_paged_plan``); the prompt goes into the recurrent states
     through the decode scan.  The placement hints are the hybrid's
     (``_SSM_SCAN_HINTS`` in the reference)."""
-
-    def init_cache(self, cfg, params, batch_size, max_len, batch=None):
-        return lm_cache_init(cfg, batch_size, max_len, device=params["embed"].device)
 
     def prefill_cache(self, cfg, params, batch, caches):
         return lm_prefill_scan(cfg, params, batch, caches)

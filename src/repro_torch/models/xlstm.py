@@ -29,6 +29,24 @@ conv inputs in the compute dtype) and the sLSTM's ``{"c", "n", "m", "h"}``
 (B, d) in f32, ``m`` starting at -1e30.  The decode steps return new
 states, which the caller copies into its caches.  Parameters keep the
 reference's names and ``(d_in, d_out)`` orientation.
+
+Under tensor parallelism the heads split over tp.  The mLSTM's ``in_proj``
+holds this rank's heads' columns of its x half and of its z half (as the
+SSD's, ``core.sharding`` maps the halves), ``conv`` its channels; its
+``wq``/``wk``/``wv`` columns are its heads, but their rows read every
+channel, so the conv output and the input branch are all-gathered over tp
+before them (a gather of two activations of inner/tp channels; computing
+the x half whole instead would hold ``in_proj``'s x columns and ``conv``
+whole on every rank, against the rules' placement).  The sLSTM's
+``wz``/``wi``/``wf`` columns are its heads (``wo``, ruled by rows, is
+gathered), the block-diagonal ``rz``..``ro`` are sliced to them, so the
+scan needs no collective, and its output is normed over d (the statistic
+summed over tp) and placed back into the residual stream by a row-parallel
+exit (``core.tp.leave_cols``).  The gate weights and biases
+(``w_igate``/``w_fgate``, ``b_*``), the recurrent weights and the
+``out_norm`` scales stay whole, as the rules place them, and each rank uses
+its heads' part: their gradients are partial sums that ``core.stepfn``
+sums over tp.  The decode states hold this rank's heads.
 """
 
 from __future__ import annotations
@@ -39,6 +57,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import tp
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ssm import _causal_conv
@@ -135,46 +154,62 @@ def mlstm_seq(cfg: ModelConfig, q, k, v, li, lf, state=None):
     return torch.cat(hs, dim=1)[:, :S], state
 
 
+def _whole_channels(x: torch.Tensor) -> torch.Tensor:
+    """This rank's channels of a branch → all of them: ``wq``/``wk``/``wv``
+    are dense (inner, inner) maps, each head's columns reading every channel
+    (the backward reduce-scatters: each rank's products give a partial sum
+    of the gradient)."""
+    return x if tp.size() == 1 else tp.gather_dim(x, x.dim() - 1, tp.group())
+
+
 def _mlstm_gates(cfg: ModelConfig, p: Params, xc: torch.Tensor, xin: torch.Tensor):
     """q, k, v (..., H, D) and the log gates li, lf (..., H), f32, from the
-    conv branch ``xc`` and the input branch ``xin``."""
+    conv branch ``xc`` and the input branch ``xin`` (all channels): this
+    rank's heads under tp (the columns of ``wq``/``wk``/``wv`` it holds, its
+    heads' columns of the whole gate weights and biases)."""
     dt = xc.dtype
-    H = cfg.n_heads
-    D = _inner(cfg) // H
-    shape = xc.shape[:-1] + (H, D)
+    D = _inner(cfg) // cfg.n_heads
+    shape = xc.shape[:-1] + (-1, D)
     q = (xc @ p["wq"].to(dt)).reshape(shape).float()
     k = (xc @ p["wk"].to(dt)).reshape(shape).float()
     v = (xin @ p["wv"].to(dt)).reshape(shape).float()
-    li = (xc @ p["w_igate"].to(dt)).float() + p["b_igate"].float()
-    lf = F.logsigmoid((xc @ p["w_fgate"].to(dt)).float() + p["b_fgate"].float())
+    li = (xc @ tp.mine(p["w_igate"], 1).to(dt)).float() + tp.mine(p["b_igate"], 0).float()
+    lf = F.logsigmoid((xc @ tp.mine(p["w_fgate"], 1).to(dt)).float()
+                      + tp.mine(p["b_fgate"], 0).float())
     return q, k, v, li, lf
 
 
 def _mlstm_out(p: Params, x: torch.Tensor, h: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    h = layers.rmsnorm(p["out_norm"], h.to(x.dtype)) * F.silu(z)
-    return x + h @ p["out_proj"].to(x.dtype)
+    h = layers.rmsnorm_heads(p["out_norm"], h.to(x.dtype)) * F.silu(z)
+    return x + tp.leave(h @ p["out_proj"].to(x.dtype))
+
+
+def _mlstm_branches(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """The normed x into the tp region → (the input branch, the gate z),
+    this rank's channels of each."""
+    h = tp.enter(layers.norm_apply(cfg.norm, p["norm"], x))
+    return torch.chunk(h @ p["in_proj"].to(x.dtype), 2, dim=-1)
 
 
 def mlstm_block_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    B, S, _ = x.shape
-    dt = x.dtype
-    h = layers.norm_apply(cfg.norm, p["norm"], x)
-    xin, z = torch.chunk(h @ p["in_proj"].to(dt), 2, dim=-1)
+    xin, z = _mlstm_branches(cfg, p, x)
+    B, S, _ = xin.shape
     xc = F.silu(_causal_conv(xin, p["conv"]))
-    q, k, v, li, lf = _mlstm_gates(cfg, p, xc, xin)
+    q, k, v, li, lf = _mlstm_gates(cfg, p, _whole_channels(xc), _whole_channels(xin))
     hseq, _ = mlstm_seq(cfg, q, k, v, li, lf)
-    return _mlstm_out(p, x, hseq.reshape(B, S, _inner(cfg)), z)
+    return _mlstm_out(p, x, hseq.reshape(B, S, -1), z)
 
 
-def mlstm_state_init(cfg: ModelConfig, batch: int, device) -> Params:
-    H = cfg.n_heads
-    D = _inner(cfg) // H
+def mlstm_state_init(cfg: ModelConfig, batch: int, device, ways: int = 1) -> Params:
+    """The decode state at the heads and channels of one of ``ways`` tp
+    ranks."""
+    H = cfg.n_heads // ways
+    D = _inner(cfg) // cfg.n_heads
     f32 = dict(dtype=torch.float32, device=device)
     return {"C": torch.zeros((batch, H, D, D), **f32),
             "n": torch.zeros((batch, H, D), **f32),
             "m": torch.full((batch, H), M_INIT, **f32),
-            "conv": torch.zeros((batch, 3, _inner(cfg)), dtype=cfg.compute_dtype,
-                                device=device)}
+            "conv": torch.zeros((batch, 3, H * D), dtype=cfg.compute_dtype, device=device)}
 
 
 def mlstm_block_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, state
@@ -182,13 +217,12 @@ def mlstm_block_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, state
     """The O(1) recurrent step.  x: (B, 1, d) → (x, the new state)."""
     B = x.shape[0]
     dt = x.dtype
-    H = cfg.n_heads
-    D = _inner(cfg) // H
-    h = layers.norm_apply(cfg.norm, p["norm"], x)
-    xin, z = torch.chunk(h @ p["in_proj"].to(dt), 2, dim=-1)
+    D = _inner(cfg) // cfg.n_heads
+    xin, z = _mlstm_branches(cfg, p, x)
     window = torch.cat([state["conv"].to(dt), xin], dim=1)          # (B, 4, inner)
     xc = F.silu(torch.einsum("bki,ki->bi", window, p["conv"].to(dt))[:, None])
-    q, k, v, li, lf = _mlstm_gates(cfg, p, xc[:, 0], xin[:, 0])     # (B, H, D), (B, H)
+    q, k, v, li, lf = _mlstm_gates(cfg, p, _whole_channels(xc[:, 0]),
+                                   _whole_channels(xin[:, 0]))     # (B, H, D), (B, H)
     q = q * D ** -0.5
     C0, n0, m0 = state["C"], state["n"], state["m"]
     m_new = torch.maximum(lf + m0, li)
@@ -199,7 +233,7 @@ def mlstm_block_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, state
     num = torch.einsum("bhd,bhde->bhe", q, C)
     den = torch.einsum("bhd,bhd->bh", q, n)
     hh = num / torch.maximum(torch.abs(den), torch.exp(-m_new))[..., None]
-    out = _mlstm_out(p, x, hh.reshape(B, 1, H * D), z)
+    out = _mlstm_out(p, x, hh.reshape(B, 1, -1), z)
     return out, {"C": C, "n": n, "m": m_new, "conv": window[:, 1:]}
 
 
@@ -232,25 +266,40 @@ def slstm_block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
-def slstm_state_init(cfg: ModelConfig, batch: int, device) -> Params:
+def slstm_state_init(cfg: ModelConfig, batch: int, device, ways: int = 1) -> Params:
+    """The decode state at the heads' channels of one of ``ways`` tp ranks."""
     f32 = dict(dtype=torch.float32, device=device)
-    d = cfg.d_model
+    d = cfg.d_model // ways
     return {"c": torch.zeros((batch, d), **f32), "n": torch.zeros((batch, d), **f32),
             "m": torch.full((batch, d), M_INIT, **f32), "h": torch.zeros((batch, d), **f32)}
+
+
+def _slstm_w(p: Params, g: str) -> torch.Tensor:
+    """Gate ``g``'s input weight, this rank's heads' columns under tp: the
+    rules cut ``wz``/``wi``/``wf`` by columns, but ``wo`` (the attention's
+    rule, first match) by rows, so it is gathered whole and its columns
+    taken (the gather's backward reduce-scatters its gradient to the
+    rows)."""
+    w = p[f"w{g}"]
+    if g == "o" and tp.size() > 1:
+        w = tp.mine(tp.gather_dim(w, 0, tp.group()), 1)
+    return w
 
 
 def _slstm_pre(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """The gates' input parts (B, S, 4, d) in the order z, i, f, o, f32: the
     normed x (upcast, as the reference casts it) times each f32-promoted
-    weight, plus its bias."""
-    h0 = layers.norm_apply(cfg.norm, p["norm"], x).float()
-    return torch.stack([h0 @ p[f"w{g}"].float() + p[f"b{g}"].float() for g in "zifo"], 2)
+    weight, plus its bias (this rank's heads' channels under tp)."""
+    h0 = tp.enter(layers.norm_apply(cfg.norm, p["norm"], x)).float()
+    return torch.stack([h0 @ _slstm_w(p, g).float() + tp.mine(p[f"b{g}"], 0).float()
+                        for g in "zifo"], 2)
 
 
 def _slstm_r(p: Params) -> torch.Tensor:
     """The four block-diagonal recurrent weights side by side, (H, dh,
-    4·dh) f32: one batched product a step where the reference has four."""
-    return torch.cat([p[f"r{g}"].float() for g in "zifo"], dim=-1)
+    4·dh) f32: one batched product a step where the reference has four
+    (this rank's heads under tp: the recurrence needs no collective)."""
+    return torch.cat([tp.mine(p[f"r{g}"], 0).float() for g in "zifo"], dim=-1)
 
 
 def _to_scan(pre: torch.Tensor, H: int) -> torch.Tensor:
@@ -359,21 +408,30 @@ class _SLSTMScan(torch.autograd.Function):
 
 
 def _slstm_out(cfg: ModelConfig, p: Params, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    x = x + layers.rmsnorm(p["out_norm"], h.to(x.dtype))
+    """The cell output ``h`` (this rank's heads' channels under tp) normed
+    over d and added to the residual stream, then the FFN."""
+    x = x + tp.leave_cols(layers.rmsnorm_heads(p["out_norm"], h.to(x.dtype)))
     return x + layers.mlp_apply(p["mlp"], layers.norm_apply(cfg.norm, p["norm2"], x),
-                                gated=True)
+                                gated=True, d_ff=_slstm_ff(cfg))
+
+
+def _local_heads(cfg: ModelConfig, pre: torch.Tensor) -> int:
+    return pre.shape[-1] // (cfg.d_model // cfg.n_heads)
 
 
 def slstm_block_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    B, S, d = x.shape
-    hs = _SLSTMScan.apply(_to_scan(_slstm_pre(cfg, p, x), cfg.n_heads), _slstm_r(p))
-    return _slstm_out(cfg, p, x, hs.permute(2, 0, 1, 3).reshape(B, S, d))
+    pre = _slstm_pre(cfg, p, x)
+    B, S = pre.shape[:2]
+    hs = _SLSTMScan.apply(_to_scan(pre, _local_heads(cfg, pre)), _slstm_r(p))
+    return _slstm_out(cfg, p, x, hs.permute(2, 0, 1, 3).reshape(B, S, -1))
 
 
 def slstm_block_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, state
                        ) -> Tuple[torch.Tensor, Params]:
-    H, B = cfg.n_heads, x.shape[0]
-    st = _slstm_scan(_to_scan(_slstm_pre(cfg, p, x), H), _slstm_r(p),
+    B = x.shape[0]
+    pre = _slstm_pre(cfg, p, x)
+    H = _local_heads(cfg, pre)
+    st = _slstm_scan(_to_scan(pre, H), _slstm_r(p),
                      *(_state_in(state[k], H) for k in "cnmh"))
     st = {k: v.transpose(0, 1).reshape(B, -1) for k, v in zip("cnmh", st)}
     return _slstm_out(cfg, p, x, st["h"][:, None]), st

@@ -99,6 +99,7 @@ class InferenceSession:
         self.mesh = mesh
         self.family = model_api.family_of(cfg)
         self.prefill_cache_step = stepfn.make_prefill_cache(cfg, self.plan, mesh)
+        self._cache_init = stepfn.make_cache_init(cfg, self.plan, mesh)
         self.serve_step = stepfn.make_serve_step(cfg, self.plan, mesh)
         if mesh is None:
             self.slot_step = stepfn.make_slot_serve_step(cfg)
@@ -169,7 +170,7 @@ class InferenceSession:
         reference's."""
         if batch is not None:
             batch = to_device(batch, self.device)
-        return model_api.init_cache(self.cfg, self.params, batch_size, max_len, batch)
+        return self._cache_init(self.params, batch_size, max_len, batch)
 
     # continuous-batching slot operations, in place on the caches
     def insert_slot(self, caches, slot_caches, i: int):

@@ -206,7 +206,7 @@ class TrainSession:
         params = self.state["params"]
         if self.mesh is not None:
             params = sharding.gather_params(params, self.mesh, self.plan, self.cfg.vocab_size,
-                                            self.cfg.d_model,
+                                            self.cfg.d_model, d_ff=self.cfg.d_ff,
                                             hints=zero.family_hints(self.cfg))
         params = tree_map(lambda x: x.detach().to(self.cfg.compute_dtype, copy=True), params)
         if mesh is not None:

@@ -352,15 +352,24 @@ def test_sharding_hints_are_the_references():
 # ===========================================================================
 
 def test_refusals():
-    """tp > 1 (on a mesh or not: the SSM heads' split is not ported),
-    packed sequences (the recurrent state spans documents, as the
-    reference says), and the paged pool."""
+    """A tp that splits a head (full width has 25/5 attention heads and 25
+    SSM heads: only tp 5 passes), packed sequences (the recurrent state
+    spans documents, as the reference says), and the paged pool.  tp 2 on
+    a mesh passes for the reduced config (its runs are
+    ``tests/test_torch_hybrid_tp.py``), and so does tp 5 (x dp 2) at full
+    width, whose d_ff of 5504 tp leaves whole."""
     _, cfg, _, flat = _params()
-    mesh = SimpleNamespace(shape={"tp": 2, "pp": 1, "data": 1, "pod": 1})
-    for m in (mesh, None):
-        with pytest.raises(NotImplementedError,
-                           match="Queue 1, item 3: the parallel recipe over torch.distributed"):
-            stepfn.check_plan(ParallelismConfig(tp=2), m, cfg)
+
+    def mesh(**shape):
+        return SimpleNamespace(shape=dict(dict(tp=1, pp=1, data=1, pod=1), **shape))
+
+    for m in (mesh(tp=2), None):
+        stepfn.check_plan(ParallelismConfig(tp=2), m, cfg)
+    full = get_config(ARCH)
+    with pytest.raises(ValueError, match="tp=2 does not divide n_heads=25"):
+        stepfn.check_plan(ParallelismConfig(tp=2), mesh(tp=2), full)
+    stepfn.check_plan(ParallelismConfig(tp=5), mesh(tp=5), full)
+    stepfn.check_plan(ParallelismConfig(tp=5, dp=2, zero_stage=3), mesh(tp=5, data=2), full)
     stepfn.check_plan(ParallelismConfig(dp=2, zero_stage=3), None, cfg)
     b = _batch(2, S=16)
     seg = np.ones((2, 16), np.int32)

@@ -516,14 +516,14 @@ def test_refusal_messages_name_their_roadmap_items():
     parallel = "Queue 1, item 3: the parallel recipe over torch.distributed"
     cfg = get_config("granite_3_2b").reduced()
     from types import SimpleNamespace
-    # every family is registered: the xLSTM and the encoder-decoder wait
-    # for the parallel recipe on a mesh (item 3.8)
+    # every family is registered: the xLSTM and the encoder-decoder are not
+    # pipelined (item 3), as the reference's pipeline stacks ``blocks`` alone
     assert registry.family_of(dataclasses.replace(cfg, family="encdec"))
     assert transformer.layer_plan(dataclasses.replace(cfg, family="ssm"))[:2] == (None, 0)
     for arch in ("xlstm_125m", "whisper_base"):
         with pytest.raises(NotImplementedError, match=parallel):
-            stepfn.check_plan(ParallelismConfig(tp=2), SimpleNamespace(
-                shape={"tp": 2, "pp": 1, "data": 1, "pod": 1}), get_config(arch))
+            stepfn.check_plan(ParallelismConfig(pp=2, gas=2), SimpleNamespace(
+                shape={"tp": 1, "pp": 2, "data": 1, "pod": 1}), get_config(arch))
     from repro_torch.runtime.fleet import FleetController
     from repro_torch.runtime.train_loop import LoopConfig, run_training
     with pytest.raises(NotImplementedError, match=parallel):

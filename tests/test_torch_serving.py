@@ -237,18 +237,23 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, capsys):
 
 def test_unported_paths_raise():
     """The reference's compile-only lowering (which waits for the parallel
-    recipe) is not ported, nor is serving the xLSTM or the encoder-decoder
-    on a mesh (ROADMAP Queue 1, item 3.8); a family that no module
-    registers raises."""
+    recipe) is not ported, nor is serving over pipeline stages; a tp mesh
+    serves the xLSTM and the encoder-decoder (their runs are
+    ``tests/test_torch_{xlstm,whisper}_mesh.py``), but at pp > 1 both
+    families raise (the reference pipelines neither); a family that no
+    module registers raises."""
     from types import SimpleNamespace
+    from repro_torch.core import stepfn
     from repro_torch.core.recipe import ParallelismConfig
     _, port = _sessions("granite_3_2b")
     assert not hasattr(port, "lower_prefill") and not hasattr(port, "lower_decode")
-    mesh = SimpleNamespace(shape={"tp": 2, "pp": 1, "data": 1, "pod": 1})
+    tp2 = SimpleNamespace(shape={"tp": 2, "pp": 1, "data": 1, "pod": 1})
+    pp2 = SimpleNamespace(shape={"tp": 1, "pp": 2, "data": 1, "pod": 1})
     for arch in ("xlstm_125m", "whisper_base"):
+        stepfn.check_plan(ParallelismConfig(tp=2), tp2, get_config(arch).reduced())
         with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
             InferenceSession.from_recipe(arch, reduced=True, device="cpu",
-                                         plan=ParallelismConfig(tp=2), mesh=mesh)
+                                         plan=ParallelismConfig(pp=2, gas=2), mesh=pp2)
     odd = dataclasses.replace(get_config("granite_3_2b").reduced(), family="rwkv")
     with pytest.raises(KeyError, match="unknown model family"):
         InferenceSession.from_recipe(odd, device="cpu")

@@ -62,14 +62,16 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (the collective counts phase 20 asserts on the card)
 SEQ, BATCH, GAS, PROMPT, NEW = 32, 4, 2, 16, 8
 LR = 1e-4
-# (case id, arch, tp, sequence parallel, vocabulary): granite at an odd
-# vocabulary leaves its (tied) table whole, as the full config's 49155 does
-ARCHS = {"granite": ("granite_3_2b", None), "granite_v259": ("granite_3_2b", 259),
-         "gpt": ("gpt_36b", None), "qwen": ("qwen15_32b", None),
-         "h2o": ("h2o_danube_3_4b", None)}
+# (case id, arch, tp, sequence parallel; each name's config overrides):
+# granite at an odd vocabulary leaves its (tied) table whole, as the full
+# config's 49155 does, and at an odd d_ff its MLPs (``layers.mlp_apply``)
+ARCHS = {"granite": ("granite_3_2b", {}), "granite_v259": ("granite_3_2b", {"vocab_size": 259}),
+         "granite_ff129": ("granite_3_2b", {"d_ff": 129}),
+         "gpt": ("gpt_36b", {}), "qwen": ("qwen15_32b", {}),
+         "h2o": ("h2o_danube_3_4b", {})}
 CASES = [(f"{a}-tp{n}-{'sp' if sp else 'nosp'}", a, n, sp)
-         for a, n in (("granite", 2), ("granite_v259", 2), ("gpt", 2), ("qwen", 2),
-                      ("h2o", 2), ("gpt", 4))
+         for a, n in (("granite", 2), ("granite_v259", 2), ("granite_ff129", 2), ("gpt", 2),
+                      ("qwen", 2), ("h2o", 2), ("gpt", 4))
          for sp in (False, True)]
 CASE_IDS = [c[0] for c in CASES]
 REMATS = ("none", "full", "dots")
@@ -117,7 +119,7 @@ def _ref_shapes(arch):
                                                jax.random.PRNGKey(0))))
 
 
-@pytest.mark.parametrize("tp_size", [2, 4, 8, 16])
+@pytest.mark.parametrize("tp_size", [2, 4, 5, 8, 16])
 @pytest.mark.parametrize("arch", PORTED)
 def test_param_rules_equal_reference(arch, tp_size):
     """Every leaf at full size: ``spec_for_path`` (the family's hints
@@ -196,9 +198,8 @@ def test_without_rules_the_regions_are_the_identity():
 # ===========================================================================
 
 def _ref_cfg(name):
-    arch, vocab = ARCHS[name]
-    jcfg = jget_config(arch).reduced()
-    return dataclasses.replace(jcfg, vocab_size=vocab) if vocab else jcfg
+    arch, kw = ARCHS[name]
+    return dataclasses.replace(jget_config(arch).reduced(), **kw)
 
 
 def _ref_session(name, compression=None):
@@ -295,9 +296,8 @@ def _rank_main(world, tmp):
 
 
 def _case_cfg(name):
-    arch, vocab = ARCHS[name]
-    cfg = get_config(arch).reduced()
-    return dataclasses.replace(cfg, vocab_size=vocab) if vocab else cfg
+    arch, kw = ARCHS[name]
+    return dataclasses.replace(get_config(arch).reduced(), **kw)
 
 
 def _sharded_state(flat, mesh, plan):
@@ -322,7 +322,7 @@ def _rank_case(name, sp, mesh, tmp):
     whole = params_from_numpy(flat)
     shapes = {p: x.shape for p, x in tree_leaves(whole)}
     local = sharding.shard_params(whole, mesh, plan)
-    back = sharding.gather_params(local, mesh, plan, cfg.vocab_size)
+    back = sharding.gather_params(local, mesh, plan, cfg.vocab_size, d_ff=cfg.d_ff)
     out["roundtrip_bitwise"] = np.array(all(
         torch.equal(a, b) for (_, a), (_, b) in zip(tree_leaves(back), tree_leaves(whole))))
     out["n_sharded"] = np.array(sum(x.shape != shapes[p] for p, x in tree_leaves(local)))
@@ -340,7 +340,7 @@ def _rank_case(name, sp, mesh, tmp):
         for key, local in (("params", sess.state["params"]), ("m", sess.state["opt"]["m"]),
                            ("ef", sess.state.get("ef"))):
             if local is not None:
-                tree = sharding.gather_params(local, mesh, plan, cfg.vocab_size)
+                tree = sharding.gather_params(local, mesh, plan, cfg.vocab_size, d_ff=cfg.d_ff)
                 for path, x in tree_leaves(tree):
                     out[f"{tag}/{key}/" + "/".join(map(str, path))] = x.detach().numpy()
     if not sp:
@@ -558,7 +558,8 @@ def test_tp_generate_matches_reference(worlds, case):
     np.testing.assert_array_equal(got["to_inference_tokens"], want)
     cfg = _case_cfg(_name(case))
     assert json.loads(str(got["generate_counts"])) == chip_smoke.expected_serving_collectives(
-        cfg.n_layers, NEW - 1, vocab_parallel=cfg.vocab_size % n == 0, sp=case.endswith("-sp"))
+        cfg.n_layers, NEW - 1, vocab_parallel=cfg.vocab_size % n == 0, sp=case.endswith("-sp"),
+        whole_mlp=cfg.d_ff % n != 0)
     for r in range(1, n):
         np.testing.assert_array_equal(_rank(worlds, case, r)[0]["tokens"], want)
 

@@ -258,18 +258,25 @@ def test_planning_models_equal_reference_at_full_size():
 # ===========================================================================
 
 def test_refusals():
-    """A mesh of tp, dp or pp > 1 and pp > 1 without one raise (the
-    reference's pipeline stacks only ``blocks`` and never runs an encoder:
-    its step fails on this family, looking up a decoder-only position
-    table); the paged pool; a cache init without frames."""
+    """pp > 1, on a mesh or not, raises (the reference's pipeline stacks
+    only ``blocks`` and never runs an encoder: its step fails on this
+    family, looking up a decoder-only position table), and so does a tp
+    that splits a head; the paged pool; a cache init without frames.  tp,
+    dp and tp x dp meshes pass (their runs are
+    ``tests/test_torch_whisper_mesh.py``)."""
     jcfg, cfg, jp, flat = _params()
-    for plan, shape in ((dict(tp=2), dict(tp=2)), (dict(dp=2), dict(data=2)),
-                        (dict(pp=2, gas=2), dict(pp=2))):
-        mesh = SimpleNamespace(shape=dict(dict(tp=1, pp=1, data=1, pod=1), **shape))
+
+    def mesh(**shape):
+        return SimpleNamespace(shape=dict(dict(tp=1, pp=1, data=1, pod=1), **shape))
+
+    for plan, shape in ((dict(tp=2), dict(tp=2)), (dict(dp=2, zero_stage=3), dict(data=2)),
+                        (dict(tp=2, dp=2), dict(tp=2, data=2))):
+        stepfn.check_plan(ParallelismConfig(**plan), mesh(**shape), cfg)
+    with pytest.raises(ValueError, match="tp=3 does not divide n_heads=4"):
+        stepfn.check_plan(ParallelismConfig(tp=3), mesh(tp=3), cfg)
+    for m in (mesh(pp=2), None):
         with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-            stepfn.check_plan(ParallelismConfig(**plan), mesh, cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        stepfn.check_plan(ParallelismConfig(pp=2, gas=2), None, cfg)
+            stepfn.check_plan(ParallelismConfig(pp=2, gas=2), m, cfg)
     jstate = jstepfn.init_state(jcfg, JPlan(pp=2, gas=2), jax.random.PRNGKey(0))
     assert "blocks" not in jstate["params"]
     with pytest.raises(KeyError, match="pos_embed"):

@@ -332,19 +332,25 @@ def test_sharding_hints_are_the_references():
 # refusals
 # ===========================================================================
 
+def _mesh(**shape):
+    return SimpleNamespace(shape=dict(dict(tp=1, pp=1, data=1, pod=1), **shape))
+
+
 def test_refusals():
-    """A mesh of tp, dp or pp > 1, and pp > 1 without one (the reference
-    cannot pipeline the family: its ``init_state`` stacks only a ``blocks``
-    entry, which the xLSTM does not have, and its step then fails); packed
-    sequences; the paged pool."""
+    """pp > 1, on a mesh or not (the reference cannot pipeline the family:
+    its ``init_state`` stacks only a ``blocks`` entry, which the xLSTM does
+    not have, and its step then fails); a tp that splits a head; packed
+    sequences; the paged pool.  tp, dp and tp x dp meshes pass (the
+    mesh's runs are ``tests/test_torch_xlstm_mesh.py``)."""
     _, cfg, _, flat = _params()
-    for plan, shape in ((dict(tp=2), dict(tp=2)), (dict(dp=2), dict(data=2)),
-                        (dict(pp=2, gas=2), dict(pp=2))):
-        mesh = SimpleNamespace(shape=dict(dict(tp=1, pp=1, data=1, pod=1), **shape))
+    for plan, shape in ((dict(tp=2), dict(tp=2)), (dict(dp=2, zero_stage=3), dict(data=2)),
+                        (dict(tp=2, dp=2), dict(tp=2, data=2))):
+        stepfn.check_plan(ParallelismConfig(**plan), _mesh(**shape), cfg)
+    with pytest.raises(ValueError, match="tp=3 does not divide n_heads=4"):
+        stepfn.check_plan(ParallelismConfig(tp=3), _mesh(tp=3), cfg)
+    for mesh in (_mesh(pp=2), None):
         with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-            stepfn.check_plan(ParallelismConfig(**plan), mesh, cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        stepfn.check_plan(ParallelismConfig(pp=2, gas=2), None, cfg)
+            stepfn.check_plan(ParallelismConfig(pp=2, gas=2), mesh, cfg)
     jcfg = jget_config(ARCH).reduced()
     jstate = jstepfn.init_state(jcfg, JPlan(pp=2, gas=2), jax.random.PRNGKey(0))
     assert "blocks" not in jstate["params"]
