@@ -143,10 +143,15 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    training cells of 9 and 17, beside their step's measured device time
    and peak memory, with the ratios (no fit, no band: finite, positive,
    feasible);
-20. (run after 19) tensor parallelism at tp = 2 as two processes on the
-   one card (``torch.multiprocessing`` spawn, gloo over localhost, both on
-   ``cuda:0``; NCCL takes one rank per card), each result held to tp = 1
-   on the same card and seed, computed first in this process: granite-3-2b
+20. (run after 19; phases 20-22, 25 and 26 run their ranks in one world
+   of two processes, and 21, 22 and 29 theirs in one world of four, each
+   phase in turn: a world costs ~12 s to start.  This process computes
+   20-22's references first, then runs the two worlds, then checks each
+   phase; 25, 26 and 29 check theirs in their turn) tensor parallelism at
+   tp = 2 as two processes on the one card (``torch.multiprocessing``
+   spawn, gloo over localhost, both on ``cuda:0``; NCCL takes one rank per
+   card), each result held to tp = 1 on the same card and seed, computed
+   first in this process: granite-3-2b
    (GQA 32/8 heads, 16/4 a rank; its 49155-token table left whole) and
    gpt-3.6b (MHA; a vocab-parallel tied table) at published width and depth
    through ``InferenceSession.generate`` (bf16: the first token equal, the
@@ -162,9 +167,8 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    ``Exclusive_Process``; times are labelled as two time-sliced ranks;
 21. (run after 20) sharded data parallelism at dp = 2 as two processes on
    the one card, as 20 runs them: gpt-3.6b at published width, 1 of 30
-   layers and a 4096-token vocabulary, 4 x 1024 tokens in 2 micro-batches,
-   remat full, bf16 over f32 masters, one counted step after a first at
-   ZeRO 0, 1, 2 and 3, then
+   layers, 4 x 1024 tokens in 2 micro-batches, remat full, bf16 over f32
+   masters, one counted step after a first at ZeRO 0, 1, 2 and 3, then
    ``overlap_zero`` at stage 2 and ``gather_params_once`` at stage 3 (the
    GAS path, consensus off): each rank's peak memory beside
    ``core.memory.per_device_bytes``, the collectives by kind and group
@@ -182,8 +186,7 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    device (the same loss);
 22. (run after 21) pipeline parallelism at pp = 2 as two processes on the
    one card, as 20 and 21 run them: gpt-3.6b at published width, 4 of 30
-   layers (1 a chunk at vpp 2) and a 4096-token vocabulary, 8 x 1024
-   tokens in 4 micro-batches (mbs
+   layers (1 a chunk at vpp 2), 8 x 1024 tokens in 4 micro-batches (mbs
    2), remat full, bf16 over f32 masters, one counted step (at vpp 1 after
    a first), at vpp 1, vpp 2 and vpp 2 under remat "stage", then vpp 1 at
    gas 8 (16 x 1024): each rank's K1-K4 launches exact (K1 2 a layer of its stage a
@@ -195,10 +198,10 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    stash of its peak at gas 4, times labelled as time-sliced ranks; the
    per-token losses after the first step against pp = 1's (computed first
    in this process) within 2x bf16's own error; the f32 identities at 4
-   layers (vpp 1 and 2 against one device at
+   layers and a 4096-token vocabulary (vpp 1 and 2 against one device at
    the same plan, the stages in one process, and against pp = 1: loss 1e-5
-   relative, params 1e-5 but for Adam's noise floor) with the leaves every stage holds equal in bits
-   on every rank; pp 2 x dp 2 as four ranks at ZeRO-1 (the f32 identity and
+   relative, params 1e-5 but for Adam's noise floor) with the leaves every
+   stage holds equal in bits on every rank; pp 2 x dp 2 as four ranks at ZeRO-1 (the f32 identity and
    a bf16 step, counted).  No checkpoint on the card (the run's disk writes
    are spent): the pipeline's checkpoint and re-plan are held on the CPU;
 23. (run after 22) the MoE family at published width, bf16:
@@ -228,9 +231,9 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    ``per_device_bytes``; the f32 unembed's device time against the step's);
    K1-K5 at its shapes (a group of 7) timed beside their bounds, plain
    versions and SDPA; the f32 identities of 6 and 10 at 2 layers;
-25. (run after 24) the MoE family under pipeline parallelism: olmoe at
-   published width, 4 of 16 layers, pp = 2 as two processes on the one
-   card (as 22), 4 x 1024 tokens in 4 micro-batches, remat full, vpp 1 and
+25. (its ranks in the world of two, after 22's; checked after 24) the MoE
+   family under pipeline parallelism: olmoe at published width, 4 of 16
+   layers, pp = 2 as two processes on the one card (as 22), 4 x 1024 tokens in 4 micro-batches, remat full, vpp 1 and
    2: in f32 the mesh's loss, xent and load-balance loss equal the
    one-device pipeline's bit for bit; in bf16 one counted step (K1-K4
    launches and the messages over the pp line exact, in flight, peak
@@ -288,12 +291,16 @@ From the root of a checkout, on a machine with one Hopper card (sm_90):
    GQA group of 5; its d_ff of 5504 whole on every rank) at published
    width, ``generate`` and ``prefill`` (2 x 1280) at full depth, the f32
    tokens and one f32 step at 4 of 32 layers (a global layer and a
-   windowed one); xlstm-125m and whisper-base at tp 2 x dp 2 in one world
-   of four at full depth (``generate``, ``prefill``, the f32 tokens and one
-   f32 step at ZeRO-3).  The f32 tokens exact, the f32 step's loss 1e-5
-   relative, the bf16 prefill logits and the first token's logits within
-   2x the bf16 floor and the first token equal wherever one device's
-   top-1 margin exceeds that; K1-K5's launches exact at the local heads;
+   windowed one), and so that the full depth is held in f32 too, the
+   ``prefill`` of the same weights in f32 at full depth within 1e-4 of the
+   largest logit plus 2x what one f32 rounding of one device's embedding
+   (either way) moves its logits; xlstm-125m and whisper-base at tp 2 x dp 2 in the
+   world of four at full depth (``generate``, ``prefill``, the f32 tokens
+   and one f32 step at ZeRO-3).  The f32 tokens exact, the f32 step's loss
+   1e-5 relative, the bf16 prefill logits and the first token's logits
+   within 2x the bf16 floor and the first token equal wherever one
+   device's top-1 margin exceeds that; K1-K5's launches exact at the local
+   heads;
    collectives by group and bytes beside the cost model's ``t_tp`` and
    ``t_dp``, peak memory a rank beside ``per_device_bytes`` (reported);
 30. prints each phase's seconds, a ``{"planning": {...}}`` line, a
@@ -387,7 +394,6 @@ TRAIN_VLM = dict(arch="internvl2_1b", seq_len=1024, global_batch=8, gas=2, steps
 # tokens in 4 micro-batches, at vpp 1 and 2, remat full
 MOE_PP = dict(ranks=2, arch="olmoe_1b_7b", n_layers=4, seq_len=1024, global_batch=4, gas=4,
               vpps=(1, 2))
-MOE_PP_DIR = ROOT / "build" / "chip_smoke_moe_pp"
 MOE_PP_LABEL = "two ranks time-sliced on one card over gloo"
 # phase 26: the hybrid family.  hymba-1.5b at full depth (32 layers, d 1600,
 # 25/5 heads of 64, 25 SSM heads of 128 channels, state 16; a window of 1024
@@ -480,15 +486,14 @@ TP_LABEL = "two ranks time-sliced on one card over gloo"
 # over gloo (and tp = 2 x dp = 2 as four): gpt-3.6b at published width, 1 of
 # its 30 layers (4 until phases 24 and 25, 2 until phases 27 and 28 took the
 # time), global batch 4 x 1024 in 2 micro-batches, remat full, bf16 over f32
-# masters, at a 4096-token vocabulary (the whole table until phase 29 took
-# the time); the dp = 2 f32 identities and the checkpoint at 1 layer and a
+# masters; the dp = 2 f32 identities and the checkpoint at 1 layer and a
 # 4096-token vocabulary (every byte of state crosses gloo through the host,
 # so their time goes with the table's size; the checkpoint writes 1.5 GB: the
 # 45 GiB the card's host lets a run write holds no more beside phases 11-13
 # and 20); tp = 2 x dp = 2's f32 identity at 2 layers and the whole
 # vocabulary (at 1 layer and 4096 tokens one parameter parted from one
 # device by 1.11e-5, past the check's 1e-5)
-DP = dict(ranks=2, arch="gpt_36b", n_layers=1, vocab=4096, seq_len=1024, global_batch=4, gas=2,
+DP = dict(ranks=2, arch="gpt_36b", n_layers=1, seq_len=1024, global_batch=4, gas=2,
           f32_layers=1, f32_vocab=4096, tp_dp_f32_layers=2,
           ckpt=dict(n_layers=1, vocab=4096, global_batch=4, steps=3, ckpt_every=2, fail_at=2))
 DP_RUNS = ((0, {}), (1, {}), (2, {}), (3, {}), (2, {"overlap_zero": True}),
@@ -501,18 +506,21 @@ DP_DIR = ROOT / "build" / "chip_smoke_dp"
 DP_LABEL = "ranks time-sliced on one card over gloo: they say nothing of NVLink"
 # phase 22: gpt-3.6b at published width, 4 of its 30 layers (1 a chunk at pp
 # 2 x vpp 2; 8 until phase 26 took the time), 8 x 1024 tokens in 4
-# micro-batches, bf16 over f32 masters, and the f32 identities at 4 layers,
-# all at a 4096-token vocabulary (the whole table until phase 29 took the
-# time: every byte of state crosses gloo through the host); the memory check
-# at gas 8 (16 x 1024)
-PP = dict(ranks=2, arch="gpt_36b", n_layers=4, f32_layers=4, vocab=4096, seq_len=1024,
+# micro-batches, bf16 over f32 masters; the f32 identities at 4 layers and
+# a 4096-token vocabulary (every byte of their state crosses gloo through
+# the host, so their time goes with the table's size); the memory check at
+# gas 8 (16 x 1024)
+PP = dict(ranks=2, arch="gpt_36b", n_layers=4, f32_layers=4, f32_vocab=4096, seq_len=1024,
           global_batch=8, gas=4, big_gas=8, eval_step=5)
 PP_RUNS = (("pp2", {}), ("pp2-vpp2", {"vpp": 2}),
            ("pp2-vpp2-stage", {"vpp": 2, "remat_policy": "stage"}),
            ("pp2-gas8", {"gas": 8, "global_batch": 16}))
 PP_F32 = (("vpp1", {}), ("vpp2", {"vpp": 2}))
-PP_DIR = ROOT / "build" / "chip_smoke_pp"
 PP_LABEL = "ranks time-sliced on one card over gloo: no bubble or NVLink figure"
+# the spawned worlds: each world of two or four ranks that phases 20-22, 25,
+# 26 and 29 run is one spawn of that size, the phases in turn in it (a
+# world costs ~12 s to start); hymba's world of five is phase 29's own
+WORLDS_DIR = ROOT / "build" / "chip_smoke_worlds"
 
 
 class SmokeFailure(Exception):
@@ -3145,13 +3153,13 @@ def _timed_step(torch, sess):
             ev[0].elapsed_time(ev[1]))
 
 
-def phase_tp(torch, np, get_config, InferenceSession, TrainSession, stepfn, ParallelismConfig,
-             DataConfig, tree_map, smi):
-    """Tensor parallelism at tp = 2 as two processes on the one card over
-    gloo, each result held to tp = 1 on the same card and seed: the tp = 1
-    references first (this process, kept on the host, the card freed), then
-    the ranks (``_tp_rank``)."""
-    import torch.multiprocessing as mp
+def phase_tp_refs(torch, np, get_config, InferenceSession, TrainSession, stepfn,
+                  ParallelismConfig, DataConfig, tree_map, smi):
+    """Phase 20's tp = 1 references on the card (this process, kept on the
+    host, the card freed; the f32 step's state to ``TP_DIR`` for the ranks),
+    before the world of two runs its ranks (``_tp_rank_runs``), whose
+    results ``_tp_check`` holds to these.  → (the references, the card's
+    compute mode)."""
     mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0]
@@ -3212,20 +3220,7 @@ def phase_tp(torch, np, get_config, InferenceSession, TrainSession, stepfn, Para
     log(f"[tp] tp = 1 references on the card in {time.perf_counter() - t0:.1f} s: "
         f"train ({_describe(cfg, full)}) f32 loss {ref['train_f32']['metrics']['loss']:.6f}, "
         f"bf16 loss {ref['train_bf16']['metrics']['loss']:.6f}")
-    torch.save(ref, TP_DIR / "ref.pt")
-
-    # the ranks: two processes on cuda:0, gloo over localhost
-    import socket
-    with socket.socket() as sk:
-        sk.bind(("localhost", 0))
-        port = sk.getsockname()[1]
-    t0 = time.perf_counter()
-    mp.start_processes(_tp_rank, args=(TP["ranks"], port), nprocs=TP["ranks"], join=True,
-                       start_method="spawn")
-    ranks_s = time.perf_counter() - t0
-    outs = [torch.load(TP_DIR / f"rank{r}.pt", weights_only=False) for r in range(TP["ranks"])]
-    shutil.rmtree(TP_DIR)
-    return _tp_check(torch, get_config, ref, outs, ranks_s, mode, smi)
+    return ref, mode
 
 
 @contextlib.contextmanager
@@ -3249,15 +3244,8 @@ def _rank(rank: int, world: int, port: int):
         dist.destroy_process_group()
 
 
-def _tp_rank(rank: int, world: int, port: int) -> None:
-    """One rank of phase 20 (a spawned process): every tp = 2 run, its
-    results and checks to ``TP_DIR/rank<r>.pt``."""
-    import numpy as np
-    with _rank(rank, world, port) as torch:
-        torch.save(_tp_rank_runs(torch, np, world), TP_DIR / f"rank{rank}.pt")
-
-
 def _tp_rank_runs(torch, np, world):
+    """One rank of phase 20: every tp = 2 run, its results and checks."""
     import collections
     from repro_torch.configs import get_config
     from repro_torch.core import sharding, stepfn, tp
@@ -3517,8 +3505,7 @@ def _digest(torch, tree):
 
 def _whole_params(sess):
     from repro_torch.core import sharding
-    return sharding.gather_params(sess.state["params"], sess.mesh, sess.plan,
-                                  sess.cfg.vocab_size, sess.cfg.d_model)
+    return sharding.gather_params(sess.state["params"], sess.mesh, sess.plan, sess.cfg)
 
 
 def _dp_tag(z, kw, vote=False):
@@ -3572,19 +3559,16 @@ def _held_to(np, got, ref, lr):
     return out
 
 
-def phase_dp(torch, get_config, store, smi):
-    """ZeRO 0-3, ``overlap_zero``, ``gather_params_once``, the vote over real
-    replicas and the checkpoint of a sharded state at dp = 2 as two
-    processes on the one card over gloo (``_dp_rank``), and tp = 2 x dp = 2
-    as four; the ranks hold their f32 runs to one device themselves (rank 0
-    computes the one-device run first); this process then restores the
-    ranks' ZeRO-3 checkpoint on one device."""
-    import torch.multiprocessing as mp
+def phase_dp_ref(torch, get_config):
+    """Phase 21's dp = 1 reference on the card (this process): the second
+    bf16 step of the sweep's config, as the ranks count theirs.  The ranks
+    (``_dp_rank_runs``: dp = 2 in the world of two, tp = 2 x dp = 2 in the
+    world of four) hold their f32 runs to one device themselves."""
     mods = _dp_mods()
     if DP_DIR.exists():
         shutil.rmtree(DP_DIR)
     DP_DIR.mkdir(parents=True)
-    cfg = _dp_cfg(get_config, DP["n_layers"], vocab=DP["vocab"])
+    cfg = _dp_cfg(get_config, DP["n_layers"])
     full = get_config(DP["arch"]).n_layers
     ref = {}
     sess = _dp_session(mods, cfg, vote=False)
@@ -3596,21 +3580,14 @@ def phase_dp(torch, get_config, store, smi):
     torch.cuda.empty_cache()
     log(f"[dp] dp = 1 reference ({_describe(cfg, full)}): the second step's loss "
         f"{m['loss']:.6f}, {host_s * 1e3:.1f} ms host, {ev_ms:.1f} ms CUDA events")
-    outs = {}
-    t0 = time.perf_counter()
-    for world in (DP["ranks"], 4):
-        import socket
-        with socket.socket() as sk:
-            sk.bind(("localhost", 0))
-            port = sk.getsockname()[1]
-        tw = time.perf_counter()
-        mp.start_processes(_dp_rank, args=(world, port), nprocs=world, join=True,
-                           start_method="spawn")
-        outs[world] = [torch.load(DP_DIR / f"rank{r}_of{world}.pt", weights_only=False)
-                       for r in range(world)]
-        outs[world][0]["ranks_s"] = time.perf_counter() - tw
-    ranks_s = time.perf_counter() - t0
-    # the ZeRO-3 dp = 2 checkpoint, restored on one device
+    return ref
+
+
+def phase_dp_checks(torch, get_config, store, smi, ref, outs, ranks_s):
+    """Phase 21 after the worlds: the ranks' ZeRO-3 checkpoint restored on
+    one device, then ``_dp_check`` on ``outs`` ({world: each rank's
+    results})."""
+    mods = _dp_mods()
     ck = DP["ckpt"]
     ccfg = _dp_cfg(get_config, ck["n_layers"], "float32", ck["vocab"])
     sess = _dp_session(mods, ccfg, vote=True, replicas=DP["ranks"],
@@ -3625,15 +3602,9 @@ def phase_dp(torch, get_config, store, smi):
                      dict(step=step, next_step=extra["next_step"], xent=dp1_xent))
 
 
-def _dp_rank(rank: int, world: int, port: int) -> None:
-    """One rank of phase 21 (a spawned process): its runs, results and
-    checks to ``DP_DIR/rank<r>_of<world>.pt``."""
-    import numpy as np
-    with _rank(rank, world, port) as torch:
-        torch.save(_dp_rank_runs(torch, np, world), DP_DIR / f"rank{rank}_of{world}.pt")
-
-
 def _dp_rank_runs(torch, np, world):
+    """One rank of phase 21 at dp = 2 (``world`` 2) or tp = 2 x dp = 2 (4):
+    its runs, results and checks."""
     import collections
     import torch.distributed as dist
     from repro_torch.checkpoint.elastic import host_snapshot
@@ -3728,7 +3699,7 @@ def _dp_rank_runs(torch, np, world):
     # bf16 at full width: the ZeRO sweep on the GAS path (consensus off, so
     # ZeRO-3 gathers as the blocks run and overlap_zero applies); then the
     # vote (the reference's default) at every stage
-    cfg = _dp_cfg(get_config, DP["n_layers"], vocab=DP["vocab"])
+    cfg = _dp_cfg(get_config, DP["n_layers"])
     runs = DP_SWEEP if world == DP["ranks"] else ((1, {}, True),)
     for z, kw, vote in runs:
         tag = _dp_tag(z, kw, vote and world == DP["ranks"])
@@ -3828,7 +3799,7 @@ def _dp_check(get_config, ref, outs, ranks_s, smi, dp1):
     from repro_torch.core.memory import per_device_bytes
     two, four = outs[DP["ranks"]], outs[4]
     out = two[0]
-    cfg = _dp_cfg(get_config, DP["n_layers"], vocab=DP["vocab"])
+    cfg = _dp_cfg(get_config, DP["n_layers"])
     L, G = cfg.n_layers, DP["gas"]
     n = cfg.n_params()
     log(f"[dp] {DP['ranks']} ranks ({out['mesh']}) then 4 ({four[0]['mesh']}) ran in "
@@ -3971,9 +3942,10 @@ def _dp_check(get_config, ref, outs, ranks_s, smi, dp1):
 # 22: pipeline parallelism as ranks on the one card
 # ---------------------------------------------------------------------------
 
-def _pp_cfg(get_config, n_layers, dtype=None):
-    cfg = dataclasses.replace(get_config(PP["arch"]), n_layers=n_layers,
-                              vocab_size=PP["vocab"])
+def _pp_cfg(get_config, n_layers, dtype=None, vocab=None):
+    cfg = dataclasses.replace(get_config(PP["arch"]), n_layers=n_layers)
+    if vocab:
+        cfg = dataclasses.replace(cfg, vocab_size=vocab)
     return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
 
 
@@ -4000,17 +3972,13 @@ def _token_nll(torch, cfg, params, batch):
         return (torch.logsumexp(logits, -1) - layers.gold_logit(logits, batch["labels"])).cpu()
 
 
-def phase_pp(torch, get_config, smi):
-    """Pipeline parallelism at pp = 2 as processes on the one card over gloo
-    (``_pp_rank``), and pp 2 x dp 2 as four; the ranks hold their f32 runs
-    to one device themselves (rank 0 computes the one-device runs first).
-    This process first trains pp = 1 one bf16 step and takes its per-token
-    losses after it, in bf16 and on the f32 masters (the floor)."""
-    import torch.multiprocessing as mp
+def phase_pp_ref(torch, get_config):
+    """Phase 22's pp = 1 reference (this process): one bf16 step, then its
+    per-token losses after it, in bf16 and on the f32 masters (the floor).
+    The ranks (``_pp_rank_runs``: pp = 2 in the world of two, pp 2 x dp 2 in
+    the world of four) hold their f32 runs to one device themselves (rank 0
+    computes the one-device runs first)."""
     mods = _dp_mods()
-    if PP_DIR.exists():
-        shutil.rmtree(PP_DIR)
-    PP_DIR.mkdir(parents=True)
     cfg, full = _pp_cfg(get_config, PP["n_layers"]), get_config(PP["arch"]).n_layers
     sess = _pp_session(mods, cfg, pp=1)
     m = {k: float(v) for k, v in sess.step().items()}
@@ -4022,30 +3990,7 @@ def phase_pp(torch, get_config, smi):
     torch.cuda.empty_cache()
     log(f"[pp] pp = 1 reference ({_describe(cfg, full)}): the first step's loss "
         f"{ref['loss']:.6f}; per-token losses after it on batch {PP['eval_step']}")
-    outs = {}
-    t0 = time.perf_counter()
-    for world in (PP["ranks"], 4):
-        import socket
-        with socket.socket() as sk:
-            sk.bind(("localhost", 0))
-            port = sk.getsockname()[1]
-        tw = time.perf_counter()
-        mp.start_processes(_pp_rank, args=(world, port), nprocs=world, join=True,
-                           start_method="spawn")
-        outs[world] = [torch.load(PP_DIR / f"rank{r}_of{world}.pt", weights_only=False)
-                       for r in range(world)]
-        outs[world][0]["ranks_s"] = time.perf_counter() - tw
-    ranks_s = time.perf_counter() - t0
-    shutil.rmtree(PP_DIR)
-    return _pp_check(get_config, ref, outs, ranks_s, smi)
-
-
-def _pp_rank(rank: int, world: int, port: int) -> None:
-    """One rank of phase 22 (a spawned process): its runs and results to
-    ``PP_DIR/rank<r>_of<world>.pt``."""
-    import numpy as np
-    with _rank(rank, world, port) as torch:
-        torch.save(_pp_rank_runs(torch, np, world), PP_DIR / f"rank{rank}_of{world}.pt")
+    return ref
 
 
 def _own_digest(torch, sess):
@@ -4076,6 +4021,7 @@ def _pass_peaks(torch, pipeline):
 
 
 def _pp_rank_runs(torch, np, world):
+    """One rank of phase 22 at pp = 2 (``world`` 2) or pp 2 x dp 2 (4)."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.core import pipeline, tp
@@ -4098,7 +4044,7 @@ def _pp_rank_runs(torch, np, world):
 
     # the f32 identities at 4 layers: one device at the same plan (the
     # stages in one process) and at pp 1, rank 0 alone; then the mesh
-    f32 = _pp_cfg(get_config, PP["f32_layers"], "float32")
+    f32 = _pp_cfg(get_config, PP["f32_layers"], "float32", PP["f32_vocab"])
     runs = PP_F32 if world == PP["ranks"] else (("dp2-z1", {"zero_stage": 1}),)
     refs = {}
     if rank == 0:
@@ -4191,7 +4137,7 @@ def _pp_check(get_config, ref, outs, ranks_s, smi):
                     continue
                 h = r[key]
                 rel = abs(r["loss"] - h["ref_loss"]) / abs(h["ref_loss"])
-                log(f"[pp] f32 {PP['f32_layers']} layers, vocab {PP['vocab']}, {tag} over "
+                log(f"[pp] f32 {PP['f32_layers']} layers, vocab {PP['f32_vocab']}, {tag} over "
                     f"{world} ranks "
                     f"{'vs one device, the same plan' if key == 'vs_one' else 'vs pp 1'}: "
                     f"loss {r['loss']:.7f} vs {h['ref_loss']:.7f} (rel {rel:.3g}); params max "
@@ -4548,19 +4494,51 @@ def _rank_main(rank: int, world: int, port: int, runs: str, out_dir: str) -> Non
         torch.save(globals()[runs](torch), Path(out_dir) / f"rank{rank}.pt")
 
 
-def phase_family_pp(torch, get_config, smi):
-    """Phases 25 and 26's pipelines in one spawn (a world costs ~12 s to
-    start): olmoe then hymba at pp = 2 as two processes on the one card
-    over gloo (``_family_pp_rank_runs``), as phase 22 runs them; rank 0
-    computes each one-device run itself first.  → (olmoe's and hymba's
-    counted launches)."""
-    outs, ranks_s = _spawn_ranks(torch, "_family_pp_rank_runs", MOE_PP["ranks"], MOE_PP_DIR)
-    return (_moe_pp_check(get_config, [o["moe"] for o in outs], ranks_s, smi),
-            _hybrid_pp_check(get_config, [o["hybrid"] for o in outs], ranks_s, smi))
+def run_world(torch, runs: str, ranks: int):
+    """The world ``runs`` names (``_world_of_two`` or ``_world_of_four``)
+    in ``ranks`` processes on the one card → ({phase: each rank's results},
+    {phase: rank 0's host seconds}), the seconds logged."""
+    outs, seconds = _spawn_ranks(torch, runs, ranks, WORLDS_DIR)
+    by_phase = outs[0].pop("seconds")
+    log(f"[worlds] {ranks} ranks ran in {seconds:.1f} s ({FAMILY_TP_LABEL}); rank 0's host "
+        f"seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in by_phase.items())
+        + f"; starting and joining the processes {seconds - sum(by_phase.values()):.1f}")
+    return {k: [o[k] for o in outs] for k in by_phase}, by_phase
 
 
-def _family_pp_rank_runs(torch):
-    return {"moe": _moe_pp_rank_runs(torch), "hybrid": _hybrid_pp_rank_runs(torch)}
+def _world_of_two(torch):
+    """Each rank of the world of two: phase 20's tp = 2, 21's dp = 2, 22's
+    pp = 2, then 25's and 26's pipelines, in turn."""
+    import numpy as np
+    return _in_turn(torch, (("20", lambda: _tp_rank_runs(torch, np, 2)),
+                            ("21", lambda: _dp_rank_runs(torch, np, 2)),
+                            ("22", lambda: _pp_rank_runs(torch, np, 2)),
+                            ("25", lambda: _moe_pp_rank_runs(torch)),
+                            ("26", lambda: _hybrid_pp_rank_runs(torch))))
+
+
+def _world_of_four(torch):
+    """Each rank of the world of four: phase 21's tp = 2 x dp = 2, 22's pp 2
+    x dp 2, then 29's xlstm and whisper at tp 2 x dp 2, in turn."""
+    import numpy as np
+    return _in_turn(torch, (("21", lambda: _dp_rank_runs(torch, np, 4)),
+                            ("22", lambda: _pp_rank_runs(torch, np, 4)),
+                            ("29", lambda: _family_tp_runs(torch, FAMILY_TP["tp_dp"]))))
+
+
+def _in_turn(torch, phases):
+    """Each phase's runs, the card's cache emptied after each → {phase: its
+    results, "seconds": {phase: host seconds}}."""
+    import gc
+    out = {"seconds": {}}
+    for name, fn in phases:
+        t0 = time.perf_counter()
+        out[name] = fn()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out["seconds"][name] = time.perf_counter() - t0
+    return out
 
 
 def _moe_pp_rank_runs(torch):
@@ -5331,12 +5309,13 @@ def _family_train(mods, cfg, spec, mesh=None):
         data_cfg=mods.DataConfig(seq_len=t["seq_len"], global_batch=t["global_batch"]))
 
 
-def phase_family_tp(torch, np, get_config, InferenceSession, tree_map, smi):
+def phase_family_tp(torch, np, get_config, InferenceSession, tree_map, smi, tp_dp, tp_dp_s):
     """Phase 29: the one-device references on the card (this process, kept
-    on the host), then each world's ranks (``_family_tp_runs``: hymba at tp
-    5 in a world of five, the xLSTM and Whisper at tp 2 x dp 2 in one of
-    four), each result held to the references.  → (the ``{"families":
-    ...}`` summary, rank 0's counted launches)."""
+    on the host), then hymba's world of five (``_family_tp_runs``), and
+    each result held to the references: hymba's, and ``tp_dp``, each rank's
+    results of the xLSTM and Whisper at tp 2 x dp 2 from the world of four
+    (``tp_dp_s`` its host seconds there).  → (the ``{"families": ...}``
+    summary, rank 0's counted launches)."""
     mods = _dp_mods()
     ref = {}
     t0 = time.perf_counter()
@@ -5360,6 +5339,17 @@ def phase_family_tp(torch, np, get_config, InferenceSession, tree_map, smi):
                                        device=device)
                 ref[f"{arch}/prefill_f32"] = s32.prefill(batch, last_only=False).cpu()
                 ref[f"{arch}/first_f32"] = s32.prefill(dict(kw, tokens=prompts)).cpu()
+                if spec["f32_layers"] is not None:
+                    # the f32 floor at full depth: the most the same prefill
+                    # moves with the embedding scaled by 1 ± 2^-23 (one f32
+                    # rounding either way)
+                    embed, floor = params32["embed"].clone(), 0.0
+                    for e in (2.0 ** -23, -2.0 ** -23):
+                        params32["embed"].copy_(embed * (1 + e))
+                        floor = max(floor, float((s32.prefill(batch, last_only=False).cpu()
+                                                  - ref[f"{arch}/prefill_f32"]).abs().max()))
+                    ref[f"{arch}/prefill_f32_floor"] = floor
+                    del embed
                 del s32, params32
                 torch.cuda.empty_cache()
                 sess = InferenceSession.from_recipe(f32, seed=1)
@@ -5375,8 +5365,11 @@ def phase_family_tp(torch, np, get_config, InferenceSession, tree_map, smi):
     log(f"[families] one-device references on the card in {ref_s:.1f} s")
     summary, runs, failed = {"label": FAMILY_TP_LABEL, "card": smi}, [], []
     for key, spec in FAMILY_TP.items():
-        outs, ranks_s = _spawn_ranks(torch, f"_family_tp_runs_{key}", spec["ranks"],
-                                     ROOT / "build" / f"chip_smoke_family_{key}")
+        if key == "tp_dp":
+            outs, ranks_s = tp_dp, tp_dp_s
+        else:
+            outs, ranks_s = _spawn_ranks(torch, f"_family_tp_runs_{key}", spec["ranks"],
+                                         WORLDS_DIR)
         log(f"[families] {key}: {spec['ranks']} ranks ({outs[0]['mesh']}) ran in "
             f"{ranks_s:.1f} s ({FAMILY_TP_LABEL})")
         summary[key] = {"ranks_s": ranks_s}
@@ -5394,10 +5387,6 @@ def _family_tp_runs_hybrid(torch):
     return _family_tp_runs(torch, FAMILY_TP["hybrid"])
 
 
-def _family_tp_runs_tp_dp(torch):
-    return _family_tp_runs(torch, FAMILY_TP["tp_dp"])
-
-
 def _family_tp_runs(torch, spec):
     """One rank of phase 29: every family of ``spec`` served and trained on
     its mesh, with the launches, the heads K1-K5 ran at and the collectives
@@ -5407,6 +5396,7 @@ def _family_tp_runs(torch, spec):
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.core import tp
+    from repro_torch.core.tree import tree_map
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import describe, make_recipe_mesh
     from repro_torch.session import InferenceSession
@@ -5444,7 +5434,20 @@ def _family_tp_runs(torch, spec):
             first = sess.prefill(dict(kw, tokens=prompts))      # every rank takes part
             if rank == 0:
                 out[f"{arch}/prefill"], out[f"{arch}/first"] = lg.cpu(), first.cpu()
-            del sess, lg, first
+            del lg, first
+            if spec["f32_layers"] is not None:
+                # the f32 tokens run at a cut depth: the same weights in f32
+                # prefill at full depth on the mesh, held to one device's
+                s32 = InferenceSession(dataclasses.replace(cfg, dtype="float32"),
+                                       tree_map(lambda x: x.float(), sess.params),
+                                       device=sess.device, plan=sess.plan, mesh=mesh)
+                del sess
+                lg = s32.prefill(batch, last_only=False)
+                if rank == 0:
+                    out[f"{arch}/prefill_f32"] = lg.cpu()
+                del s32, lg
+            else:
+                del sess
             torch.cuda.empty_cache()
             sess = InferenceSession.from_recipe(f32, seed=1, plan=plan, mesh=mesh)
             out[f"{arch}/f32_tokens"] = sess.generate(prompts, N, **kw).cpu()
@@ -5521,6 +5524,21 @@ def _family_check(torch, get_config, spec, arch, ref, outs, smi):
         f"{diff:.4g}, the bf16 floor {floor:.4g} (tol <= {LOGIT_FLOOR_FACTOR} x floor)")
     require(diff <= LOGIT_FLOOR_FACTOR * floor,
             f"{arch}: prefill differs by {diff:.4g}, over {LOGIT_FLOOR_FACTOR} x {floor:.4g}")
+    if spec["f32_layers"] is not None:
+        # at full depth in f32: 1e-4 of the largest logit, plus twice what one
+        # f32 rounding of the embedding, either way, moves one device's
+        # logits (the SSD's chunk sums make the hybrid's f32 logits sensitive
+        # to it, as the CPU tests' S 300 rule says)
+        got32, f32_floor = out[f"{arch}/prefill_f32"], ref[f"{arch}/prefill_f32_floor"]
+        d32 = float((got32 - f32).abs().max())
+        tol32 = 1e-4 * float(f32.abs().max()) + LOGIT_FLOOR_FACTOR * f32_floor
+        log(f"[families] {arch} f32 prefill at full depth ({cfg.n_layers} layers) "
+            f"{tuple(got32.shape)}: max |mesh - one device| {d32:.4g}, the largest logit "
+            f"{float(f32.abs().max()):.4g}, one device's change under one f32 rounding of its "
+            f"embedding either way {f32_floor:.4g} (tol <= 1e-4 x largest + "
+            f"{LOGIT_FLOOR_FACTOR} x that: {tol32:.4g})")
+        require(bool(got32.isfinite().all()) and d32 <= tol32,
+                f"{arch}: the f32 prefill at full depth differs by {d32:.4g}, over {tol32:.4g}")
     m, rm = out[f"{arch}/train"]["metrics"], ref[f"{arch}/train"]
     rel = abs(m["loss"] - rm["loss"]) / abs(rm["loss"])
     log(f"[families] {arch} f32 step ({out[f'{arch}/train']['plan']}, {f32t.n_layers} layers, "
@@ -5572,6 +5590,8 @@ def _family_check(torch, get_config, spec, arch, ref, outs, smi):
                             prefill_diff=diff, prefill_floor=floor)
     summary["train"].update(first_token_diff=d1, first_token_floor=floor1,
                             first_token_margins=margin.tolist())
+    if spec["f32_layers"] is not None:
+        summary["prefill_f32"] = dict(diff=d32, tol=tol32, floor=f32_floor)
     return {"summary": summary, "launches": launches, "failed": failed}
 
 
@@ -5678,12 +5698,30 @@ def main() -> int:
               InferenceSession, arch, n_layers)
         timed(f"18 f32 train {arch}", phase_train_f32_identity, torch, fa, da, get_config,
               TrainSession, stepfn, ParallelismConfig, DataConfig, arch, n_layers)
-    tp_summary, tp_launches = timed("20 tensor parallel", phase_tp, torch, np, get_config,
-                                    InferenceSession, TrainSession, stepfn, ParallelismConfig,
-                                    DataConfig, tree_map, smi)
-    dp_summary, dp_launches = timed("21 data parallel", phase_dp, torch, get_config, store,
-                                    smi)
-    pp_summary, pp_launches = timed("22 pipeline parallel", phase_pp, torch, get_config, smi)
+    # phases 20-22, 25, 26 and 29's worlds of two and four ranks: the
+    # references this process holds them to, each world in one spawn, then
+    # the checks
+    tp_ref, tp_mode = timed("20 references", phase_tp_refs, torch, np, get_config,
+                            InferenceSession, TrainSession, stepfn, ParallelismConfig,
+                            DataConfig, tree_map, smi)
+    dp_ref = timed("21 reference", phase_dp_ref, torch, get_config)
+    pp_ref = timed("22 reference", phase_pp_ref, torch, get_config)
+    two, two_s = timed("20, 21, 22, 25, 26 the world of two", run_world, torch,
+                       "_world_of_two", 2)
+    shutil.rmtree(TP_DIR)
+    four, four_s = timed("21, 22, 29 the world of four", run_world, torch, "_world_of_four", 4)
+    tp_summary, tp_launches = timed("20 checks", _tp_check, torch, get_config, tp_ref,
+                                    two["20"], two_s["20"], tp_mode, smi)
+    dp_summary, dp_launches = timed("21 checkpoint and checks", phase_dp_checks, torch,
+                                    get_config, store, smi, dp_ref,
+                                    {DP["ranks"]: two["21"], 4: four["21"]},
+                                    two_s["21"] + four_s["21"])
+    pp_summary, pp_launches = timed("22 checks", _pp_check, get_config, pp_ref,
+                                    {PP["ranks"]: two["22"], 4: four["22"]},
+                                    two_s["22"] + four_s["22"], smi)
+    moe_pp_launches = timed("25 checks", _moe_pp_check, get_config, two["25"], two_s["25"], smi)
+    hybrid_pp_launches = timed("26 pipeline checks", _hybrid_pp_check, get_config, two["26"],
+                               two_s["26"], smi)
     moe_launches = timed("23 moe serve", phase_moe, torch, np, build, get_config,
                          InferenceSession, tree_map, smi)
     moe_eval = {}
@@ -5714,8 +5752,6 @@ def main() -> int:
           InferenceSession, VLM["arch"], 2)
     timed("24 vlm f32 train", phase_train_f32_identity, torch, fa, da, get_config,
           TrainSession, stepfn, ParallelismConfig, DataConfig, VLM["arch"], 2)
-    moe_pp_launches, hybrid_pp_launches = timed("25 + 26 moe and hybrid pipelines",
-                                                phase_family_pp, torch, get_config, smi)
     hybrid_launches = timed("26 hybrid serve", phase_hybrid, torch, np, build,
                             InferenceSession, tree_map, smi)
     hybrid_train, hybrid_measured = timed(
@@ -5746,7 +5782,7 @@ def main() -> int:
     timed("28 whisper f32", phase_whisper_f32_identity, torch, np, get_config, InferenceSession)
     family_summary, family_launches = timed("29 every family under tp and dp", phase_family_tp,
                                             torch, np, get_config, InferenceSession, tree_map,
-                                            smi)
+                                            smi, four["29"], four_s["29"])
     timing = timed("14 timing", phase_timing, torch, fa, da, rn, smi)
     log(f"[phase] all phases {sum(seconds.values()):.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))

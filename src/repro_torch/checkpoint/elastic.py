@@ -64,8 +64,7 @@ def host_snapshot(state: Dict[str, Any], plan: ParallelismConfig, *, mesh, cfg,
     ``keep``."""
     from repro_torch.core import zero
     hints = zero.family_hints(cfg)
-    shapes = sharding.whole_shapes(state["params"], mesh, plan, cfg.vocab_size, cfg.d_model,
-                                   hints=hints, d_ff=cfg.d_ff)
+    shapes = sharding.whole_shapes(state["params"], mesh, plan, cfg)
     p_specs = zero.param_shardings(shapes, mesh, plan, hints=hints)
     o_specs = zero.opt_shardings(p_specs, shapes, mesh, plan, zero.stacks(cfg))
     stages = pipeline.split_stages(mesh, plan)

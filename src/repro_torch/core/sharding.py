@@ -193,8 +193,14 @@ def sanitize(spec: Tuple, shape: Tuple[int, ...], mesh) -> Tuple:
         ways = 1
         for a in axes:
             ways *= mesh.shape[a]
-        fixed.append(p if (dim % ways == 0 and dim >= ways) else None)
+        fixed.append(p if cuts(dim, ways) else None)
     return tuple(fixed)
+
+
+def cuts(width: int, ways: int) -> bool:
+    """:func:`sanitize`'s rule: whether ``ways`` shards cut a dim ``width``
+    long (it stays whole otherwise)."""
+    return width % ways == 0 and width >= ways
 
 
 # ---------------------------------------------------------------------------
@@ -294,21 +300,25 @@ def shard_state(tree, mesh, plan: ParallelismConfig, device=None, *, hints: Tupl
         pipeline.keep_stage(tree, plan, mesh))
 
 
-def whole_shapes(local, mesh, plan: ParallelismConfig, vocab_size: int,
-                 d_model: Optional[int] = None, *, hints: Tuple = (),
-                 d_ff: Optional[int] = None):
+def whole_shapes(local, mesh, plan: ParallelismConfig, cfg):
     """[(leaf path, the shape the leaf has whole)] for this rank's parameter
-    leaves: a dim its rule cuts is ways times as long whole, unless
-    ``sanitize`` left it whole.  A dim whose ways do not divide it is
-    whole; so a dim cut over tp is whole where it is as long as a
-    vocabulary table's ``vocab_size``, a MoE block's expert count (its
-    replicated router's columns) or an MLP's ``d_ff`` and tp does not
-    divide that width, and a dim cut over the data axis (ZeRO-3's
-    ``embed``) where it is ``d_model`` long and dp does not divide it.
-    ``hints`` as for :func:`shard_params`."""
+    leaves of model ``cfg``: a dim its rule cuts is ways times as long
+    whole, unless :func:`sanitize` left it whole, which its rule
+    (:func:`cuts`) decides on the dim's whole width.  Under tp that width is
+    the config's for the three dims tp may leave whole: a vocabulary
+    table's ``vocab_size``, a MoE block's expert count (its replicated
+    router's columns) and an MLP's hidden width (the family's
+    ``mlp_width``); ``core.stepfn.check_plan`` has tp divide every head
+    count, so every other tp dim is cut.  Over the data axis (ZeRO-3's
+    ``embed`` dim) the width is ``d_model``.  The family's placement hints
+    (``zero.family_hints``) apply."""
+    from repro_torch.core import zero
+    from repro_torch.models import api
+    hints = zero.family_hints(cfg)
     rules = AxisRules(mesh, axis_mapping(plan))
     tp_axis = rules._present("tp")
     n, dp = mesh.shape[tp_axis], mesh.shape["data"]
+    mlp_width = api.family_of(cfg).mlp_width(cfg)
     leaves = tree_leaves(local)
     routers = {path[:-1]: x.shape[-1] for path, x in leaves if path[-1] == "router"}
     out = []
@@ -318,13 +328,14 @@ def whole_shapes(local, mesh, plan: ParallelismConfig, vocab_size: int,
         spec = rules.resolve(logical)
         for d, ax in enumerate(spec):
             if ax == tp_axis and n > 1:
-                whole = ((path[-1] in ("embed", "lm_head") and shape[d] == vocab_size)
-                         or (logical[d] == "expert" and shape[d] == routers.get(path[:-1]))
-                         or (shape[d] == d_ff and shape[d] % n != 0))
+                if path[-1] in ("embed", "lm_head"):
+                    whole = not cuts(cfg.vocab_size, n)
+                elif logical[d] == "expert":
+                    whole = shape[d] == routers.get(path[:-1])
+                else:
+                    whole = path[-2:-1] == ("mlp",) and not cuts(mlp_width, n)
             elif ax == "data" and dp > 1:
-                if d_model is None:
-                    raise ValueError("whole_shapes: ZeRO-3 leaves need d_model")
-                whole = shape[d] == d_model and shape[d] % dp != 0
+                whole = shape[d] == cfg.d_model and not cuts(cfg.d_model, dp)
             else:
                 continue
             if not whole:
@@ -333,17 +344,15 @@ def whole_shapes(local, mesh, plan: ParallelismConfig, vocab_size: int,
     return out
 
 
-def gather_params(local, mesh, plan: ParallelismConfig, vocab_size: int,
-                  d_model: Optional[int] = None, *, hints: Tuple = (),
-                  d_ff: Optional[int] = None):
-    """The inverse of :func:`shard_params`: this rank's leaves → the whole
-    parameters in the reference layout, on every rank (an all-gather per
-    sharded dim of a leaf, over the tp group or the data line, and at pp >
-    1 one over the ``pp`` line per layer of a stage and leaf).  ``hints``
-    as for :func:`shard_params`, ``d_ff`` as for :func:`whole_shapes`."""
+def gather_params(local, mesh, plan: ParallelismConfig, cfg):
+    """The inverse of :func:`shard_params`: this rank's leaves of model
+    ``cfg`` → the whole parameters in the reference layout, on every rank
+    (an all-gather per sharded dim of a leaf, over the tp group or the data
+    line, and at pp > 1 one over the ``pp`` line per layer of a stage and
+    leaf)."""
     from repro_torch.core import pipeline, zero
-    specs = zero.param_shardings(whole_shapes(local, mesh, plan, vocab_size, d_model,
-                                              hints=hints, d_ff=d_ff), mesh, plan, hints=hints)
+    hints = zero.family_hints(cfg)
+    specs = zero.param_shardings(whole_shapes(local, mesh, plan, cfg), mesh, plan, hints=hints)
     with torch.no_grad():
         whole = _map_with_path(lambda path, x: gather_leaf(path, x.detach(), specs[path], mesh),
                                local)

@@ -97,10 +97,9 @@ def rank() -> int:
 
 
 def divides(width: int) -> bool:
-    """Whether the installed tp axis cuts a dim of ``width`` (``sanitize``
-    leaves it whole otherwise)."""
-    n = size()
-    return width % n == 0 and width >= n
+    """Whether the installed tp axis cuts a dim of ``width``
+    (``sharding.cuts``: ``sanitize`` leaves it whole otherwise)."""
+    return sharding.cuts(width, size())
 
 
 def sequence_parallel() -> bool:

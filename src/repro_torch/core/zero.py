@@ -244,8 +244,7 @@ class Layout:
     def __init__(self, cfg, plan: ParallelismConfig, mesh, params):
         self.plan, self.mesh = plan, mesh
         hints = family_hints(cfg)
-        shapes = sharding.whole_shapes(params, mesh, plan, cfg.vocab_size, cfg.d_model,
-                                       hints=hints, d_ff=cfg.d_ff)
+        shapes = sharding.whole_shapes(params, mesh, plan, cfg)
         p_specs = param_shardings(shapes, mesh, plan, hints=hints)
         o_specs = opt_shardings(p_specs, shapes, mesh, plan, stacks(cfg))
         g_specs = grad_constraint(p_specs, o_specs, plan)

@@ -266,6 +266,9 @@ class EncDecFamily:
     def param_sharding_hints(self, cfg):
         return ()
 
+    def mlp_width(self, cfg):
+        return cfg.d_ff
+
     def extra_input_specs(self, cfg, batch_size):
         """The non-token prefill inputs: {name: (shape, dtype)}."""
         return {"frames": ((batch_size, cfg.enc_frames, cfg.d_model), torch.float32)}

@@ -127,8 +127,8 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
     return p
 
 
-def mlp_apply(p: Params, x: torch.Tensor, *, gated: bool = True,
-              act: str = "silu", d_ff: Optional[int] = None) -> torch.Tensor:
+def mlp_apply(p: Params, x: torch.Tensor, *, d_ff: int, gated: bool = True,
+              act: str = "silu") -> torch.Tensor:
     """Column-parallel ``w_gate``/``w_up``/``w_in`` (their d_ff columns
     sharded), row-parallel ``w_out``: the regions enter from the residual
     stream's layout and leave back into it.  Where tp does not divide the
@@ -139,7 +139,7 @@ def mlp_apply(p: Params, x: torch.Tensor, *, gated: bool = True,
     and are not summed over tp; under sequence parallel each rank's are a
     partial sum over its S/tp rows (``core.stepfn`` all-reduces them)."""
     dt = x.dtype
-    regions = d_ff is None or tp.divides(d_ff)
+    regions = tp.divides(d_ff)
     if regions:
         x = tp.enter(x)
     if gated:

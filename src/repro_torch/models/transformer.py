@@ -615,6 +615,11 @@ class DecoderOnlyLM:
         for the dense stack."""
         return ()
 
+    def mlp_width(self, cfg):
+        """The hidden width of every block's ``mlp`` (``core.sharding``
+        leaves such an MLP whole where tp does not divide it)."""
+        return cfg.d_ff
+
     def extra_input_specs(self, cfg, batch_size):
         """The family's non-token prefill inputs, {name: (shape, dtype)}:
         none for a token-only stack."""
@@ -670,6 +675,10 @@ class SSMLM(DecoderOnlyLM):
     ``_require_paged_plan``); the prompt goes into the recurrent states
     through the decode scan.  The placement hints are the hybrid's
     (``_SSM_SCAN_HINTS`` in the reference)."""
+
+    def mlp_width(self, cfg):
+        """Only the sLSTM blocks have an ``mlp``: their GeGLU FFN."""
+        return xlstm_mod.slstm_ff(cfg)
 
     def prefill_cache(self, cfg, params, batch, caches):
         return lm_prefill_scan(cfg, params, batch, caches)

@@ -72,7 +72,7 @@ def _inner(cfg: ModelConfig) -> int:
     return int(cfg.proj_factor * cfg.d_model)
 
 
-def _slstm_ff(cfg: ModelConfig) -> int:
+def slstm_ff(cfg: ModelConfig) -> int:
     return int(math.ceil(8 * cfg.d_model / 3 / 64) * 64)
 
 
@@ -261,7 +261,7 @@ def slstm_block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
         "bo": torch.zeros((d,), dtype=torch.float32, device=dev),
         "out_norm": layers.norm_init("rmsnorm", d, dev),
         "norm2": layers.norm_init(cfg.norm, d, dev),
-        "mlp": layers.mlp_init(gen, d, _slstm_ff(cfg), gated=True),
+        "mlp": layers.mlp_init(gen, d, slstm_ff(cfg), gated=True),
     })
     return p
 
@@ -412,7 +412,7 @@ def _slstm_out(cfg: ModelConfig, p: Params, x: torch.Tensor, h: torch.Tensor) ->
     over d and added to the residual stream, then the FFN."""
     x = x + tp.leave_cols(layers.rmsnorm_heads(p["out_norm"], h.to(x.dtype)))
     return x + layers.mlp_apply(p["mlp"], layers.norm_apply(cfg.norm, p["norm2"], x),
-                                gated=True, d_ff=_slstm_ff(cfg))
+                                gated=True, d_ff=slstm_ff(cfg))
 
 
 def _local_heads(cfg: ModelConfig, pre: torch.Tensor) -> int:
@@ -445,5 +445,5 @@ def xlstm_param_count(cfg: ModelConfig) -> int:
     m_block = d + d * 2 * inner + 4 * inner + 3 * inner * inner + 2 * inner * H + 2 * H \
         + inner + inner * d
     dh = d // H
-    s_block = d + 4 * (d * d + H * dh * dh) + 4 * d + d + d + 3 * d * _slstm_ff(cfg)
+    s_block = d + 4 * (d * d + H * dh * dh) + 4 * d + d + d + 3 * d * slstm_ff(cfg)
     return n_m * m_block + n_s * s_block

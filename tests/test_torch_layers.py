@@ -79,7 +79,7 @@ def test_mlp_matches_reference(gated, act):
     p["w_out"] = rand(ff, d, seed=20, scale=0.2)
     x = rand(2, 5, d, seed=21)
     got = tl.mlp_apply({k: torch.from_numpy(v) for k, v in p.items()}, torch.from_numpy(x),
-                       gated=gated, act=act)
+                       d_ff=ff, gated=gated, act=act)
     want = jl.mlp_apply({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
                         gated=gated, act=act)
     close(got, want)
@@ -90,7 +90,7 @@ def test_gelu_is_the_tanh_approximation():
     p = {"w_in": np.eye(8, dtype=np.float32) * 3, "w_out": np.eye(8, dtype=np.float32)}
     x = np.linspace(-2, 2, 8, dtype=np.float32)[None]
     got = tl.mlp_apply({k: torch.from_numpy(v) for k, v in p.items()}, torch.from_numpy(x),
-                       gated=False, act="gelu")
+                       d_ff=8, gated=False, act="gelu")
     exact = torch.nn.functional.gelu(torch.from_numpy(3 * x))
     assert float((got - exact).abs().max()) > 1e-4
     want = jl.mlp_apply({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),

@@ -241,7 +241,7 @@ def _rank_case(case, mesh, tmp):
     sess.state = state
     out = {}
     local = sess.state["params"]
-    back = sharding.gather_params(local, mesh, plan, cfg.vocab_size, cfg.d_model, hints=hints)
+    back = sharding.gather_params(local, mesh, plan, cfg)
     out["roundtrip_bitwise"] = np.array(all(
         torch.equal(a, b) for (_, a), (_, b) in zip(tree_leaves(back), tree_leaves(whole))))
     out["n_sharded"] = np.array(sum(x.shape != dict(tree_leaves(whole))[p].shape
@@ -254,8 +254,7 @@ def _rank_case(case, mesh, tmp):
     for k, v in sess.step(batch).items():
         out[f"metric/{k}"] = np.asarray(float(v))
     out["counts"] = np.array(json.dumps(dict(tp.by_group)))
-    tree = sharding.gather_params(sess.state["params"], mesh, plan, cfg.vocab_size, cfg.d_model,
-                                  hints=hints)
+    tree = sharding.gather_params(sess.state["params"], mesh, plan, cfg)
     out.update(state_to_numpy({"params": tree}))
     if case in SERVED:
         inf = InferenceSession.from_params(cfg, params_from_numpy(

@@ -322,7 +322,7 @@ def _rank_case(name, sp, mesh, tmp):
     whole = params_from_numpy(flat)
     shapes = {p: x.shape for p, x in tree_leaves(whole)}
     local = sharding.shard_params(whole, mesh, plan)
-    back = sharding.gather_params(local, mesh, plan, cfg.vocab_size, d_ff=cfg.d_ff)
+    back = sharding.gather_params(local, mesh, plan, cfg)
     out["roundtrip_bitwise"] = np.array(all(
         torch.equal(a, b) for (_, a), (_, b) in zip(tree_leaves(back), tree_leaves(whole))))
     out["n_sharded"] = np.array(sum(x.shape != shapes[p] for p, x in tree_leaves(local)))
@@ -340,7 +340,7 @@ def _rank_case(name, sp, mesh, tmp):
         for key, local in (("params", sess.state["params"]), ("m", sess.state["opt"]["m"]),
                            ("ef", sess.state.get("ef"))):
             if local is not None:
-                tree = sharding.gather_params(local, mesh, plan, cfg.vocab_size, d_ff=cfg.d_ff)
+                tree = sharding.gather_params(local, mesh, plan, cfg)
                 for path, x in tree_leaves(tree):
                     out[f"{tag}/{key}/" + "/".join(map(str, path))] = x.detach().numpy()
     if not sp:

@@ -404,7 +404,7 @@ def _rank_main(tmp):
         for k, v in sess.step(batch).items():
             out[f"metric/{k}"] = np.asarray(float(v))
         out.update(state_to_numpy({"params": sharding.gather_params(
-            sess.state["params"], mesh, plan, cfg.vocab_size, cfg.d_model, hints=hints)}))
+            sess.state["params"], mesh, plan, cfg)}))
         np.savez(tmp / f"{case}_r{rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()

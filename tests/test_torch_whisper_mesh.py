@@ -3,12 +3,14 @@ against the JAX reference on one device, on the CPU, in f32
 (``tests/torch_family_mesh.py`` runs the worlds and holds the results).
 
 The cut of ``tests/test_torch_whisper.py``: 2 + 2 layers, 4 heads, 50
-frames against 37 tokens (an odd count: no sequence parallel, which would
-lay the tokens over tp).  The plans: tp 2 (the encoder's and the decoder's
+frames against 37 tokens.  The plans: tp 2 (the encoder's and the decoder's
 self-attention and MLP as the dense stack's, the cross K/V cut by heads
-over the whole encoder output, the vocabulary-parallel table); dp 2 at ZeRO
-1 and 3 (the two stacks' optimizer states cut on their (L, ...) shapes);
-tp 2 x dp 2 at ZeRO-3 in a world of four.  Each: three steps (metrics 1e-5,
+over the whole encoder output, the vocabulary-parallel table); tp 2 under
+sequence parallel over 38 tokens (tp must divide the frames and the
+tokens: both streams lie over tp, and the encoder's output is gathered
+over the frames before the cross K/V read it); dp 2 at ZeRO 1 and 3 (the
+two stacks' optimizer states cut on their (L, ...) shapes); tp 2 x dp 2 at
+ZeRO-3 in a world of four.  Each: three steps (metrics 1e-5,
 the first gradient 5e-4, params 1e-5), the sharded checkpoint gathered to
 the reference's layout (its (L, ...) leaves) and back, eval, the prefill
 logits over the batch's frames (2e-5) and the greedy tokens over the stub
@@ -25,6 +27,7 @@ ARCH, SEQ = "whisper_base", 37
 CUT = (("enc_frames", 50),)
 CASES = [
     Case("tp2", 2, (("tp", 2),), (("tp", 2),), CUT),
+    Case("tp2-sp", 2, (("tp", 2),), (("tp", 2), ("sequence_parallel", True)), CUT, seq=38),
     Case("dp2-z1", 2, (("pods", 1),), (("dp", 2), ("zero_stage", 1)), CUT),
     Case("dp2-z3", 2, (("pods", 1),), (("dp", 2), ("zero_stage", 3)), CUT),
     Case("tp2-dp2-z3", 4, (("tp", 2),), (("tp", 2), ("dp", 2), ("zero_stage", 3)), CUT),

@@ -33,7 +33,7 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import jax.numpy as jnp
 import numpy as np
@@ -53,13 +53,15 @@ N_STEPS, NEW, PROMPT, EVAL_BATCH = 3, 6, 10, 7
 class Case:
     """One plan of a family: ``mesh`` the keywords of ``make_recipe_mesh``
     in a world of ``world`` ranks, ``plan`` those of ``ParallelismConfig``
-    (gas 2 added), ``cfg`` the reduced config's overrides."""
+    (gas 2 added), ``cfg`` the reduced config's overrides, ``seq`` the
+    tokens a row where the case needs another count than its file's."""
     name: str
     world: int
     mesh: Tuple = ()
     plan: Tuple = ()
     cfg: Tuple = ()
     serve: bool = True
+    seq: Optional[int] = None
 
 
 def _extra(arch):
@@ -144,8 +146,8 @@ def reference(arch, seq, cfg=(), serve=False):
 def run_worlds(module, arch, seq, cases, tmp):
     """Every case's initial state written, every world's ranks started, the
     references computed while they run → {case name: the reference}."""
-    for cfg in {c.cfg for c in cases}:
-        np.savez(tmp / f"init{_tag(cfg)}.npz", **_steps(arch, seq, cfg, N_STEPS).initial)
+    for cfg, s in {(c.cfg, c.seq or seq) for c in cases}:
+        np.savez(tmp / f"init{_tag(cfg, s)}.npz", **_steps(arch, s, cfg, N_STEPS).initial)
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")]),
            "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1"}
     procs = {world: [subprocess.Popen([sys.executable, "-c",
@@ -155,10 +157,10 @@ def run_worlds(module, arch, seq, cases, tmp):
                                       text=True)
                      for r in range(world)]
              for world in sorted({c.world for c in cases})}
-    keys = {(c.cfg, c.serve) for c in cases}
+    keys = {(c.seq or seq, c.cfg, c.serve) for c in cases}
     with ThreadPoolExecutor() as ex:
-        done = dict(zip(keys, ex.map(lambda k: reference(arch, seq, *k), keys)))
-    refs = {c.name: done[c.cfg, c.serve] for c in cases}
+        done = dict(zip(keys, ex.map(lambda k: reference(arch, *k), keys)))
+    refs = {c.name: done[c.seq or seq, c.cfg, c.serve] for c in cases}
     for world, ps in procs.items():
         logs = []
         for p in ps:
@@ -173,8 +175,8 @@ def run_worlds(module, arch, seq, cases, tmp):
     return refs
 
 
-def _tag(cfg):
-    return "".join(f"-{k}{v}" for k, v in cfg)
+def _tag(cfg, seq):
+    return "".join(f"-{k}{v}" for k, v in cfg) + f"-seq{seq}"
 
 
 def rank_main(arch, seq, cases, world, tmp):
@@ -198,10 +200,11 @@ def _rank_case(arch, seq, case, tmp) -> Dict[str, np.ndarray]:
     from repro_torch.core.recipe import ParallelismConfig
     from repro_torch.launch.mesh import make_recipe_mesh
     from repro_torch.session import InferenceSession, TrainSession
+    seq = case.seq or seq
     _, cfg = _cfgs(arch, **dict(case.cfg))
     mesh = make_recipe_mesh(device_type="cpu", **dict(case.mesh))
     plan = ParallelismConfig(gas=GAS, **dict(case.plan))
-    initial = dict(np.load(tmp / f"init{_tag(case.cfg)}.npz"))
+    initial = dict(np.load(tmp / f"init{_tag(case.cfg, seq)}.npz"))
     sess = TrainSession(cfg, plan=plan, mesh=mesh, device="cpu",
                         train_cfg=_train_cfgs(consensus=False)[1], data_cfg=_data(seq)[1])
     sess.state = reshard_state(state_from_numpy(initial), plan, mesh=mesh, cfg=cfg)
